@@ -6,23 +6,40 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases, each of which exits non-zero on failure:
 
-1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a) and
-   print ptxas's register / shared-memory report;
-2. hold every kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (gpt2-small: H=12, Dh=64, BT=16; decode
-   B=8 with contexts up to 1024, prefill chunks of C=64) and at the
-   tiny test shapes, for every mask mode and pool type (f32, bf16,
-   int8, fp8) and with all-hole rows; time the kernel, its plain
+1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a, one
+   process per source, all at once) and print ptxas's register /
+   shared-memory report;
+2. hold the paged-attention kernel against its plain PyTorch version on
+   the card, at the serving path's shapes (gpt2-small: H=12, Dh=64,
+   BT=16; decode B=8 with contexts up to 1024, prefill chunks of C=64)
+   and at the tiny test shapes, for every mask mode and pool type (f32,
+   bf16, int8, fp8) and with all-hole rows; time the kernel, its plain
    version and the library yardstick (SDPA over the gathered K/V) with
    CUDA events;
-3. drive the main path: the port's HTTP server, in process, serving
+3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
+   their plain versions, in every mask mode, f32 and bf16, with a row
+   that sees no key, at the tiny test shapes and the training path's
+   shapes (BERT-large bench [32, 128, 16, 64], GPT-2 small
+   [4, 1024, 12, 64] causal); time each kernel, its plain version and
+   SDPA's forward / backward at those shapes;
+4. drive the serving path: the port's HTTP server, in process, serving
    gpt2-small at full width and depth with random weights from a fixed
    seed, f32, ``attn_impl`` auto; check identical prompts give
    identical tokens, batched == single, /healthz reports the kernel and
    paged KV, the kernel launch counter covers every layer of every
    prefill chunk and decode step, and an ``attn_impl="gather"`` engine
    on the card gives the same tokens;
-4. print the card's name and power limit, one JSON line describing every
+5. drive the training path: ``examples/bert_pretraining.main`` at the
+   bench configuration (BERT-large, 32 sequences of 128 tokens per
+   micro-batch, 2 micro-batches per optimizer step, 20 masked positions,
+   flash attention, bf16 products) through ``DistributedOptimizer`` over
+   NCCL; check the losses are finite and fall, no gradient is NaN, and
+   each flash kernel launched 24 times per micro-batch; report
+   samples/s, step time, peak memory and the device's busy share of a
+   traced step.  Then hold one f32 step of a 2-layer BERT-large-width
+   model through the kernels against the dense attention path, and run
+   3 steps of GPT-2 small with causal flash attention at 1024 tokens;
+6. print the card's name and power limit, one JSON line describing every
    ported kernel, and as the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
@@ -42,11 +59,16 @@ import urllib.request
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet) for the roofline bound: HBM bytes/s
-# and f32 FMA-pipe flop/s (the kernel computes in f32 off the tensor cores).
+# H100 SXM peaks (NVIDIA data sheet) for the roofline bound: HBM bytes/s,
+# f32 FMA-pipe flop/s and dense bf16 tensor-core flop/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 RTOL, ATOL = 2e-4, 2e-5   # the JAX package's paged-attention tolerance
+# The JAX package's flash tolerances (tests/test_flash.py): f32 forward,
+# f32 gradients, bf16 (forward and gradients).
+FLASH_TOL = {"float32": ((2e-4, 2e-5), (2e-3, 2e-4)),
+             "bfloat16": ((0.1, 0.05), (0.1, 0.05))}
 
 
 def log(msg: str) -> None:
@@ -280,7 +302,168 @@ def kernel_phase(torch, pa, device, rehearsal):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the main path
+# Phase 3: the FlashAttention-2 kernels
+# ---------------------------------------------------------------------------
+
+def _pairs(S, mode):
+    """(query, key) pairs per (b, h) that the mask keeps."""
+    return {0: S * S, 1: S * (S + 1) // 2, 2: S * (S - 1) // 2}[mode]
+
+
+def flash_work(shape, dtype_bytes, mode):
+    """(bytes, flops) each kernel's function needs at ``shape``: every
+    [B, S, H, D] operand read once and output written once (lse / delta
+    rows in f32); 2*D flops per kept pair and product — 2 products
+    forward (q·kᵀ, p·v), 3 for dQ (q·kᵀ, dO·vᵀ, ds·k), 4 for dK/dV
+    (q·kᵀ, dO·vᵀ, pᵀ·dO, dsᵀ·q)."""
+    B, S, H, D = shape
+    t = B * S * H * D * dtype_bytes
+    row = B * H * S * 4
+    pair_flops = 2 * D * _pairs(S, mode) * B * H
+    return {"flash_fwd": (4 * t + row, 2 * pair_flops),
+            "flash_bwd_dq": (5 * t + 2 * row, 3 * pair_flops),
+            "flash_bwd_dkv": (6 * t + 2 * row, 4 * pair_flops)}
+
+
+def flash_case(torch, fl, rng, shape, dtype, mode, device):
+    """Run the three kernels (the plain versions on the CPU) and their
+    plain versions on one problem; returns the max abs error of each
+    kernel and whether every output is within tolerance."""
+    mk = lambda: torch.as_tensor(  # noqa: E731
+        (rng.randn(*shape) * 0.5).astype(np.float32), device=device).to(dtype)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    scale = 1.0 / np.sqrt(shape[-1])
+    (frt, fat), (grt, gat) = FLASH_TOL[str(dtype).split(".")[-1]]
+    out, lse = fl.flash_fwd(q, k, v, mode, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, mode, scale)
+    dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, mode, scale)
+    kw = dict(mask_mode=mode, scale=scale)
+    r_out, r_lse = fl.attention_fwd_reference(q, k, v, **kw)
+    r_dq = fl.attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    r_dk, r_dv = fl.attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    def close(a, b, rt, at):
+        return bool(torch.allclose(a.float(), b.float(), rtol=rt, atol=at))
+
+    errs = {"flash_fwd": max(err(out, r_out), err(lse, r_lse)),
+            "flash_bwd_dq": err(dq, r_dq),
+            "flash_bwd_dkv": max(err(dk, r_dk), err(dv, r_dv))}
+    ok = (close(out, r_out, frt, fat) and close(lse, r_lse, frt, fat)
+          and all(close(a, b, grt, gat)
+                  for a, b in ((dq, r_dq), (dk, r_dk), (dv, r_dv))))
+    if mode == fl.MASK_STRICT:  # row 0 sees no key
+        ok = ok and float(out[:, 0].float().abs().max()) == 0.0 \
+            and bool(torch.all(lse[:, :, 0] == fl.NEG_INF / 2)) \
+            and float(dq[:, 0].float().abs().max()) == 0.0
+    ok = ok and all(bool(torch.isfinite(t.float()).all())
+                    for t in (out, lse, dq, dk, dv))
+    return errs, ok, (q, k, v, do, lse, delta, scale)
+
+
+def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
+    """Time each kernel, its plain version and SDPA (forward; backward
+    for both backward kernels) at one of the path's shapes."""
+    q, k, v, do, lse, delta, scale = inputs
+    kw = dict(mask_mode=mode, scale=scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    s_out = sdpa(sq, sk, sv, is_causal=mode == fl.MASK_CAUSAL)
+    s_g = do.transpose(1, 2).contiguous()
+    lib_fwd = time_ms(torch, lambda: sdpa(sq, sk, sv,
+                                          is_causal=mode == fl.MASK_CAUSAL),
+                      20, flush)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        s_out, (sq, sk, sv), s_g, retain_graph=True), 20, flush)
+    runs = {
+        "flash_fwd": (lambda: fl.flash_fwd(q, k, v, mode, scale),
+                      lambda: fl.attention_fwd_reference(q, k, v, **kw),
+                      lib_fwd),
+        "flash_bwd_dq": (
+            lambda: fl.flash_bwd_dq(q, k, v, do, lse, delta, mode, scale),
+            lambda: fl.attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  **kw), lib_bwd),
+        "flash_bwd_dkv": (
+            lambda: fl.flash_bwd_dkv(q, k, v, do, lse, delta, mode, scale),
+            lambda: fl.attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   **kw), lib_bwd),
+    }
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    work = flash_work(shape, q.element_size(), mode)
+    record = {}
+    for kname, (kern, plain, lib_ms) in runs.items():
+        nbytes, flops = work[kname]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        rec = {"ms": time_ms(torch, kern, 20, flush),
+               "plain_ms": time_ms(torch, plain, 5, flush),
+               "library_ms": lib_ms,
+               "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        record[kname] = rec
+        log(f"  timing {kname} {name} (cold L2): kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, sdpa "
+            f"{'fwd' if kname == 'flash_fwd' else 'bwd'} {lib_ms:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
+            f"{flops} flop), roofline share {rec['bound_ms'] / rec['ms']:.3f}")
+    return record
+
+
+def flash_phase(torch, device, rehearsal):
+    """Phase 3.  Returns the max abs error of each kernel over every
+    case and the timings at the BERT-large bench shape."""
+    from horovod_tpu_torch.parallel import flash as fl
+    rng = np.random.RandomState(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    modes = (fl.MASK_NONE, fl.MASK_CAUSAL, fl.MASK_STRICT)
+    cases = [(f"tiny {shape}", shape, dt, m)
+             for shape in ((2, 8, 2, 16), (2, 128, 4, 32), (1, 96, 3, 64),
+                           (1, 80, 2, 128))
+             for dt in (f32, bf16) for m in modes]
+    bert, gpt2 = (32, 128, 16, 64), (4, 1024, 12, 64)
+    if not rehearsal:
+        cases += [("bert-large", bert, bf16, fl.MASK_NONE),
+                  ("bert-large", bert, f32, fl.MASK_NONE),
+                  ("gpt2-small", gpt2, bf16, fl.MASK_CAUSAL),
+                  ("gpt2-small", gpt2, f32, fl.MASK_CAUSAL)]
+    max_err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    timed = {}
+    for name, shape, dt, mode in cases:
+        errs, ok, inputs = flash_case(torch, fl, rng, shape, dt, mode,
+                                      device)
+        for kname, e in errs.items():
+            max_err[kname] = max(max_err[kname], e)
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        log(f"  {name} {str(dt).split('.')[-1]} mask={mode}: max_abs_err "
+            + ", ".join(f"{k[6:]} {e:.3e}" for k, e in errs.items())
+            + f" ({'ok' if ok else 'MISMATCH'} at fwd {tol[0]} grad "
+              f"{tol[1]})")
+        if not ok:
+            raise SystemExit(f"flash kernels disagree with their plain "
+                             f"versions: {name} {dt} mask={mode}")
+        if not rehearsal and dt == bf16 and shape in (bert, gpt2):
+            timed[name] = (shape, dt, mode, inputs)
+    if rehearsal:
+        return {"max_abs_err": max_err}
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+    record = {"max_abs_err": max_err}
+    for name, (shape, dt, mode, inputs) in timed.items():
+        record[name] = flash_timing(torch, fl, f"{name} {list(shape)} bf16 "
+                                    f"mask={mode}", shape, dt, mode, inputs,
+                                    flush)
+    del flush
+    return record
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the serving path
 # ---------------------------------------------------------------------------
 
 def http_json(port, path, body=None):
@@ -447,6 +630,172 @@ def main_path(torch, device, rehearsal, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the training path
+# ---------------------------------------------------------------------------
+
+def _top_ops(torch, prof, n=10):
+    """The profile's largest device kernels and host ops by self time."""
+    cpu = torch.autograd.DeviceType.CPU
+    dev = sorted(((e.self_device_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type != cpu and not e.is_user_annotation),
+                 reverse=True)
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == cpu),
+                  reverse=True)
+    for title, rows in (("device kernels", dev), ("host ops", host)):
+        log(f"    {title}: {sum(r[0] for r in rows) / 1e3:.1f} ms in all")
+        for us, count, key in rows[:n]:
+            log(f"    {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
+def bert_main_path(torch, fl, rehearsal):
+    """``bert_pretraining.main`` at the bench configuration; returns the
+    flash launch counts of its run."""
+    from horovod_tpu_torch.examples import bert_pretraining as bp
+    steps, traced = (6, 0) if rehearsal else (8, 2)
+    if rehearsal:
+        argv = ["--device", "cpu", "--size", "tiny", "--batch-per-slot", "4",
+                "--seq-len", "32", "--mlm-positions", "5"]
+    else:
+        argv = ["--size", "large", "--batch-per-slot", "32", "--seq-len",
+                "128", "--mlm-positions", "20"]
+    argv += ["--accum", "2", "--attention", "flash", "--steps", str(steps),
+             "--trace-steps", str(traced)]
+    log(f"  bert_pretraining.main({argv})")
+    for name in fl.LAUNCHES:  # the counts cover exactly the main path's run
+        fl.LAUNCHES[name] = 0
+    losses, samples_s = bp.main(argv)
+    launches = dict(fl.LAUNCHES)
+    st = bp.STATS
+    micro = steps + traced
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    log(f"  flash launches {launches} over {micro} micro-batches")
+    failures = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses not finite and falling: {losses}")
+    if not st["grads_finite"]:
+        failures.append("a gradient is not finite")
+    if not rehearsal:
+        want = 24 * micro
+        if any(n != want for n in launches.values()):
+            failures.append(f"flash launches {launches}, expected {want} "
+                            f"each (24 layers x {micro} micro-batches)")
+        log(f"  samples/s {samples_s:.1f}; micro-batch "
+            f"{st['micro_batch_ms']:.2f} ms, optimizer step (2 micro-"
+            f"batches) {st['step_ms']:.2f} ms; peak device memory "
+            f"{st['peak_bytes'] / 2**20:.1f} MiB")
+        busy = st["busy_share"]
+        log(f"  traced {traced} micro-batches: wall "
+            f"{st['traced_wall_ms']:.1f} ms, device busy {busy:.3f} of "
+            f"wall (idle {1 - busy:.3f})")
+        # The profiler's host tracing slows the host, not the device: the
+        # traced device time per micro-batch over the untraced micro-batch
+        # time is the busy share the timed steps had.
+        dev_ms = st["device_ms_per_micro_batch"]
+        log(f"  device time per micro-batch {dev_ms:.2f} ms (traced) of "
+            f"{st['micro_batch_ms']:.2f} ms untraced: busy "
+            f"{dev_ms / st['micro_batch_ms']:.3f} of an untraced "
+            f"micro-batch")
+        _top_ops(torch, st["profile"])
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("training path failed")
+    return launches, samples_s
+
+
+def flash_vs_dense_step(torch, device, rehearsal):
+    """One f32 step of a 2-layer model at BERT-large width through the
+    flash kernels, against the same model with dense attention (the
+    plain formula): loss and every gradient at 2e-3 / 2e-4."""
+    import dataclasses
+    from horovod_tpu_torch.models import BERT_LARGE, Transformer, lm_loss
+    from horovod_tpu_torch.models.transformer import init_gpt2_
+    cfg = dataclasses.replace(BERT_LARGE, num_layers=2, max_len=128,
+                              dtype=torch.float32, attention_impl="flash")
+    B, S, K = 8, 128, 20
+    if rehearsal:
+        cfg = dataclasses.replace(cfg, vocab_size=97, num_heads=4,
+                                  d_model=64, d_ff=128)
+        B, S, K = 2, 32, 5
+    rng = np.random.RandomState(3)
+    tokens = torch.as_tensor(rng.randint(5, cfg.vocab_size, (B, S)),
+                             device=device)
+    pos = torch.as_tensor(np.sort(np.stack(
+        [rng.choice(S, K, replace=False) for _ in range(B)])), device=device)
+    labels = torch.as_tensor(rng.randint(5, cfg.vocab_size, (B, K)),
+                             device=device)
+    flash = init_gpt2_(Transformer(cfg, device=device),
+                       torch.Generator(device=device).manual_seed(5))
+    dense = Transformer(dataclasses.replace(cfg, attention_impl=None),
+                        device=device)
+    dense.load_state_dict(flash.state_dict())
+    out = []
+    for m in (flash, dense):
+        loss = lm_loss(m(tokens, predict_positions=pos), labels)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        out.append((loss.detach(), grads))
+    (lf, gf), (ld, gd) = out
+    err = max(float((a - b).abs().max()) for a, b in zip(gf, gd))
+    ok = bool(torch.allclose(lf, ld, rtol=2e-3, atol=2e-4)) and all(
+        bool(torch.allclose(a, b, rtol=2e-3, atol=2e-4))
+        for a, b in zip(gf, gd))
+    log(f"  f32 2-layer BERT-large width, B={B} S={S}: loss flash "
+        f"{float(lf):.6f} dense {float(ld):.6f}, max grad abs err {err:.3e} "
+        f"({'ok' if ok else 'MISMATCH'} at 2e-3/2e-4)")
+    if not ok:
+        raise SystemExit("flash step disagrees with the dense step")
+
+
+def gpt2_flash_steps(torch, fl, device, rehearsal):
+    """3 steps of GPT-2 small (bf16 products) with causal flash attention
+    at 1024 tokens through DistributedOptimizer."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    kw = dict(attention_impl="flash", dtype=torch.bfloat16)
+    B, S = 4, 1024
+    if rehearsal:
+        kw.update(num_layers=2, num_heads=2, d_model=32, d_ff=64,
+                  vocab_size=97, max_len=64, dtype=torch.float32)
+        B, S = 2, 64
+    model = create_gpt2("small", device=device, seed=9, **kw)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    tokens = torch.as_tensor(np.random.RandomState(4).randint(
+        0, model.cfg.vocab_size, (B, S)), device=device)
+    before = dict(fl.LAUNCHES)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = lm_loss(model(tokens)[:, :-1], tokens[:, 1:])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    launches = {k: fl.LAUNCHES[k] - before[k] for k in before}
+    log(f"  gpt2-small causal flash, B={B} S={S}: losses "
+        f"{[round(x, 4) for x in losses]}, launches {launches}")
+    bad = not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+    if not rehearsal and any(n != 3 * model.cfg.num_layers
+                             for n in launches.values()):
+        bad = True
+    if bad:
+        raise SystemExit("GPT-2 flash steps failed")
+
+
+def training_phase(torch, device, rehearsal):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import flash as fl
+    try:
+        launches, _ = bert_main_path(torch, fl, rehearsal)
+        flash_vs_dense_step(torch, device, rehearsal)
+        gpt2_flash_steps(torch, fl, device, rehearsal)
+    finally:
+        hvd.shutdown()  # the process group the trainer's init formed
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -479,11 +828,17 @@ def main(argv=None) -> int:
                                          or "Compiling" in line):
                 log("  " + line.strip())
 
-    log("phase 2: kernel against its plain version")
+    log("phase 2: paged attention kernel against its plain version")
     rec = kernel_phase(torch, pa, device, rehearsal)
 
-    log("phase 3: main path (HTTP server, GPT-2)")
+    log("phase 3: flash attention kernels against their plain versions")
+    frec = flash_phase(torch, device, rehearsal)
+
+    log("phase 4: serving path (HTTP server, GPT-2)")
     launches = main_path(torch, device, rehearsal, args.seed)
+
+    log("phase 5: training path (BERT-large, DistributedOptimizer, NCCL)")
+    flash_launches = training_phase(torch, device, rehearsal)
 
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
@@ -496,7 +851,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi failed: {smi.stderr.strip()}")
     dec = rec["decode B=8 ctx=1024 f32"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_attention",
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/paged_attention.cu",
@@ -509,7 +864,23 @@ def main(argv=None) -> int:
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
         "shape": "decode B=8 H=12 Dh=64 BT=16 ctx=1024 f32 pool, cold L2",
-    }]}))
+    }]
+    replaces = {"flash_fwd": "horovod_tpu/parallel/flash.py:125",
+                "flash_bwd_dq": "horovod_tpu/parallel/flash.py:158",
+                "flash_bwd_dkv": "horovod_tpu/parallel/flash.py:195"}
+    for name, where in replaces.items():
+        r = frec["bert-large"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": where, "launches": flash_launches[name],
+            "max_abs_err": frec["max_abs_err"][name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "BERT-large bench [32, 128, 16, 64] bf16, no mask, "
+                     "cold L2"})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,43 @@ kernels rewritten by hand for NVIDIA Hopper (``csrc/``).  It imports
 torch, numpy and the standard library only — never jax, flax or
 anything of ``horovod_tpu``.
 
-Ported so far: the paged-KV, continuous-batching serving path
-(``serve/``, ``python -m horovod_tpu_torch.serve``) over the GPT-2
-transformer (``models/``), with paged attention in a CUDA kernel
-(``csrc/paged_attention.cu``).  Entry points run on ``cuda`` unless the
-caller asks for ``device="cpu"``.
+Ported so far:
+
+* the data-parallel training path, with the Horovod API exported here as
+  the JAX package exports it (``hvd.init``, rank / size, ``allreduce``,
+  ``broadcast_parameters``, ``DistributedOptimizer`` ...), over
+  ``torch.distributed`` (NCCL on a card, gloo on the CPU), and GPT-2 /
+  BERT with FlashAttention-2 in CUDA kernels
+  (``csrc/flash_attention.cu``); the trainer is
+  ``python -m horovod_tpu_torch.examples.bert_pretraining``;
+* the paged-KV, continuous-batching serving path (``serve/``,
+  ``python -m horovod_tpu_torch.serve``), with paged attention in a CUDA
+  kernel (``csrc/paged_attention.cu``).
+
+Entry points run on ``cuda`` unless the caller asks for
+``device="cpu"``.
 """
+
+from .core import (  # noqa: F401
+    init, shutdown, is_initialized,
+    rank, size, local_rank, local_size, cross_rank, cross_size,
+    num_slots, device,
+    mpi_threads_supported, mpi_enabled, mpi_built,
+    gloo_enabled, gloo_built, nccl_built, ddl_built, ccl_built,
+    cuda_built, rocm_built, xla_built, xla_enabled,
+)
+
+from .ops import (  # noqa: F401
+    ReduceOp, Average, Sum, Adasum, Min, Max, Product,
+    allreduce, grouped_allreduce, broadcast, barrier,
+)
+
+from .compression import Compression  # noqa: F401
+
+from .optimizer import DistributedOptimizer  # noqa: F401
+
+from .functions import (  # noqa: F401
+    broadcast_variables, broadcast_parameters, broadcast_optimizer_state,
+)
+
+from .process_sets import ProcessSet, global_process_set  # noqa: F401

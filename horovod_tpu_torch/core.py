@@ -1,0 +1,230 @@
+"""Global runtime state and the init / info API.
+
+Port of ``horovod_tpu/core.py:146-453``: ``init``, ``shutdown``,
+``is_initialized``, rank / size / local / cross, ``num_slots`` and the
+built / enabled queries.
+
+The world forms through ``torch.distributed.init_process_group``: NCCL
+for a CUDA device, gloo for ``device="cpu"``.  Under a launcher
+(``HOROVOD_RANK`` / ``HOROVOD_SIZE`` set, size > 1) the store's address
+comes from the same environment the JAX package's
+``_maybe_join_distributed`` reads (``core.py:72-143``):
+``HVD_TPU_COORDINATOR``, else the rendezvous address at its port + 1.
+A world of one still gets a one-member group over an in-memory
+``HashStore``, so a single card's training step goes through NCCL like
+a many-card one.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from . import config as _config
+from . import topology as _topology
+from .utils.device import resolve_device
+from .utils.logging import get_logger
+
+
+class _GlobalState:
+    """Singleton per process (``HorovodGlobalState`` in the reference)."""
+
+    def __init__(self):
+        self.lock = threading.RLock()
+        self.initialized = False
+        self.config: Optional[_config.Config] = None
+        self.topology: Optional[_topology.Topology] = None
+        self.device: Optional[torch.device] = None
+        self.backend: Optional[str] = None
+        self.owns_group = False
+
+
+_state = _GlobalState()
+
+
+def _store_address() -> str:
+    coord = os.environ.get(_config.HVD_TPU_COORDINATOR)
+    if coord:
+        return coord
+    addr = os.environ.get(_config.HOROVOD_RENDEZVOUS_ADDR)
+    port = os.environ.get(_config.HOROVOD_RENDEZVOUS_PORT)
+    if addr is None:
+        raise ValueError(
+            f"a world of more than one rank needs "
+            f"{_config.HVD_TPU_COORDINATOR} or "
+            f"{_config.HOROVOD_RENDEZVOUS_ADDR}/"
+            f"{_config.HOROVOD_RENDEZVOUS_PORT} in the environment (the "
+            f"launcher exports them)")
+    return f"{addr}:{int(port) + 1 if port else 9999}"
+
+
+def init(comm: Optional[Sequence[int]] = None, process_sets=None,
+         device=None) -> None:
+    """Join the world (``hvd.init``).  ``device`` is where this rank's
+    tensors live: ``cuda`` unless named (it raises without a card);
+    ``cpu`` forms a gloo world.  ``comm`` must be every rank, and
+    ``process_sets`` other than the global set are not ported yet
+    (ROADMAP A1)."""
+    from .process_sets import require_global
+    with _state.lock:
+        if _state.initialized:
+            return
+        dev = resolve_device(device)
+        cfg = _config.Config.from_env()
+        topo = _topology.detect()
+        if comm is not None and list(comm) != list(range(topo.size)):
+            raise ValueError(
+                "init(comm=...) with a strict subset of ranks is not "
+                "supported; use process sets instead")
+        for ps in process_sets or ():
+            require_global(ps)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda",
+                                   topo.local_rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        owns = not dist.is_initialized()
+        if owns:
+            if topo.size > 1:
+                dist.init_process_group(
+                    backend, init_method=f"tcp://{_store_address()}",
+                    world_size=topo.size, rank=topo.rank)
+            else:
+                dist.init_process_group(backend, store=dist.HashStore(),
+                                        world_size=1, rank=0)
+        elif (dist.get_world_size(), dist.get_rank()) != (topo.size,
+                                                          topo.rank):
+            raise ValueError(
+                f"torch.distributed is already initialized as rank "
+                f"{dist.get_rank()} of {dist.get_world_size()}, but the "
+                f"environment says rank {topo.rank} of {topo.size}")
+        _state.config, _state.topology = cfg, topo
+        _state.device, _state.backend = dev, dist.get_backend()
+        _state.owns_group = owns
+        _state.initialized = True
+        get_logger().info(
+            "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
+            "cross=%d/%d backend=%s device=%s", topo.rank, topo.size,
+            topo.local_rank, topo.local_size, topo.cross_rank,
+            topo.cross_size, _state.backend, dev)
+
+
+def shutdown() -> None:
+    """Leave the world (``horovod_shutdown``); destroys the process group
+    if ``init`` created it."""
+    with _state.lock:
+        if not _state.initialized:
+            return
+        if _state.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        _state.initialized = False
+        _state.topology = _state.device = _state.backend = None
+
+
+def _require_init() -> _GlobalState:
+    if not _state.initialized:
+        raise ValueError(
+            "horovod_tpu_torch has not been initialized; call "
+            "horovod_tpu_torch.init() first")
+    return _state
+
+
+def is_initialized() -> bool:
+    return _state.initialized
+
+
+def rank() -> int:
+    """Global process rank."""
+    return _require_init().topology.rank
+
+
+def size() -> int:
+    """Number of ranks."""
+    return _require_init().topology.size
+
+
+def local_rank() -> int:
+    """Rank within the node."""
+    return _require_init().topology.local_rank
+
+
+def local_size() -> int:
+    """Ranks on this node."""
+    return _require_init().topology.local_size
+
+
+def cross_rank() -> int:
+    """Node index."""
+    return _require_init().topology.cross_rank
+
+
+def cross_size() -> int:
+    """Number of nodes."""
+    return _require_init().topology.cross_size
+
+
+def num_slots() -> int:
+    """Cards in the job: one per rank."""
+    return _require_init().topology.num_slots
+
+
+def device() -> torch.device:
+    """This rank's device (``init``'s ``device``)."""
+    return _require_init().device
+
+
+# ---------------------------------------------------------------------------
+# Built / enabled queries (operations.cc:1050-1140 in the reference).
+# ---------------------------------------------------------------------------
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    return _state.initialized and _state.backend == "gloo"
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available() and torch.cuda.is_available()
+
+
+def cuda_built() -> bool:
+    return torch.backends.cuda.is_built() and torch.cuda.is_available()
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    return False
+
+
+def xla_enabled() -> bool:
+    return False

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles the sources in this directory into one shared library
-with a plain C interface, for ``sm_90a`` (Hopper), which ``ctypes``
-loads.  The build runs at first use, from the repository's sources
+``nvcc`` compiles each source in this directory to an object, all
+sources at once in parallel processes, and links the objects into one
+shared library with a plain C interface, for ``sm_90a`` (Hopper), which
+``ctypes`` loads.  The build runs at first use, from the repository's sources
 only, into ``_build/<hash>/`` beside this file (listed in .gitignore);
 the hash covers the sources and the flags, so an edited source builds
 anew and an unchanged one is reused.  Nothing here runs at import time:
@@ -21,9 +22,9 @@ import threading
 from typing import Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhvd_torch_kernels.so"
 
 _lock = threading.Lock()
@@ -64,13 +65,32 @@ def build() -> Tuple[str, str]:
         with open(log_path) as f:
             return lib_path, f.read()
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(_HERE, name), "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(_HERE, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    if not failed:
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
@@ -92,6 +112,14 @@ def load() -> ctypes.CDLL:
                 ctypes.c_float, i, i, i,    # scale mask q_kind kv_kind
                 p]                          # stream
             lib.hvd_paged_attention.restype = i
+            f = ctypes.c_float
+            tail = [i, i, i, i, f, i, i, p]  # B S H D scale mask kind stream
+            lib.hvd_flash_fwd.argtypes = [p] * 6 + tail  # q k v out lse strides
+            lib.hvd_flash_bwd_dq.argtypes = [p] * 8 + tail  # +dO lse delta dq
+            lib.hvd_flash_bwd_dkv.argtypes = [p] * 9 + tail  # +dk dv
+            for fn in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq,
+                       lib.hvd_flash_bwd_dkv):
+                fn.restype = i
             lib.hvd_cuda_error_string.argtypes = [i]
             lib.hvd_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,9 +1,10 @@
-"""Flax GPT-2 parameters → the port's parameters.
+"""Flax GPT-2 / BERT parameters → the port's parameters.
 
 ``params_from_jax`` takes the JAX package's ``models.Transformer`` param
 tree, as nested dicts of numpy arrays (``jax.device_get`` of the flax
 tree, or the tree itself: leaves go through ``numpy.asarray``), and
-returns the port's ``state_dict`` for ``models.transformer.Transformer``.
+returns the port's ``state_dict`` for ``models.transformer.Transformer``
+(GPT-2 and BERT share the module and its names).
 Both flax layouts are accepted: unrolled ``block_i`` and the stacked
 ``blocks/block`` layout of ``scan_layers=True`` (unstacked here by this
 module's own copy of ``unstack_block_params``,
@@ -49,7 +50,8 @@ def unstack_block_params(flat: Dict[Tuple[str, ...], np.ndarray]
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """The port's ``Transformer`` state dict (CPU tensors) from a flax
-    GPT-2 param tree; a ``{"params": ...}`` wrapper is unwrapped."""
+    GPT-2 or BERT param tree; a ``{"params": ...}`` wrapper is
+    unwrapped."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
     flat = unstack_block_params(_flatten(tree))

@@ -1,12 +1,21 @@
-"""GPT-2 for serving: the configurations, the weights and a dense
-reference forward.
+"""GPT-2 and BERT: the configurations, the weights and the forward pass
+for training and for the serving engine's reference.
 
-Port of what serving needs from ``horovod_tpu/models/transformer.py``:
-``TransformerConfig`` with the GPT-2 sizes, ``create_gpt2``, GPT-2's
-initialisation, and a dense causal ``Transformer`` whose full-sequence
-forward is the recompute reference the serving engine is held against
-(the JAX tests use the flax module the same way).  Ring, Ulysses,
-flash and MoE attention are training features and are not here.
+Port of ``horovod_tpu/models/transformer.py``: ``TransformerConfig``
+with the GPT-2 and BERT sizes, ``create_gpt2`` / ``create_bert``, the
+GPT-2/BERT initialisation, ``lm_loss``, and the ``Transformer`` module
+with the training features of the JAX model — ``attention_impl`` None
+(dense) or ``"flash"`` (the FlashAttention-2 kernels of
+``parallel/flash.py``), ``remat`` (``torch.utils.checkpoint`` per block)
+and ``predict_positions`` (the LM head only at the gathered masked
+positions).  Ring, Ulysses and MoE attention are not here yet (ROADMAP
+A6); ``scan_layers`` has no counterpart (``models/convert.py`` unstacks
+its parameter layout).
+
+Parameters are float32 and each is cast to ``cfg.dtype`` where it is
+used, as flax's ``param_dtype=float32`` / ``dtype=cfg.dtype`` does: a
+bf16 model computes its products in bf16 while the optimizer updates f32
+weights.  LayerNorms, the softmax and the logits are f32.
 
 Parameters keep the flax layouts and names, so a flax tree converts
 leaf for leaf (``models/convert.py``) and the engine's einsums read
@@ -29,7 +38,9 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..parallel.flash import flash_attention
 from ..utils.device import resolve_device
 
 
@@ -43,6 +54,8 @@ class TransformerConfig:
     max_len: int = 1024
     causal: bool = True              # GPT style; False = BERT style
     dtype: torch.dtype = torch.float32
+    attention_impl: Optional[str] = None  # None (dense) | 'flash' (kernels)
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -55,6 +68,13 @@ GPT2_MEDIUM = TransformerConfig(num_layers=24, num_heads=16, d_model=1024,
                                 d_ff=4096)
 GPT2_LARGE = TransformerConfig(num_layers=36, num_heads=20, d_model=1280,
                                d_ff=5120)
+# BERT computes in bf16, the JAX configs' default dtype.
+BERT_BASE = TransformerConfig(vocab_size=30522, num_layers=12, num_heads=12,
+                              d_model=768, d_ff=3072, max_len=512,
+                              causal=False, dtype=torch.bfloat16)
+BERT_LARGE = TransformerConfig(vocab_size=30522, num_layers=24, num_heads=16,
+                               d_model=1024, d_ff=4096, max_len=512,
+                               causal=False, dtype=torch.bfloat16)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -80,87 +100,131 @@ class LayerNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """A kernel of any shape ``in_shape + out_shape`` and its bias."""
+    """An f32 kernel of any shape ``in_shape + out_shape`` and its bias;
+    :meth:`cast` gives both in the compute dtype."""
 
-    def __init__(self, kernel_shape, bias_shape, dtype, device=None):
+    def __init__(self, kernel_shape, bias_shape, device=None):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.empty(kernel_shape, dtype=dtype, device=device))
-        self.bias = nn.Parameter(
-            torch.zeros(bias_shape, dtype=dtype, device=device))
+        self.kernel = nn.Parameter(torch.empty(kernel_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(bias_shape, device=device))
+
+    def cast(self, dtype):
+        return self.kernel.to(dtype), self.bias.to(dtype)
 
 
 class Embed(nn.Module):
-    def __init__(self, n: int, d: int, dtype, device=None):
+    def __init__(self, n: int, d: int, device=None):
         super().__init__()
-        self.embedding = nn.Parameter(
-            torch.empty((n, d), dtype=dtype, device=device))
+        self.embedding = nn.Parameter(torch.empty((n, d), device=device))
+
+
+def dense_attention(q, k, v, causal: bool) -> torch.Tensor:
+    """Softmax attention over [B, S, H, D] in f32, output in q's dtype
+    (``ring_attention_reference`` of the JAX package)."""
+    S = q.shape[1]
+    s = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhe->bqhe", p, v.float()).to(q.dtype)
 
 
 class Block(nn.Module):
-    """ln1 → qkv → dense causal attention → proj residual → ln2 →
-    fc1/gelu(tanh)/fc2 residual."""
+    """ln1 → qkv → attention → proj residual → ln2 → fc1/gelu(tanh)/fc2
+    residual."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        d, H, Dh, dt = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.dtype
+        d, H, Dh = cfg.d_model, cfg.num_heads, cfg.head_dim
+        if cfg.attention_impl not in (None, "flash"):
+            raise ValueError(
+                f"unknown attention_impl {cfg.attention_impl!r}; "
+                f"expected None or 'flash'")
         self.cfg = cfg
         self.ln1 = LayerNorm(d, 1e-5, device)
         self.attn = nn.Module()
-        self.attn.qkv = Dense((d, 3, H, Dh), (3, H, Dh), dt, device)
-        self.attn.proj = Dense((H, Dh, d), (d,), dt, device)
+        self.attn.qkv = Dense((d, 3, H, Dh), (3, H, Dh), device)
+        self.attn.proj = Dense((H, Dh, d), (d,), device)
         self.ln2 = LayerNorm(d, 1e-5, device)
-        self.fc1 = Dense((d, cfg.d_ff), (cfg.d_ff,), dt, device)
-        self.fc2 = Dense((cfg.d_ff, d), (d,), dt, device)
+        self.fc1 = Dense((d, cfg.d_ff), (cfg.d_ff,), device)
+        self.fc2 = Dense((cfg.d_ff, d), (d,), device)
 
     def forward(self, x):
-        cfg = self.cfg
-        S = x.shape[1]
-        h = self.ln1(x).to(cfg.dtype)
-        qkv = torch.einsum("bsd,dthe->bsthe", h, self.attn.qkv.kernel) \
-            + self.attn.qkv.bias
+        cfg, dt = self.cfg, self.cfg.dtype
+        h = self.ln1(x).to(dt)
+        w, b = self.attn.qkv.cast(dt)
+        qkv = torch.einsum("bsd,dthe->bsthe", h, w) + b
         q, k, v = qkv.unbind(dim=2)                       # [B, S, H, Dh]
-        s = torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float()) \
-            / math.sqrt(cfg.head_dim)
-        if cfg.causal:
-            keep = torch.ones((S, S), dtype=torch.bool,
-                              device=x.device).tril()
-            s = torch.where(keep, s, torch.full_like(s, -1e30))
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhqk,bkhe->bqhe", p, v.float()).to(cfg.dtype)
-        x = x + torch.einsum("bshe,hed->bsd", out, self.attn.proj.kernel) \
-            + self.attn.proj.bias
-        h = self.ln2(x).to(cfg.dtype)
-        h = F.gelu(h @ self.fc1.kernel + self.fc1.bias, approximate="tanh")
-        return x + (h @ self.fc2.kernel + self.fc2.bias)
+        if cfg.attention_impl == "flash":
+            out = flash_attention(q, k, v, causal=cfg.causal)
+        else:
+            out = dense_attention(q, k, v, cfg.causal)
+        w, b = self.attn.proj.cast(dt)
+        x = x + (torch.einsum("bshe,hed->bsd", out, w) + b)
+        h = self.ln2(x).to(dt)
+        w, b = self.fc1.cast(dt)
+        h = F.gelu(h @ w + b, approximate="tanh")
+        w, b = self.fc2.cast(dt)
+        return x + (h @ w + b)
 
 
 class Transformer(nn.Module):
-    """Decoder-only GPT-2 producing f32 token logits (the LM head ties the
-    token embedding)."""
+    """Decoder-only (``causal``, GPT-2) or encoder (BERT) producing f32
+    token logits (the LM head ties the token embedding)."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.wte = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, device)
-        self.wpe = Embed(cfg.max_len, cfg.d_model, cfg.dtype, device)
+        self.wte = Embed(cfg.vocab_size, cfg.d_model, device)
+        self.wpe = Embed(cfg.max_len, cfg.d_model, device)
         self.blocks = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, 1e-6, device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        S = tokens.shape[1]
-        x = self.wte.embedding[tokens] \
-            + self.wpe.embedding[torch.arange(S, device=tokens.device)][None]
+    def forward(self, tokens: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                predict_positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """``predict_positions`` ([B, K] int, BERT MLM): the final
+        LayerNorm and the LM head run only at those K positions, giving
+        [B, K, vocab] logits."""
+        dt = self.cfg.dtype
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None]
+        x = self.wte.embedding[tokens].to(dt) \
+            + self.wpe.embedding[positions].to(dt)
         for blk in self.blocks:
-            x = blk(x)
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
+        if predict_positions is not None:
+            x = torch.take_along_dim(
+                x, predict_positions.long()[..., None], dim=1)
         x = self.ln_f(x)
-        return (x.to(self.cfg.dtype) @ self.wte.embedding.T).float()
+        return (x.to(dt) @ self.wte.embedding.to(dt).T).float()
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token cross-entropy in f32 (BERT MLM or GPT next-token; the caller
+    shifts targets for a causal LM); with ``mask``, the masked mean with
+    the count floored at 1."""
+    losses = F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]),
+        targets.reshape(-1).long(), reduction="none").view(targets.shape)
+    if mask is not None:
+        mask = mask.float()
+        return (losses * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return losses.mean()
 
 
 @torch.no_grad()
 def init_gpt2_(model: Transformer, generator: torch.Generator) -> Transformer:
-    """GPT-2 initialisation in place, drawn from ``generator`` (on the
+    """GPT-2 / BERT initialisation in place, drawn from ``generator`` (on the
     parameters' device): normal(0.02) kernels and token embedding,
     normal(0.01) position embedding, zero biases, unit LayerNorm
     scales."""
@@ -176,6 +240,15 @@ def init_gpt2_(model: Transformer, generator: torch.Generator) -> Transformer:
     return model
 
 
+def _create(base: TransformerConfig, device, seed, overrides
+            ) -> Transformer:
+    dev = resolve_device(device)
+    model = Transformer(dataclasses.replace(base, **overrides), device=dev)
+    if seed is not None:
+        init_gpt2_(model, torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
 def create_gpt2(size: str = "medium", device=None,
                 seed: Optional[int] = 0, **overrides) -> Transformer:
     """GPT-2 ``small|medium|large`` on ``device`` (cuda unless named),
@@ -183,8 +256,12 @@ def create_gpt2(size: str = "medium", device=None,
     ``seed=None`` leaves the weights uninitialised for a load."""
     base = {"small": GPT2_SMALL, "medium": GPT2_MEDIUM,
             "large": GPT2_LARGE}[size]
-    dev = resolve_device(device)
-    model = Transformer(dataclasses.replace(base, **overrides), device=dev)
-    if seed is not None:
-        init_gpt2_(model, torch.Generator(device=dev).manual_seed(seed))
-    return model
+    return _create(base, device, seed, overrides)
+
+
+def create_bert(size: str = "large", device=None,
+                seed: Optional[int] = 0, **overrides) -> Transformer:
+    """BERT ``base|large`` (bf16 compute, f32 parameters), as
+    :func:`create_gpt2`."""
+    base = {"base": BERT_BASE, "large": BERT_LARGE}[size]
+    return _create(base, device, seed, overrides)

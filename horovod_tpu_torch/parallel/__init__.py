@@ -1,2 +1,2 @@
-"""Parallelism building blocks of the port (so far: the attention mask
-vocabulary that serving's paged attention shares with training)."""
+"""Parallelism building blocks of the port (so far: flash attention,
+whose mask vocabulary serving's paged attention shares)."""

@@ -156,3 +156,172 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
     finally:
         k.stop()
         g.stop()
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention-2 kernels (csrc/flash_attention.cu) against their plain
+# versions: f32 forward 2e-4 / 2e-5, f32 gradients 2e-3 / 2e-4, bf16
+# 0.1 / 0.05 (the JAX package's flash tolerances, tests/test_flash.py).
+# ---------------------------------------------------------------------------
+
+from horovod_tpu_torch.parallel import flash as tfl  # noqa: E402
+
+_TOL = {torch.float32: ((2e-4, 2e-5), (2e-3, 2e-4)),
+        torch.bfloat16: ((0.1, 0.05), (0.1, 0.05))}
+
+
+def _flash_inputs(rng, shape, dtype, dev):
+    def mk():
+        return torch.from_numpy(
+            (rng.randn(*shape) * 0.5).astype(np.float32)).to(dev, dtype)
+    return mk(), mk(), mk(), mk()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 2, 16), (2, 128, 4, 32),
+                                   (1, 96, 3, 64), (1, 80, 2, 128),
+                                   (2, 256, 2, 64)])
+def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
+    rng = np.random.RandomState(sum(shape))
+    q, k, v, do = _flash_inputs(rng, shape, dtype, cuda_device)
+    (frt, fat), (grt, gat) = _TOL[dtype]
+    scale = 1.0 / np.sqrt(shape[-1])
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        n0 = dict(tfl.LAUNCHES)
+        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+        ref_out, ref_lse = tfl.attention_fwd_reference(
+            q, k, v, mask_mode=mode, scale=scale)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and lse.dtype == torch.float32
+        torch.testing.assert_close(out.float(), ref_out.float(), rtol=frt,
+                                   atol=fat)
+        torch.testing.assert_close(lse, ref_lse, rtol=frt, atol=fat)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        got = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
+        kw = dict(mask_mode=mode, scale=scale)
+        want = (tfl.attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+                *tfl.attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 **kw))
+        again = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
+        torch.cuda.synchronize()
+        for g, w, a, name in zip(got, want, again, "qkv"):
+            assert g.dtype == dtype
+            torch.testing.assert_close(g.float(), w.float(), rtol=grt,
+                                       atol=gat, msg=f"d{name} mode {mode}")
+            assert torch.equal(g, a), f"d{name} not bit-identical"
+        assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 1
+        assert tfl.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 2
+        assert tfl.LAUNCHES["flash_bwd_dkv"] == n0["flash_bwd_dkv"] + 2
+        if mode == tfl.MASK_STRICT:   # row 0 sees no key
+            assert float(out[:, 0].float().abs().max()) == 0.0
+            assert torch.all(lse[:, :, 0] == -1e30 / 2)
+            assert float(got[0][:, 0].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_flash_kernels_read_strided_qkv_and_mixed_dtypes(cuda_device):
+    """q/k/v sliced out of one fused [B, S, 3, H, D] projection are read
+    in place; the lse variant's out_dtype=f32 over bf16 inputs matches
+    the plain version; autograd runs the backward kernels."""
+    rng = np.random.RandomState(11)
+    B, S, H, D = 2, 256, 4, 64
+    qkv = torch.from_numpy(rng.randn(B, S, 3, H, D).astype(np.float32)
+                           * 0.5).to(cuda_device).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    out = tfl.flash_attention(q, k, v, causal=True)
+    (out * out.cos()).sum().backward()
+    g_kernel = qkv.grad.clone()
+    qkv_cpu = qkv.detach().cpu().requires_grad_()
+    ref = tfl.flash_attention(*qkv_cpu.unbind(2), causal=True)
+    (ref * ref.cos()).sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=2e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(g_kernel.cpu(), qkv_cpu.grad, rtol=2e-3,
+                               atol=2e-4)
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
+    o32, lse = tfl.flash_attention_lse(qb, kb, vb, mask_mode=tfl.MASK_STRICT,
+                                       out_dtype=torch.float32)
+    assert o32.dtype == torch.float32
+    ro, rl = tfl.attention_fwd_reference(qb.float(), kb, vb,
+                                         mask_mode=tfl.MASK_STRICT)
+    torch.testing.assert_close(o32, ro, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(lse, rl, rtol=2e-4, atol=2e-5)
+    (o32.sum() + lse.sum()).backward()
+    assert qb.grad.dtype == torch.bfloat16 and torch.isfinite(
+        qb.grad.float()).all()
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((1, 64, 2, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfl.flash_attention(q, q, q)
+    h = q[..., :32].half()
+    with pytest.raises(ValueError, match="dtype"):
+        tfl.flash_attention(h, h, h)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_trains_through_the_optimizer(cuda_device):
+    """``hvd.init()`` on a card forms a one-member NCCL group, and
+    ``DistributedOptimizer`` reduces through it: after one boundary the
+    parameters equal a plain AdamW step on the averaged gradients."""
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        _optimizer_step_through_nccl(hvd, cuda_device)
+    finally:
+        hvd.shutdown()
+
+
+def _optimizer_step_through_nccl(hvd, cuda_device):
+    assert hvd.nccl_built() and hvd.cuda_built() and not hvd.gloo_enabled()
+    assert torch.distributed.get_backend() == "nccl"
+    assert hvd.size() == 1 and hvd.device().type == "cuda"
+    torch.manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(300, device=cuda_device))
+    ref = torch.nn.Parameter(w.detach().clone())
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW([w], lr=0.1),
+                                   backward_passes_per_step=2)
+    plain = torch.optim.AdamW([ref], lr=0.1)
+    g1, g2 = torch.randn(300, device=cuda_device), torch.randn(
+        300, device=cuda_device)
+    w.grad = g1.clone()
+    assert opt.step() is None
+    w.grad = g2.clone()
+    opt.step()
+    ref.grad = (g1 + g2) / 2
+    plain.step()
+    torch.testing.assert_close(w, ref, rtol=1e-6, atol=1e-7)
+    out = hvd.allreduce(torch.arange(4.0, device=cuda_device), op=hvd.Sum)
+    torch.testing.assert_close(out, torch.arange(4.0, device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
+    """With ``remat`` the backward recomputes each block: the forward
+    kernel launches twice per layer and micro-batch, the backward
+    kernels once; the gradients equal the run without remat."""
+    import dataclasses
+    from horovod_tpu_torch.models import lm_loss
+    cfg = dataclasses.replace(_TINY, causal=False, attention_impl="flash")
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 61, (2, 64))).to(cuda_device)
+    grads = []
+    for remat in (False, True):
+        model = init_gpt2_(
+            Transformer(dataclasses.replace(cfg, remat=remat),
+                        device=cuda_device),
+            torch.Generator(device=cuda_device).manual_seed(0))
+        n0 = dict(tfl.LAUNCHES)
+        loss = lm_loss(model(tokens), tokens)
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+        torch.cuda.synchronize()
+        got = {k: tfl.LAUNCHES[k] - n0[k] for k in n0}
+        L = cfg.num_layers
+        assert got == {"flash_fwd": L * (2 if remat else 1),
+                       "flash_bwd_dq": L, "flash_bwd_dkv": L}, got
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

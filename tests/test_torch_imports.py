@@ -54,8 +54,12 @@ def test_importing_every_port_module_loads_no_jax():
     smoke script); afterwards ``sys.modules`` holds nothing of jax, flax
     or the JAX package."""
     modules = _port_modules()
-    assert "horovod_tpu_torch.serve.engine" in modules
-    assert "horovod_tpu_torch.csrc.build" in modules
+    for name in ("serve.engine", "csrc.build", "config", "exceptions",
+                 "topology", "process_sets", "core", "compression",
+                 "ops", "ops.collective_ops", "ops.fusion", "functions",
+                 "optimizer", "parallel.flash", "models.transformer",
+                 "examples.bert_pretraining"):
+        assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
@@ -109,10 +113,10 @@ def test_no_port_file_imports_jax(path):
 
 
 @pytest.mark.parametrize("name", ["serve/blocks.py", "serve/batcher.py",
-                                  "serve/tenancy.py"])
+                                  "serve/tenancy.py", "exceptions.py"])
 def test_copied_modules_match_their_source(name):
-    """The pure-Python serving modules the port copies keep the source's
-    code: only the module docstring (which names the source) differs."""
+    """The pure-Python modules the port copies keep the source's code:
+    only the module docstring (which names the source) differs."""
     def body(path):
         with open(path) as f:
             tree = ast.parse(f.read())
