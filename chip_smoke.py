@@ -65,10 +65,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 RTOL, ATOL = 2e-4, 2e-5   # the JAX package's paged-attention tolerance
-# The JAX package's flash tolerances (tests/test_flash.py): f32 forward,
-# f32 gradients, bf16 (forward and gradients).
+# Flash kernels against their plain versions, (forward, gradients) as
+# (rtol, atol).  f32: the JAX package's flash tolerances
+# (tests/test_flash.py).  bf16: both sides sum in f32 and round the
+# output once, so they may differ by a rounding step: 2 bf16 ulps (rtol
+# 2**-6), and an atol of 1e-3 times the plain output's largest magnitude.
+# lse is f32 on both sides and is held at the f32 forward tolerance.
 FLASH_TOL = {"float32": ((2e-4, 2e-5), (2e-3, 2e-4)),
-             "bfloat16": ((0.1, 0.05), (0.1, 0.05))}
+             "bfloat16": ((2**-6, 1e-3), (2**-6, 1e-3))}
 
 
 def log(msg: str) -> None:
@@ -350,12 +354,15 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
         return float((a.float() - b.float()).abs().max())
 
     def close(a, b, rt, at):
+        if a.dtype == torch.bfloat16:
+            at *= float(b.float().abs().max())
         return bool(torch.allclose(a.float(), b.float(), rtol=rt, atol=at))
 
     errs = {"flash_fwd": max(err(out, r_out), err(lse, r_lse)),
             "flash_bwd_dq": err(dq, r_dq),
             "flash_bwd_dkv": max(err(dk, r_dk), err(dv, r_dv))}
-    ok = (close(out, r_out, frt, fat) and close(lse, r_lse, frt, fat)
+    ok = (close(out, r_out, frt, fat)
+          and close(lse, r_lse, *FLASH_TOL["float32"][0])
           and all(close(a, b, grt, gat)
                   for a, b in ((dq, r_dq), (dk, r_dk), (dv, r_dv))))
     if mode == fl.MASK_STRICT:  # row 0 sees no key
@@ -444,7 +451,7 @@ def flash_phase(torch, device, rehearsal):
         log(f"  {name} {str(dt).split('.')[-1]} mask={mode}: max_abs_err "
             + ", ".join(f"{k[6:]} {e:.3e}" for k, e in errs.items())
             + f" ({'ok' if ok else 'MISMATCH'} at fwd {tol[0]} grad "
-              f"{tol[1]})")
+              f"{tol[1]}{' (atol x max|plain|)' if dt == bf16 else ''})")
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain "
                              f"versions: {name} {dt} mask={mode}")
@@ -650,55 +657,81 @@ def _top_ops(torch, prof, n=10):
             log(f"    {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
+def _busy_ms(torch, prof):
+    """Device busy time of a profiled window: the kernels' own time, not
+    the host ops that launched them nor the device-side spans of
+    annotations such as ``Optimizer.step``."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU
+               and not e.is_user_annotation) / 1e3
+
+
 def bert_main_path(torch, fl, rehearsal):
     """``bert_pretraining.main`` at the bench configuration; returns the
-    flash launch counts of its run."""
+    flash launch counts of its run.  Then a trainer built as ``main``
+    builds it takes one accumulation boundary (its reduced gradients
+    must be finite) and, on the card, 2 more micro-batches under
+    ``torch.profiler``."""
     from horovod_tpu_torch.examples import bert_pretraining as bp
-    steps, traced = (6, 0) if rehearsal else (8, 2)
+    steps, traced, batch = (6, 0, 4) if rehearsal else (8, 2, 32)
     if rehearsal:
-        argv = ["--device", "cpu", "--size", "tiny", "--batch-per-slot", "4",
-                "--seq-len", "32", "--mlm-positions", "5"]
+        argv = ["--device", "cpu", "--size", "tiny", "--seq-len", "32",
+                "--mlm-positions", "5"]
     else:
-        argv = ["--size", "large", "--batch-per-slot", "32", "--seq-len",
-                "128", "--mlm-positions", "20"]
-    argv += ["--accum", "2", "--attention", "flash", "--steps", str(steps),
-             "--trace-steps", str(traced)]
+        argv = ["--size", "large", "--seq-len", "128", "--mlm-positions",
+                "20"]
+    argv += ["--batch-per-slot", str(batch), "--accum", "2", "--attention",
+             "flash", "--steps", str(steps)]
     log(f"  bert_pretraining.main({argv})")
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
     for name in fl.LAUNCHES:  # the counts cover exactly the main path's run
         fl.LAUNCHES[name] = 0
     losses, samples_s = bp.main(argv)
     launches = dict(fl.LAUNCHES)
-    st = bp.STATS
-    micro = steps + traced
+    peak = 0 if rehearsal else torch.cuda.max_memory_allocated()
     log(f"  losses {[round(x, 4) for x in losses]}")
-    log(f"  flash launches {launches} over {micro} micro-batches")
+    log(f"  flash launches {launches} over {steps} micro-batches")
     failures = []
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         failures.append(f"losses not finite and falling: {losses}")
-    if not st["grads_finite"]:
-        failures.append("a gradient is not finite")
     if not rehearsal:
-        want = 24 * micro
+        want = 24 * steps
         if any(n != want for n in launches.values()):
             failures.append(f"flash launches {launches}, expected {want} "
-                            f"each (24 layers x {micro} micro-batches)")
-        log(f"  samples/s {samples_s:.1f}; micro-batch "
-            f"{st['micro_batch_ms']:.2f} ms, optimizer step (2 micro-"
-            f"batches) {st['step_ms']:.2f} ms; peak device memory "
-            f"{st['peak_bytes'] / 2**20:.1f} MiB")
-        busy = st["busy_share"]
-        log(f"  traced {traced} micro-batches: wall "
-            f"{st['traced_wall_ms']:.1f} ms, device busy {busy:.3f} of "
-            f"wall (idle {1 - busy:.3f})")
+                            f"each (24 layers x {steps} micro-batches)")
+    model, _, micro_batch = bp.build(bp.parse_args(argv))
+    micro_batch()
+    micro_batch()  # the boundary: p.grad holds the reduced gradients
+    if not all(bool(torch.isfinite(p.grad).all())
+               for p in model.parameters()):
+        failures.append("a gradient is not finite")
+    if not rehearsal:
+        micro_ms = batch / samples_s * 1e3   # world size 1
+        log(f"  samples/s {samples_s:.1f}; micro-batch {micro_ms:.2f} ms, "
+            f"optimizer step (2 micro-batches) {2 * micro_ms:.2f} ms; peak "
+            f"device memory {peak / 2**20:.1f} MiB")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(traced):
+                micro_batch()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms = _busy_ms(torch, prof)
+        log(f"  traced {traced} micro-batches: wall {wall_ms:.1f} ms, device "
+            f"busy {busy_ms / wall_ms:.3f} of wall (idle "
+            f"{1 - busy_ms / wall_ms:.3f})")
         # The profiler's host tracing slows the host, not the device: the
         # traced device time per micro-batch over the untraced micro-batch
         # time is the busy share the timed steps had.
-        dev_ms = st["device_ms_per_micro_batch"]
+        dev_ms = busy_ms / traced
         log(f"  device time per micro-batch {dev_ms:.2f} ms (traced) of "
-            f"{st['micro_batch_ms']:.2f} ms untraced: busy "
-            f"{dev_ms / st['micro_batch_ms']:.3f} of an untraced "
-            f"micro-batch")
-        _top_ops(torch, st["profile"])
+            f"{micro_ms:.2f} ms untraced: busy {dev_ms / micro_ms:.3f} of an "
+            f"untraced micro-batch")
+        _top_ops(torch, prof)
+    del model, micro_batch
     for f in failures:
         log(f"  FAIL: {f}")
     if failures:

@@ -35,13 +35,6 @@ TINY = TransformerConfig(vocab_size=1024, num_layers=2, num_heads=8,
 
 MASK_ID = 103  # [MASK] in the BERT vocab
 
-#: Measurements of the last ``main`` run on this process: whether the
-#: last gradients were finite, micro-batch and optimizer-step time, peak
-#: device memory, and (with --trace-steps) the device's busy share of the
-#: traced micro-batches and their profile.
-STATS: dict = {}
-
-
 def mlm_batch(rng, batch, seq_len, vocab, mask_rate=0.15):
     tokens = rng.randint(5, vocab, size=(batch, seq_len)).astype(np.int32)
     mask = rng.rand(batch, seq_len) < mask_rate
@@ -69,17 +62,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _busy_share(prof, wall_s: float) -> float:
-    """Device busy time of a profiled window (the kernels' own time, not
-    the host ops that launched them nor the device-side spans of
-    annotations such as ``Optimizer.step``) over its wall time."""
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type != torch.autograd.DeviceType.CPU
-                  and not e.is_user_annotation)
-    return busy_us / 1e6 / wall_s
-
-
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", default="tiny", choices=["tiny", "base", "large"])
     ap.add_argument("--steps", type=int, default=30)
@@ -101,13 +84,15 @@ def main(argv=None):
                          "max_predictions_per_seq)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (a gloo world)")
-    ap.add_argument("--trace-steps", type=int, default=0,
-                    help="after the timed steps, run this many more "
-                         "micro-batches under torch.profiler (host and "
-                         "device) and report the device's busy share "
-                         "(cuda only)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def build(args):
+    """Join the world and build what one rank trains: returns the model,
+    the attention it runs ("flash" or "dense"), and ``micro_batch()``,
+    which runs one forward and backward pass and
+    ``DistributedOptimizer.step()`` and returns the loss averaged over
+    the world, on the device."""
     hvd.init(device=args.device)
     dev = hvd.device()
     attn = args.attention
@@ -153,8 +138,13 @@ def main(argv=None):
         opt.step()
         return hvd.allreduce(loss.detach(), op=hvd.Average)
 
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    return model, attn, micro_batch
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _, attn, micro_batch = build(args)
+    dev = hvd.device()
     # Keep the losses on the device: one transfer at the end.
     losses_dev = []
     t0 = time.perf_counter()
@@ -167,30 +157,8 @@ def main(argv=None):
     dt = max(time.perf_counter() - t0, 1e-9)
     losses = torch.stack(losses_dev).float().cpu().tolist() \
         if losses_dev else []
-    timed = max(args.steps - 2, 0)
-    samples_s = batch * hvd.size() * timed / dt if args.steps > 2 else 0.0
-    STATS.clear()
-    STATS.update(grads_finite=all(
-                     bool(torch.isfinite(p.grad).all())
-                     for p in model.parameters() if p.grad is not None),
-                 micro_batch_ms=dt / timed * 1e3 if timed else None,
-                 step_ms=dt / timed * 1e3 * args.accum if timed else None,
-                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                             if dev.type == "cuda" else None),
-                 attention=attn)
-    if args.trace_steps and dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            for _ in range(args.trace_steps):
-                micro_batch()
-            _sync(dev)
-            wall = time.perf_counter() - t1
-        busy = _busy_share(prof, wall)
-        STATS.update(traced_wall_ms=wall * 1e3, busy_share=busy,
-                     device_ms_per_micro_batch=busy * wall * 1e3
-                     / args.trace_steps, profile=prof)
+    samples_s = (args.batch_per_slot * hvd.size() * (args.steps - 2) / dt
+                 if args.steps > 2 else 0.0)
     if hvd.rank() == 0:
         print(f"mlm loss: {losses[0]:.4f} -> {losses[-1]:.4f}  "
               f"({samples_s:.1f} samples/sec, accum={args.accum}, "

@@ -37,8 +37,6 @@ from .ops import ReduceOp
 from .ops.fusion import plan_fusion
 from .process_sets import ProcessSet, global_process_set, require_global
 
-_PACKABLE = (Compression.none, Compression.fp16, Compression.bf16)
-
 
 class DistributedOptimizer:
     """Wrap ``optimizer`` with Horovod's gradient reduction
@@ -156,10 +154,6 @@ class DistributedOptimizer:
                         [grads[i] for i in g], **kw)):
                     out[i] = r
             return out
-        if self.compression not in _PACKABLE:
-            # A compressor that is not a plain cast keeps its per-tensor
-            # semantics on the grouped path (as in JAX).
-            return _ops.grouped_allreduce(grads, **kw)
         threshold = _core._require_init().config.fusion_threshold_bytes
         entries = [(str(i), str(g.dtype), g.numel() * g.element_size(),
                     int(self.op), 0) for i, g in enumerate(grads)]

@@ -160,14 +160,24 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
 
 # ---------------------------------------------------------------------------
 # FlashAttention-2 kernels (csrc/flash_attention.cu) against their plain
-# versions: f32 forward 2e-4 / 2e-5, f32 gradients 2e-3 / 2e-4, bf16
-# 0.1 / 0.05 (the JAX package's flash tolerances, tests/test_flash.py).
+# versions: f32 forward 2e-4 / 2e-5 and gradients 2e-3 / 2e-4 (the JAX
+# package's flash tolerances, tests/test_flash.py).  In bf16 both sides
+# sum in f32 and round the output once: 2 bf16 ulps (rtol 2**-6) and an
+# atol of 1e-3 times the plain output's largest magnitude.  lse is f32
+# on both sides.
 # ---------------------------------------------------------------------------
 
 from horovod_tpu_torch.parallel import flash as tfl  # noqa: E402
 
 _TOL = {torch.float32: ((2e-4, 2e-5), (2e-3, 2e-4)),
-        torch.bfloat16: ((0.1, 0.05), (0.1, 0.05))}
+        torch.bfloat16: ((2**-6, 1e-3), (2**-6, 1e-3))}
+
+
+def _assert_close(got, want, rtol, atol, **kw):
+    if got.dtype == torch.bfloat16:
+        atol *= float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, **kw)
 
 
 def _flash_inputs(rng, shape, dtype, dev):
@@ -194,9 +204,8 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
             q, k, v, mask_mode=mode, scale=scale)
         torch.cuda.synchronize()
         assert out.dtype == dtype and lse.dtype == torch.float32
-        torch.testing.assert_close(out.float(), ref_out.float(), rtol=frt,
-                                   atol=fat)
-        torch.testing.assert_close(lse, ref_lse, rtol=frt, atol=fat)
+        _assert_close(out, ref_out, frt, fat)
+        torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-5)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         got = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
         kw = dict(mask_mode=mode, scale=scale)
@@ -207,8 +216,7 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
         torch.cuda.synchronize()
         for g, w, a, name in zip(got, want, again, "qkv"):
             assert g.dtype == dtype
-            torch.testing.assert_close(g.float(), w.float(), rtol=grt,
-                                       atol=gat, msg=f"d{name} mode {mode}")
+            _assert_close(g, w, grt, gat, msg=f"d{name} mode {mode}")
             assert torch.equal(g, a), f"d{name} not bit-identical"
         assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 1
         assert tfl.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 2
