@@ -22,7 +22,8 @@ import threading
 from typing import Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("paged_attention.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu",
+           "flash_attention_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhvd_torch_kernels.so"

@@ -11,6 +11,9 @@
 //   * hvd_flash_bwd_dkv <- `_bwd_dkv_kernel` (:195, `_run_bwd_kernels`
 //                          :339): dV = sum_q p^T . dO,
 //                          dK = sum_q ds^T . (q * scale).
+// The two backward entry points run this file's SIMT kernels for f32
+// operands and the tensor-core kernels of flash_attention_bwd_sm90.cu
+// (wgmma fed by TMA) for bf16 ones; the forward runs here for both.
 // Layout: q, k, v, dO and the outputs are [B, S, H, D] with the head dim
 // contiguous and any (16-byte multiple) strides for B, S and H, so q/k/v
 // sliced out of the fused qkv projection are read where they lie (the JAX
@@ -48,8 +51,10 @@
 // causal tokens by the bf16 tensor-core rate.  This first version computes
 // in scalar f32 from shared memory, off the tensor cores (whose bf16 rate
 // is ~15x the f32 rate), so its own limit is the f32 FMA pipe and the
-// shared-memory reads feeding it; mma.sync / wgmma tiles fed by cp.async
-// or TMA are the next step (ROADMAP Queue B, PERF.md).
+// shared-memory reads feeding it.  f32 backward products stay here
+// because TF32 would break the JAX f32 gradient tolerance; the bf16
+// forward on the tensor cores is the next step (ROADMAP Queue B,
+// PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -564,25 +569,16 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Dispatch on (element kind, head dim) to F<K, D>(args...).
-#define HVD_FLASH_DISPATCH(F, kind, D, ...)                          \
-  do {                                                               \
-    if (kind == K_F32) {                                             \
-      switch (D) {                                                   \
-        case 16: return static_cast<int>(F<K_F32, 16>(__VA_ARGS__));   \
-        case 32: return static_cast<int>(F<K_F32, 32>(__VA_ARGS__));   \
-        case 64: return static_cast<int>(F<K_F32, 64>(__VA_ARGS__));   \
-        case 128: return static_cast<int>(F<K_F32, 128>(__VA_ARGS__)); \
-      }                                                              \
-    } else if (kind == K_BF16) {                                     \
-      switch (D) {                                                   \
-        case 16: return static_cast<int>(F<K_BF16, 16>(__VA_ARGS__));   \
-        case 32: return static_cast<int>(F<K_BF16, 32>(__VA_ARGS__));   \
-        case 64: return static_cast<int>(F<K_BF16, 64>(__VA_ARGS__));   \
-        case 128: return static_cast<int>(F<K_BF16, 128>(__VA_ARGS__)); \
-      }                                                              \
-    }                                                                \
-    return static_cast<int>(cudaErrorInvalidValue);                  \
+// Dispatch on the head dim to F<K, D>(args...); returns from the caller.
+#define HVD_FLASH_DISPATCH(F, K, D, ...)                            \
+  do {                                                              \
+    switch (D) {                                                    \
+      case 16: return static_cast<int>(F<K, 16>(__VA_ARGS__));      \
+      case 32: return static_cast<int>(F<K, 32>(__VA_ARGS__));      \
+      case 64: return static_cast<int>(F<K, 64>(__VA_ARGS__));      \
+      case 128: return static_cast<int>(F<K, 128>(__VA_ARGS__));    \
+    }                                                               \
+    return static_cast<int>(cudaErrorInvalidValue);                 \
   } while (0)
 
 bool bad_args(int B, int S, int H, int mode) {
@@ -591,6 +587,17 @@ bool bad_args(int B, int S, int H, int mode) {
 }
 
 }  // namespace
+
+// The bf16 backward pair on the tensor cores (flash_attention_bwd_sm90.cu).
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                      const void* dO, const float* lse, const float* delta,
+                      void* dq, const long long* strides, int B, int S, int H,
+                      int D, float scale, int mode, cudaStream_t stream);
+int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                       const void* dO, const float* lse, const float* delta,
+                       void* dk, void* dv, const long long* strides, int B,
+                       int S, int H, int D, float scale, int mode,
+                       cudaStream_t stream);
 
 // C interface, loaded through ctypes (horovod_tpu_torch/csrc/build.py).
 // Every tensor pointer is a device pointer, 16-byte aligned.  `strides`
@@ -608,8 +615,13 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
   const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
-  HVD_FLASH_DISPATCH(fwd, kind, D, q, k, v, out, static_cast<float*>(lse),
-                     strides, a);
+  if (kind == K_F32)
+    HVD_FLASH_DISPATCH(fwd, K_F32, D, q, k, v, out, static_cast<float*>(lse),
+                       strides, a);
+  if (kind == K_BF16)
+    HVD_FLASH_DISPATCH(fwd, K_BF16, D, q, k, v, out,
+                       static_cast<float*>(lse), strides, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -621,7 +633,12 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
   const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
-  HVD_FLASH_DISPATCH(bwd_dq, kind, D, q, k, v, dO,
+  if (kind == K_BF16)
+    return flash_bwd_dq_sm90(q, k, v, dO, static_cast<const float*>(lse),
+                             static_cast<const float*>(delta), dq, strides, B,
+                             S, H, D, scale, mask_mode, a.stream);
+  if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
+  HVD_FLASH_DISPATCH(bwd_dq, K_F32, D, q, k, v, dO,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta), dq, strides, a);
 }
@@ -635,7 +652,12 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
   const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
-  HVD_FLASH_DISPATCH(bwd_dkv, kind, D, q, k, v, dO,
+  if (kind == K_BF16)
+    return flash_bwd_dkv_sm90(q, k, v, dO, static_cast<const float*>(lse),
+                              static_cast<const float*>(delta), dk, dv,
+                              strides, B, S, H, D, scale, mask_mode, a.stream);
+  if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
+  HVD_FLASH_DISPATCH(bwd_dkv, K_F32, D, q, k, v, dO,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta), dk, dv, strides, a);
 }

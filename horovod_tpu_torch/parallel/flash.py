@@ -2,13 +2,18 @@
 kernels' wrappers, their plain versions, and the mask vocabulary.
 
 Port of ``horovod_tpu/parallel/flash.py``.  The three Pallas TPU kernels
-there become hand-written CUDA kernels for Hopper
-(``csrc/flash_attention.cu``):
+there become hand-written CUDA kernels for Hopper:
 
 * ``_fwd_kernel`` (``:125``) → ``hvd_flash_fwd``: out and the per-row
-  logsumexp, online softmax over key tiles;
+  logsumexp, online softmax over key tiles (``csrc/flash_attention.cu``);
 * ``_bwd_dq_kernel`` (``:158``) → ``hvd_flash_bwd_dq``;
 * ``_bwd_dkv_kernel`` (``:195``) → ``hvd_flash_bwd_dkv``.
+
+The backward pair has two routes, chosen by the operands' dtype alone
+(:func:`bwd_route`): bf16 operands run the tensor-core kernels of
+``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA; P and dS enter
+the second products as bf16), anything else the f32 SIMT kernels of
+``csrc/flash_attention.cu``.
 
 The public functions keep the JAX signatures and the [B, S, H, D]
 layout: :func:`flash_attention` and :func:`flash_attention_lse` (which
@@ -52,7 +57,11 @@ MASK_NONE, MASK_CAUSAL, MASK_STRICT = 0, 1, 2
 
 #: Kernel launches since the last reset, by kernel name.  Bumped once per
 #: wrapper call that launches its kernel, never by the plain versions.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch of the backward
+#: pair; the ``_wgmma`` names count those that took the bf16 tensor-core
+#: route as well.
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq_wgmma": 0, "flash_bwd_dkv_wgmma": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -192,6 +201,29 @@ def attention_bwd_dkv_reference(q, k, v, do, lse, delta, *,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: Unit roundoff of bf16 (8 significant bits): the largest relative error
+#: of rounding one f32 value to bf16.
+BF16_ROUNDOFF = 2.0 ** -8
+
+
+def attention_bwd_rounding_bound(q, k, v, do, lse, delta, *,
+                                 mask_mode: int = MASK_NONE,
+                                 scale: Optional[float] = None):
+    """How far the bf16 (wgmma) route of the backward pair may move each
+    gradient element from the plain version, beyond the outputs' own
+    rounding: it rounds P and dS to bf16 before the second products, so
+    each term of ``dV = Σ_q P·dO``, ``dK = scale·Σ_q dS·q`` and
+    ``dQ = scale·Σ_k dS·k`` may move by ``BF16_ROUNDOFF`` of its
+    magnitude.  Returns ``(dq, dk, dv)`` bounds in f32 [B, S, H, D]:
+    ``BF16_ROUNDOFF`` times the same sums over magnitudes."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _softmax_grads(q, k, v, do, lse, delta, scale, mask_mode)
+    u, ds = BF16_ROUNDOFF, ds.abs()
+    return (u * scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
+            u * scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
+            u * torch.einsum("bhqk,bqhd->bkhd", p, do.float().abs()))
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -201,16 +233,31 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash attention kernel: {msg}")
 
 
-def _kernel_operands(*ts):
-    """The kernels take one element type for all their [B, S, H, D]
+def kernel_dtype(*ts) -> torch.dtype:
+    """The one element type the kernels take for all their [B, S, H, D]
     inputs: bf16 when every input is bf16, else f32 (bf16 → f32 is
-    exact).  Each operand keeps its strides when its head dim is unit
-    stride and it is 16-byte aligned (q, k, v sliced out of a fused qkv
-    projection pass as views); otherwise it is made contiguous."""
+    exact)."""
     for t in ts:
         _check(t.dtype in _KINDS, f"dtype {t.dtype} (f32|bf16)")
-    dtype = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ts) \
+    return torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ts) \
         else torch.float32
+
+
+def bwd_route(q, k, v, do) -> str:
+    """The backward pair's route for these operands: ``"wgmma"`` (the
+    bf16 tensor-core kernels) when every operand is bf16, else
+    ``"simt"`` (the f32 kernels).  The C entry points pick the same
+    kernels from the element type the wrapper passes them."""
+    return "wgmma" if kernel_dtype(q, k, v, do) == torch.bfloat16 \
+        else "simt"
+
+
+def _kernel_operands(*ts):
+    """The operands in :func:`kernel_dtype`.  Each keeps its strides
+    when its head dim is unit stride and it is 16-byte aligned (q, k, v
+    sliced out of a fused qkv projection pass as views); otherwise it is
+    made contiguous."""
+    dtype = kernel_dtype(*ts)
     out = []
     for t in ts:
         t = t.to(dtype)
@@ -272,10 +319,16 @@ def _bwd_operands(q, k, v, do, lse, delta):
     return dtype, ops + [lse.contiguous(), delta.contiguous()]
 
 
+def _count_bwd(name, route):
+    LAUNCHES[name] += 1
+    if route == "wgmma":
+        LAUNCHES[name + "_wgmma"] += 1
+
+
 def _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale):
     from ..csrc import build as _build
     B, S, H, D = q.shape
-    q_dtype = q.dtype
+    q_dtype, route = q.dtype, bwd_route(q, k, v, do)
     dtype, (q, k, v, do, lse, delta) = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty((B, S, H, D), dtype=dtype, device=q.device)
     lib = _build.load()
@@ -286,14 +339,14 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dq", err)
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count_bwd("flash_bwd_dq", route)
     return dq.to(q_dtype)
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale):
     from ..csrc import build as _build
     B, S, H, D = q.shape
-    k_dtype, v_dtype = k.dtype, v.dtype
+    k_dtype, v_dtype, route = k.dtype, v.dtype, bwd_route(q, k, v, do)
     dtype, (q, k, v, do, lse, delta) = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = (torch.empty((B, S, H, D), dtype=dtype, device=q.device)
               for _ in range(2))
@@ -305,7 +358,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dkv", err)
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _count_bwd("flash_bwd_dkv", route)
     return dk.to(k_dtype), dv.to(v_dtype)
 
 

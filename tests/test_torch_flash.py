@@ -164,3 +164,95 @@ def test_wrappers_take_only_cpu_or_cuda_tensors():
     t = torch.zeros((1, 8, 1, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfl.flash_fwd(t, t, t, tfl.MASK_NONE, 0.25)
+
+
+def _bhsd(x, dtype):
+    """[B, S, H, D] numpy → JAX's [B·H, S, D] layout."""
+    B, S, H, D = x.shape
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(B * H, S, D), dtype)
+
+
+def _bshd(x, B, H):
+    """JAX's [B·H, S, ...] → the port's layout: [B, S, H, D] for a tensor
+    of rows, [B, H, S] for lse / delta."""
+    x = np.asarray(x, np.float32)
+    if x.ndim == 2:
+        return torch.from_numpy(x.reshape(B, H, -1).copy())
+    return torch.from_numpy(x.reshape(B, H, *x.shape[1:]).transpose(0, 2, 1, 3)
+                            .copy())
+
+
+@pytest.mark.parametrize("dtype,mode", [
+    (dt, m) for dt in ("float32", "bfloat16")
+    for m in (jfl.MASK_NONE, jfl.MASK_CAUSAL, jfl.MASK_STRICT)])
+def test_backward_pair_matches_jax_run_bwd_kernels(dtype, mode):
+    """The port's dQ and dK/dV functions against JAX's two backward
+    kernels (``_run_bwd_kernels``, interpret mode, blocks of 16) on the
+    same inputs and the lse of JAX's forward, at S = 48; the first case
+    folds a nonzero lse cotangent into delta, as ``_flash_lse_bwd``
+    does."""
+    B, S, H, D = 2, 48, 2, 16
+    q, k, v, do = _inputs(40 + mode + 3 * (dtype == "bfloat16"),
+                          (B, S, H, D), 4)
+    first = dtype == "float32" and mode == jfl.MASK_NONE
+    g_lse = (np.random.RandomState(9).randn(B * H, S) * 0.5 if first
+             else np.zeros((B * H, S))).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv, jdo = (_bhsd(x, jdt) for x in (q, k, v, do))
+    jout, res = jfl._flash_fwd(jq, jk, jv, mode, scale, 16, 16, True)
+    jlse = res[4]
+    delta = jnp.sum(jdo.astype(jnp.float32) * jout.astype(jnp.float32),
+                    axis=-1) - jnp.asarray(g_lse)
+    jdq, jdk, jdv = jfl._run_bwd_kernels(jq, jk, jv, jdo, jlse, delta, mode,
+                                         scale, 16, 16, True)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    lse, tdelta = _bshd(jlse, B, H), _bshd(delta, B, H)
+    dq = tfl.flash_bwd_dq(tq, tk, tv, tdo, lse, tdelta, mode, scale)
+    dk, dv = tfl.flash_bwd_dkv(tq, tk, tv, tdo, lse, tdelta, mode, scale)
+    tol = GRAD if dtype == "float32" else BF16
+    for got, want, name in ((dq, jdq, "dq"), (dk, jdk, "dk"), (dv, jdv, "dv")):
+        assert got.dtype == tdt and got.shape == (B, S, H, D)
+        _close(got.float(), _bshd(want, B, H), tol, name)
+    if mode == jfl.MASK_STRICT:   # row 0 sees no key: no gradient
+        assert float(dq[:, 0].float().abs().max()) == 0.0
+
+
+def test_backward_route_is_wgmma_only_when_every_operand_is_bf16():
+    b = torch.zeros((1, 8, 1, 16), dtype=torch.bfloat16)
+    f = b.float()
+    assert tfl.bwd_route(b, b, b, b) == "wgmma"
+    for i in range(4):
+        ops = [b] * 4
+        ops[i] = f
+        assert tfl.bwd_route(*ops) == "simt"
+    assert tfl.bwd_route(f, f, f, f) == "simt"
+    with pytest.raises(ValueError, match="dtype"):
+        tfl.bwd_route(b, b, b, b.half())
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_transformer_backward_takes_the_route_of_its_dtype(monkeypatch,
+                                                           dtype, route):
+    """The model's attention (q/k/v views of the fused qkv projection,
+    ``models/transformer.py``) hands the backward pair operands of the
+    compute dtype: a bf16 model (BERT's and GPT-2's) takes the wgmma
+    route, an f32 one the SIMT route."""
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.transformer import init_gpt2_
+    cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
+                            d_model=32, d_ff=64, max_len=32, dtype=dtype,
+                            attention_impl="flash")
+    model = init_gpt2_(Transformer(cfg), torch.Generator().manual_seed(0))
+    seen, bwd = [], tfl.flash_bwd
+
+    def spy(q, k, v, do, *rest):
+        seen.append(tfl.bwd_route(q, k, v, do))
+        return bwd(q, k, v, do, *rest)
+
+    monkeypatch.setattr(tfl, "flash_bwd", spy)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 61, (2, 32)))
+    model(tokens).float().square().mean().backward()
+    assert seen == [route] * cfg.num_layers

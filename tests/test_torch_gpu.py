@@ -159,12 +159,15 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
 
 
 # ---------------------------------------------------------------------------
-# FlashAttention-2 kernels (csrc/flash_attention.cu) against their plain
-# versions: f32 forward 2e-4 / 2e-5 and gradients 2e-3 / 2e-4 (the JAX
-# package's flash tolerances, tests/test_flash.py).  In bf16 both sides
-# sum in f32 and round the output once: 2 bf16 ulps (rtol 2**-6) and an
-# atol of 1e-3 times the plain output's largest magnitude.  lse is f32
-# on both sides.
+# FlashAttention-2 kernels (csrc/flash_attention.cu; the bf16 backward pair
+# in csrc/flash_attention_bwd_sm90.cu) against their plain versions: f32
+# forward 2e-4 / 2e-5 and gradients 2e-3 / 2e-4 (the JAX package's flash
+# tolerances, tests/test_flash.py).  In bf16 both sides sum in f32 and
+# round the output once: 2 bf16 ulps (rtol 2**-6) and an atol of 1e-3
+# times the plain output's largest magnitude; the bf16 gradients may also
+# move by the rounding of P and dS to bf16 before the wgmma products
+# (tfl.attention_bwd_rounding_bound, element by element).  lse is f32 on
+# both sides.
 # ---------------------------------------------------------------------------
 
 from horovod_tpu_torch.parallel import flash as tfl  # noqa: E402
@@ -173,11 +176,34 @@ _TOL = {torch.float32: ((2e-4, 2e-5), (2e-3, 2e-4)),
         torch.bfloat16: ((2**-6, 1e-3), (2**-6, 1e-3))}
 
 
-def _assert_close(got, want, rtol, atol, **kw):
+def _assert_close(got, want, rtol, atol, bound=0.0, msg=""):
+    """|got - want| <= atol + rtol·|want| + bound, atol scaled by
+    max|want| for bf16."""
     if got.dtype == torch.bfloat16:
         atol *= float(want.float().abs().max())
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol, **kw)
+    diff = (got.float() - want.float()).abs()
+    tol = atol + rtol * want.float().abs() + bound
+    assert bool((diff <= tol).all()), \
+        f"{msg}: max excess {float((diff - tol).max()):.3e}"
+
+
+def _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype):
+    """Both backward kernels against their plain versions, and twice
+    with the same bits; returns the gradients."""
+    got = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
+    kw = dict(mask_mode=mode, scale=scale)
+    want = (tfl.attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            *tfl.attention_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    bounds = (tfl.attention_bwd_rounding_bound(q, k, v, do, lse, delta, **kw)
+              if dtype == torch.bfloat16 else (0.0,) * 3)
+    again = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
+    torch.cuda.synchronize()
+    _, (grt, gat) = _TOL[dtype]
+    for g, w, x, a, name in zip(got, want, bounds, again, "qkv"):
+        assert g.dtype == dtype
+        _assert_close(g, w, grt, gat, x, msg=f"d{name} mode {mode}")
+        assert torch.equal(g, a), f"d{name} not bit-identical"
+    return got
 
 
 def _flash_inputs(rng, shape, dtype, dev):
@@ -195,7 +221,7 @@ def _flash_inputs(rng, shape, dtype, dev):
 def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
     rng = np.random.RandomState(sum(shape))
     q, k, v, do = _flash_inputs(rng, shape, dtype, cuda_device)
-    (frt, fat), (grt, gat) = _TOL[dtype]
+    (frt, fat), _ = _TOL[dtype]
     scale = 1.0 / np.sqrt(shape[-1])
     for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
         n0 = dict(tfl.LAUNCHES)
@@ -207,20 +233,15 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
         _assert_close(out, ref_out, frt, fat)
         torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-5)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-        got = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
-        kw = dict(mask_mode=mode, scale=scale)
-        want = (tfl.attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
-                *tfl.attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                 **kw))
-        again = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
-        torch.cuda.synchronize()
-        for g, w, a, name in zip(got, want, again, "qkv"):
-            assert g.dtype == dtype
-            _assert_close(g, w, grt, gat, msg=f"d{name} mode {mode}")
-            assert torch.equal(g, a), f"d{name} not bit-identical"
+        got = _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype)
         assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 1
         assert tfl.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 2
         assert tfl.LAUNCHES["flash_bwd_dkv"] == n0["flash_bwd_dkv"] + 2
+        wg = 2 if dtype == torch.bfloat16 else 0
+        assert tfl.LAUNCHES["flash_bwd_dq_wgmma"] == \
+            n0["flash_bwd_dq_wgmma"] + wg
+        assert tfl.LAUNCHES["flash_bwd_dkv_wgmma"] == \
+            n0["flash_bwd_dkv_wgmma"] + wg
         if mode == tfl.MASK_STRICT:   # row 0 sees no key
             assert float(out[:, 0].float().abs().max()) == 0.0
             assert torch.all(lse[:, :, 0] == -1e30 / 2)
@@ -259,6 +280,53 @@ def test_flash_kernels_read_strided_qkv_and_mixed_dtypes(cuda_device):
     (o32.sum() + lse.sum()).backward()
     assert qb.grad.dtype == torch.bfloat16 and torch.isfinite(
         qb.grad.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 80, 96, 256])
+def test_bf16_backward_reads_fused_qkv_views(cuda_device, S):
+    """The main path's layout: bf16 q/k/v as strided views of one fused
+    [B, S, 3, H, D] projection, through the wgmma backward pair, in every
+    mask mode (S past a multiple of the 64-row tile, and S = 8 below
+    one), against the plain versions with bit-identical repeats."""
+    rng = np.random.RandomState(S)
+    B, H, D = 2, 4, 64
+    qkv = torch.from_numpy((rng.randn(B, S, 3, H, D) * 0.5).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    do = torch.from_numpy((rng.randn(B, S, H, D) * 0.5).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    scale = 1.0 / np.sqrt(D)
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        n0 = dict(tfl.LAUNCHES)
+        dq, _, _ = _check_bwd(q, k, v, do, lse, delta, mode, scale,
+                              torch.bfloat16)
+        assert tfl.LAUNCHES["flash_bwd_dq_wgmma"] == \
+            n0["flash_bwd_dq_wgmma"] + 2
+        assert tfl.LAUNCHES["flash_bwd_dkv_wgmma"] == \
+            n0["flash_bwd_dkv_wgmma"] + 2
+        if mode == tfl.MASK_STRICT:
+            assert float(dq[:, 0].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_bf16_backward_reads_head_major_views(cuda_device):
+    """[B, H, S, D] tensors viewed as [B, S, H, D] (the head stride above
+    the sequence stride) go to the wgmma pair as they lie."""
+    rng = np.random.RandomState(5)
+    B, H, S, D = 2, 3, 80, 64
+    q, k, v, do = (torch.from_numpy((rng.randn(B, H, S, D) * 0.5).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for _ in range(4))
+    assert q.stride(2) > q.stride(1)
+    scale = 1.0 / np.sqrt(D)
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL):
+        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        _check_bwd(q, k, v, do, lse, delta, mode, scale, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -330,6 +398,8 @@ def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
         got = {k: tfl.LAUNCHES[k] - n0[k] for k in n0}
         L = cfg.num_layers
         assert got == {"flash_fwd": L * (2 if remat else 1),
-                       "flash_bwd_dq": L, "flash_bwd_dkv": L}, got
+                       "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                       "flash_bwd_dq_wgmma": 0,   # an f32 model
+                       "flash_bwd_dkv_wgmma": 0}, got
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
