@@ -17,8 +17,8 @@ Phases, each of which exits non-zero on failure:
    version and the library yardstick (SDPA over the gathered K/V) with
    CUDA events;
 3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
-   their plain versions, in every mask mode, f32 and bf16 (the backward
-   pair's bf16 route is the wgmma kernels), with a row that sees no key,
+   their plain versions, in every mask mode, f32 and bf16 (the bf16 route
+   of each is its wgmma kernel), with a row that sees no key,
    at the tiny test shapes and the training path's shapes (BERT-large
    bench [32, 128, 16, 64], GPT-2 small [4, 1024, 12, 64] causal); time
    each kernel, its plain version and SDPA's forward / backward at those
@@ -35,7 +35,7 @@ Phases, each of which exits non-zero on failure:
    micro-batch, 2 micro-batches per optimizer step, 20 masked positions,
    flash attention, bf16 products) through ``DistributedOptimizer`` over
    NCCL; check the losses are finite and fall, no gradient is NaN, and
-   each flash kernel (the backward pair on its wgmma route) launched 24
+   each flash kernel (on its wgmma route) launched 24
    times per micro-batch; report samples/s, step time, peak memory and
    the device's busy share of a traced step.  Then hold one f32 and one
    bf16 step of a 2-layer BERT-large-width model through the kernels
@@ -73,11 +73,13 @@ RTOL, ATOL = 2e-4, 2e-5   # the JAX package's paged-attention tolerance
 # output once, so they may differ by a rounding step: 2 bf16 ulps (rtol
 # 2**-6), and an atol of 1e-3 times the plain output's largest magnitude.
 # lse is f32 on both sides and is held at the f32 forward tolerance.
-# The bf16 gradients come from the tensor-core route, which also rounds P
-# and dS to bf16 before the second products: each gradient element may
-# move by a further 2**-8 (bf16's unit roundoff) times the same sum over
-# magnitudes, |P|·|dO|, scale·|dS|·|q| or scale·|dS|·|k|
-# (flash.attention_bwd_rounding_bound), and is held to that as well.
+# The bf16 outputs come from the tensor-core routes, which also round P
+# (forward and backward) and dS (backward) to bf16 before the second
+# products: each element may move by a further 2**-8 (bf16's unit
+# roundoff) times the same sum over magnitudes, P·|v|/l for the output,
+# |P|·|dO|, scale·|dS|·|q| or scale·|dS|·|k| for the gradients
+# (flash.attention_fwd_rounding_bound, attention_bwd_rounding_bound), and
+# is held to that as well.
 FLASH_TOL = {"float32": ((2e-4, 2e-5), (2e-3, 2e-4)),
              "bfloat16": ((2**-6, 1e-3), (2**-6, 1e-3))}
 
@@ -340,8 +342,8 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
     """Run the three kernels (the plain versions on the CPU) and their
     plain versions on one problem; returns the max abs error of each
     kernel, whether every output is within tolerance, the inputs, and the
-    gradients' largest error over their tolerance (bf16: also over the
-    fixed tolerance alone, without the rounding bound)."""
+    output's and the gradients' largest error over their tolerance (bf16:
+    also over the fixed tolerance alone, without the rounding bound)."""
     mk = lambda: torch.as_tensor(  # noqa: E731
         (rng.randn(*shape) * 0.5).astype(np.float32), device=device).to(dtype)
     q, k, v, do = mk(), mk(), mk(), mk()
@@ -373,14 +375,19 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
         return float(r) if bool(torch.isfinite(r)) else float("inf")
 
     grads = ((dq, r_dq), (dk, r_dk), (dv, r_dv))
+    bf16 = dtype == torch.bfloat16
     bounds = (fl.attention_bwd_rounding_bound(q, k, v, do, lse, delta, **kw)
-              if dtype == torch.bfloat16 else (0.0,) * 3)
+              if bf16 else (0.0,) * 3)
     worst = max(ratio(a, b, grt, gat, x) for (a, b), x in zip(grads, bounds))
     worst_fixed = max(ratio(a, b, grt, gat) for a, b in grads)
+    fwd = ratio(out, r_out, frt, fat,
+                fl.attention_fwd_rounding_bound(q, k, v, **kw) if bf16
+                else 0.0)
+    fwd_fixed = ratio(out, r_out, frt, fat)
     errs = {"flash_fwd": max(err(out, r_out), err(lse, r_lse)),
             "flash_bwd_dq": err(dq, r_dq),
             "flash_bwd_dkv": max(err(dk, r_dk), err(dv, r_dv))}
-    ok = (ratio(out, r_out, frt, fat) <= 1.0
+    ok = (fwd <= 1.0
           and ratio(lse, r_lse, *FLASH_TOL["float32"][0]) <= 1.0
           and worst <= 1.0)
     if mode == fl.MASK_STRICT:  # row 0 sees no key
@@ -389,7 +396,8 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
             and float(dq[:, 0].float().abs().max()) == 0.0
     ok = ok and all(bool(torch.isfinite(t.float()).all())
                     for t in (out, lse, dq, dk, dv))
-    return errs, ok, (q, k, v, do, lse, delta, scale), (worst, worst_fixed)
+    return (errs, ok, (q, k, v, do, lse, delta, scale),
+            (fwd, fwd_fixed, worst, worst_fixed))
 
 
 def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
@@ -460,23 +468,29 @@ def flash_phase(torch, device, rehearsal):
                   ("gpt2-small", gpt2, f32, fl.MASK_CAUSAL)]
     max_err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     timed = {}
-    worst = {"float32": 0.0, "bfloat16": 0.0, "bfloat16 fixed": 0.0}
+    # Largest err/tol of the output ("fwd") and the gradients ("grad"), by
+    # dtype; "fixed": bf16 over FLASH_TOL alone, without the bound.
+    worst = {f"{part} {kind}": 0.0 for part in ("fwd", "grad")
+             for kind in ("float32", "bfloat16", "bfloat16 fixed")}
     for name, shape, dt, mode in cases:
-        errs, ok, inputs, (w, w_fixed) = flash_case(torch, fl, rng, shape,
-                                                    dt, mode, device)
+        errs, ok, inputs, ratios = flash_case(torch, fl, rng, shape, dt,
+                                              mode, device)
         for kname, e in errs.items():
             max_err[kname] = max(max_err[kname], e)
         dname = str(dt).split(".")[-1]
-        worst[dname] = max(worst[dname], w)
-        if dt == bf16:
-            worst["bfloat16 fixed"] = max(worst["bfloat16 fixed"], w_fixed)
+        for part, r, r_fixed in (("fwd", *ratios[:2]), ("grad", *ratios[2:])):
+            worst[f"{part} {dname}"] = max(worst[f"{part} {dname}"], r)
+            if dt == bf16:
+                worst[f"{part} bfloat16 fixed"] = max(
+                    worst[f"{part} bfloat16 fixed"], r_fixed)
         tol = FLASH_TOL[dname]
         bf16_note = " (atol x max|plain|) + rounding bound" if dt == bf16 \
             else ""
+        fixed = (f" (fixed part alone {ratios[1]:.3f} / {ratios[3]:.3f})"
+                 if dt == bf16 else "")
         log(f"  {name} {dname} mask={mode}: max_abs_err "
             + ", ".join(f"{k[6:]} {e:.3e}" for k, e in errs.items())
-            + f"; grad err/tol {w:.3f}"
-            + (f" (fixed part alone {w_fixed:.3f})" if dt == bf16 else "")
+            + f"; err/tol fwd {ratios[0]:.3f}, grad {ratios[2]:.3f}{fixed}"
             + f" ({'ok' if ok else 'MISMATCH'} at fwd {tol[0]} grad "
               f"{tol[1]}{bf16_note})")
         if not ok:
@@ -484,9 +498,10 @@ def flash_phase(torch, device, rehearsal):
                              f"versions: {name} {dt} mask={mode}")
         if not rehearsal and dt == bf16 and shape in (bert, gpt2):
             timed[name] = (shape, dt, mode, inputs)
-    log(f"  largest gradient err/tol: f32 {worst['float32']:.3f}, bf16 "
-        f"{worst['bfloat16']:.3f} (over the fixed tolerance alone "
-        f"{worst['bfloat16 fixed']:.3f})")
+    for part in ("fwd", "grad"):
+        log(f"  largest {part} err/tol: f32 {worst[part + ' float32']:.3f}, "
+            f"bf16 {worst[part + ' bfloat16']:.3f} (over the fixed "
+            f"tolerance alone {worst[part + ' bfloat16 fixed']:.3f})")
     if rehearsal:
         return {"max_abs_err": max_err}
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
@@ -698,10 +713,10 @@ def _busy_ms(torch, prof):
 
 def _flash_share(torch, prof, busy_ms):
     """The flash kernels' device time in the profiled window, by kernel
-    (the SIMT forward, the wgmma dQ and dK/dV), beside the total."""
+    (the wgmma forward, dQ and dK/dV), beside the total."""
     cpu = torch.autograd.DeviceType.CPU
-    names = {"::fwd_kernel<": "fwd", "::dq_kernel<": "dQ (wgmma)",
-             "::dkv_kernel<": "dK/dV (wgmma)"}
+    names = {"::flash_fwd_kernel<": "fwd (wgmma)",
+             "::dq_kernel<": "dQ (wgmma)", "::dkv_kernel<": "dK/dV (wgmma)"}
     found = {label: [0.0, 0] for label in names.values()}
     for e in prof.key_averages():
         for tag, label in names.items():
@@ -744,7 +759,7 @@ def bert_main_path(torch, fl, rehearsal):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         failures.append(f"losses not finite and falling: {losses}")
     if not rehearsal:
-        want = 24 * steps   # bf16: every backward launch takes wgmma
+        want = 24 * steps   # bf16: every launch takes its wgmma kernel
         if any(n != want for n in launches.values()):
             failures.append(f"flash launches {launches}, expected {want} "
                             f"each (24 layers x {steps} micro-batches)")
@@ -982,15 +997,14 @@ def main(argv=None) -> int:
                 "flash_bwd_dkv": "horovod_tpu/parallel/flash.py:195"}
     for name, where in replaces.items():
         r = frec["bert-large"][name]
-        # The bench shape is bf16: the backward pair runs its wgmma kernels.
-        wgmma = name != "flash_fwd"
+        # The bench shape is bf16: each kernel runs its wgmma instance.
         kernels.append({
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/" + (
-                "flash_attention_bwd_sm90.cu" if wgmma
-                else "flash_attention.cu"),
+                "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
+                else "flash_attention_bwd_sm90.cu"),
             "replaces": where,
-            "launches": flash_launches[name + ("_wgmma" if wgmma else "")],
+            "launches": flash_launches[name + "_wgmma"],
             "max_abs_err": frec["max_abs_err"][name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

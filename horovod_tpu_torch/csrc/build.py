@@ -3,10 +3,11 @@
 ``nvcc`` compiles each source in this directory to an object, all
 sources at once in parallel processes, and links the objects into one
 shared library with a plain C interface, for ``sm_90a`` (Hopper), which
-``ctypes`` loads.  The build runs at first use, from the repository's sources
-only, into ``_build/<hash>/`` beside this file (listed in .gitignore);
-the hash covers the sources and the flags, so an edited source builds
-anew and an unchanged one is reused.  Nothing here runs at import time:
+``ctypes`` loads.  The build runs at first use, from the repository's
+sources only, into ``_build/<hash>/`` beside this file (listed in
+.gitignore); the hash covers the sources, the headers they include and
+the flags, so an edited source builds anew and an unchanged one is
+reused.  Nothing here runs at import time:
 the CPU tests import every module of the package on a machine without
 ``nvcc``.
 """
@@ -23,7 +24,8 @@ from typing import Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "flash_attention_bwd_sm90.cu")
+           "flash_attention_fwd_sm90.cu", "flash_attention_bwd_sm90.cu")
+HEADERS = ("sm90.cuh",)  # included by the sm90 sources; part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhvd_torch_kernels.so"
@@ -49,7 +51,7 @@ def nvcc_path() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_HERE, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -11,15 +11,16 @@
 //   * hvd_flash_bwd_dkv <- `_bwd_dkv_kernel` (:195, `_run_bwd_kernels`
 //                          :339): dV = sum_q p^T . dO,
 //                          dK = sum_q ds^T . (q * scale).
-// The two backward entry points run this file's SIMT kernels for f32
-// operands and the tensor-core kernels of flash_attention_bwd_sm90.cu
-// (wgmma fed by TMA) for bf16 ones; the forward runs here for both.
+// Each entry point runs this file's SIMT kernels for f32 operands and a
+// tensor-core kernel (wgmma fed by TMA) for bf16 ones: the forward's in
+// flash_attention_fwd_sm90.cu, the backward pair's in
+// flash_attention_bwd_sm90.cu.
 // Layout: q, k, v, dO and the outputs are [B, S, H, D] with the head dim
 // contiguous and any (16-byte multiple) strides for B, S and H, so q/k/v
 // sliced out of the fused qkv projection are read where they lie (the JAX
 // wrapper transposes to [B*H, S, D] instead).  lse and delta are f32
-// [B, H, S].  Inputs are all f32 or all bf16; every product and the
-// softmax run in f32 and the outputs are stored in the input type.
+// [B, H, S].  Inputs are all f32 or all bf16 (`kind`); this file's
+// kernels take f32 and run every product and the softmax in f32.
 // Masks: NONE, CAUSAL (q >= k), STRICT (q > k) on positions in the
 // sequence.
 //
@@ -48,15 +49,13 @@
 // elements moved (the backward 6 and 8 times S*S*D; a causal mask halves
 // the flops).  At BERT-large's 128 tokens the card's least time is set by
 // the bytes (the forward's 33.8 MB at 3.35 TB/s, ~10 us), at GPT-2's 1024
-// causal tokens by the bf16 tensor-core rate.  This first version computes
-// in scalar f32 from shared memory, off the tensor cores (whose bf16 rate
-// is ~15x the f32 rate), so its own limit is the f32 FMA pipe and the
-// shared-memory reads feeding it.  f32 backward products stay here
-// because TF32 would break the JAX f32 gradient tolerance; the bf16
-// forward on the tensor cores is the next step (ROADMAP Queue B,
-// PERF.md).
+// causal tokens the bytes and the bf16 tensor-core rate nearly tie.  These
+// kernels compute in scalar f32 from shared memory, off the tensor cores
+// (whose bf16 rate is ~15x the f32 rate), so their own limit is the f32
+// FMA pipe and the shared-memory reads feeding it.  The f32 instances stay
+// here because TF32 products would break the JAX f32 tolerances; bf16
+// operands go to the tensor-core kernels.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,22 +73,6 @@ constexpr int TR = 4;     // rows per thread (TILE / 16)
 constexpr int PS = TILE + 1;  // row stride of a [TILE][TILE] probability tile
 
 enum Kind { K_F32 = 0, K_BF16 = 1 };
-
-template <int K> struct Elem;
-template <> struct Elem<K_F32> {
-  using T = float;
-  static __device__ __forceinline__ float load(T x) { return x; }
-  static __device__ __forceinline__ T store(float x) { return x; }
-};
-template <> struct Elem<K_BF16> {
-  using T = uint16_t;
-  static __device__ __forceinline__ float load(T x) {
-    return __uint_as_float(static_cast<uint32_t>(x) << 16);
-  }
-  static __device__ __forceinline__ T store(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-  }
-};
 
 // Element strides of one [B, S, H, D] operand (D is unit stride).
 struct Str {
@@ -119,12 +102,11 @@ __device__ __forceinline__ bool keep(int mode, int qp, int kp) {
 
 // Stage rows [row0, row0 + TILE) of one (b, h) slice into dst[TILE][D + 1]
 // as f32 times `mul`, with 16-byte loads; rows past S become zeros.
-template <int K, int D>
-__device__ __forceinline__ void stage(float* dst, const typename Elem<K>::T* src,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
                                       const Str& st, int b, int h, int row0,
                                       int S, float mul) {
-  using T = typename Elem<K>::T;
-  constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int VE = 4;        // floats per 16-byte load
   constexpr int VPR = D / VE;         // loads per row
   for (int i = threadIdx.x; i < TILE * VPR; i += NT) {
     const int r = i / VPR;
@@ -133,9 +115,9 @@ __device__ __forceinline__ void stage(float* dst, const typename Elem<K>::T* src
     if (row0 + r < S) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(src + at(st, b, row0 + r, h) + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      const float* e = reinterpret_cast<const float*>(&raw);
 #pragma unroll
-      for (int j = 0; j < VE; ++j) d[j] = Elem<K>::load(e[j]) * mul;
+      for (int j = 0; j < VE; ++j) d[j] = e[j] * mul;
     } else {
 #pragma unroll
       for (int j = 0; j < VE; ++j) d[j] = 0.f;
@@ -151,11 +133,11 @@ __device__ __forceinline__ int key_end(int mode, int q_hi, int S) {
 }
 
 // out [B, S, H, D], lse [B, H, S].  Grid (S / TILE, H, B).
-template <int K, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) fwd_kernel(
-    const typename Elem<K>::T* __restrict__ q,
-    const typename Elem<K>::T* __restrict__ k,
-    const typename Elem<K>::T* __restrict__ v, typename Elem<K>::T* out,
+    const float* __restrict__ q,
+    const float* __restrict__ k,
+    const float* __restrict__ v, float* out,
     float* __restrict__ lse, Str sq, Str sk, Str sv, Str so, int S, int H,
     float scale, int mode) {
   constexpr int DP = D + 1;
@@ -168,7 +150,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
 
-  stage<K, D>(qs, q, sq, b, h, q0, S, scale);
+  stage<D>(qs, q, sq, b, h, q0, S, scale);
   float m[TR], l[TR], acc[TR][DC];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -181,8 +163,8 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     __syncthreads();  // the previous tile is no longer read
-    stage<K, D>(ks, k, sk, b, h, k0, S, 1.f);
-    stage<K, D>(vs, v, sv, b, h, k0, S, 1.f);
+    stage<D>(ks, k, sk, b, h, k0, S, 1.f);
+    stage<D>(vs, v, sv, b, h, k0, S, 1.f);
     __syncthreads();
     float s[TR][TR];
 #pragma unroll
@@ -247,23 +229,23 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     const int r = q0 + ty + 16 * i;
     if (r >= S) continue;
     const float lf = fmaxf(l[i], 1e-30f);
-    typename Elem<K>::T* o = out + at(so, b, r, h);
+    float* o = out + at(so, b, r, h);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = Elem<K>::store(acc[i][c] / lf);
+    for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c] / lf;
     if (tx == 0)
       lse[(static_cast<size_t>(b) * H + h) * S + r] = m[i] + logf(lf);
   }
 }
 
 // dq [B, S, H, D].  Grid (S / TILE, H, B).
-template <int K, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(
-    const typename Elem<K>::T* __restrict__ q,
-    const typename Elem<K>::T* __restrict__ k,
-    const typename Elem<K>::T* __restrict__ v,
-    const typename Elem<K>::T* __restrict__ dO,
+    const float* __restrict__ q,
+    const float* __restrict__ k,
+    const float* __restrict__ v,
+    const float* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    typename Elem<K>::T* dq, Str sq, Str sk, Str sv, Str sd, Str sdq, int S,
+    float* dq, Str sq, Str sk, Str sv, Str sd, Str sdq, int S,
     int H, float scale, int mode) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;
@@ -277,8 +259,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
   const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const size_t row_base = (static_cast<size_t>(b) * H + h) * S;
 
-  stage<K, D>(qs, q, sq, b, h, q0, S, scale);
-  stage<K, D>(dos, dO, sd, b, h, q0, S, 1.f);
+  stage<D>(qs, q, sq, b, h, q0, S, scale);
+  stage<D>(dos, dO, sd, b, h, q0, S, 1.f);
   float lr[TR], dr[TR], acc[TR][DC];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -292,8 +274,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
 
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     __syncthreads();
-    stage<K, D>(ks, k, sk, b, h, k0, S, 1.f);
-    stage<K, D>(vs, v, sv, b, h, k0, S, 1.f);
+    stage<D>(ks, k, sk, b, h, k0, S, 1.f);
+    stage<D>(vs, v, sv, b, h, k0, S, 1.f);
     __syncthreads();
     float s[TR][TR], dp[TR][TR];
 #pragma unroll
@@ -351,22 +333,22 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
   for (int i = 0; i < TR; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= S) continue;
-    typename Elem<K>::T* o = dq + at(sdq, b, r, h);
+    float* o = dq + at(sdq, b, r, h);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      o[tx + 16 * c] = Elem<K>::store(acc[i][c] * scale);
+      o[tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
 // dk, dv [B, S, H, D].  Grid (S / TILE, H, B): one block per key tile.
-template <int K, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
-    const typename Elem<K>::T* __restrict__ q,
-    const typename Elem<K>::T* __restrict__ k,
-    const typename Elem<K>::T* __restrict__ v,
-    const typename Elem<K>::T* __restrict__ dO,
+    const float* __restrict__ q,
+    const float* __restrict__ k,
+    const float* __restrict__ v,
+    const float* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    typename Elem<K>::T* dk, typename Elem<K>::T* dv, Str sq, Str sk, Str sv,
+    float* dk, float* dv, Str sq, Str sk, Str sv,
     Str sd, Str sdk, Str sdv, int S, int H, float scale, int mode) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;
@@ -383,8 +365,8 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const size_t row_base = (static_cast<size_t>(b) * H + h) * S;
 
-  stage<K, D>(ks, k, sk, b, h, k0, S, 1.f);
-  stage<K, D>(vs, v, sv, b, h, k0, S, 1.f);
+  stage<D>(ks, k, sk, b, h, k0, S, 1.f);
+  stage<D>(vs, v, sv, b, h, k0, S, 1.f);
   float gk[TR][DC], gv[TR][DC];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
@@ -395,8 +377,8 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     // The query tiles whose keys reach this key tile (block_contributes).
     if (k0 >= key_end(mode, min(q0 + TILE, S) - 1, S)) continue;
     __syncthreads();
-    stage<K, D>(qs, q, sq, b, h, q0, S, scale);
-    stage<K, D>(dos, dO, sd, b, h, q0, S, 1.f);
+    stage<D>(qs, q, sq, b, h, q0, S, scale);
+    stage<D>(dos, dO, sd, b, h, q0, S, 1.f);
     if (threadIdx.x < TILE) {
       const int r = q0 + threadIdx.x;
       ls[threadIdx.x] = r < S ? lse[row_base + r] : 0.f;
@@ -471,13 +453,13 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   for (int i = 0; i < TR; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= S) continue;
-    typename Elem<K>::T* ok = dk + at(sdk, b, r, h);
-    typename Elem<K>::T* ov = dv + at(sdv, b, r, h);
+    float* ok = dk + at(sdk, b, r, h);
+    float* ov = dv + at(sdv, b, r, h);
     // q was pre-scaled, so gk already carries the scale.
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      ok[tx + 16 * c] = Elem<K>::store(gk[i][c]);
-      ov[tx + 16 * c] = Elem<K>::store(gv[i][c]);
+      ok[tx + 16 * c] = gk[i][c];
+      ov[tx + 16 * c] = gv[i][c];
     }
   }
 }
@@ -519,64 +501,61 @@ struct Launch {
   dim3 grid() const { return dim3((S + TILE - 1) / TILE, H, B); }
 };
 
-template <int K, int D>
+template <int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, const long long* st, const Launch& a) {
-  using T = typename Elem<K>::T;
   const size_t smem = fwd_smem(D);
   static std::atomic<unsigned> smem_set{0};
-  cudaError_t e = allow_smem(fwd_kernel<K, D>, smem, smem_set);
+  cudaError_t e = allow_smem(fwd_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  fwd_kernel<K, D><<<a.grid(), NT, smem, a.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, str(st, 0),
+  fwd_kernel<D><<<a.grid(), NT, smem, a.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, str(st, 0),
       str(st, 1), str(st, 2), str(st, 3), a.S, a.H, a.scale, a.mode);
   return cudaGetLastError();
 }
 
-template <int K, int D>
+template <int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dO, const float* lse, const float* delta,
                    void* dq, const long long* st, const Launch& a) {
-  using T = typename Elem<K>::T;
   const size_t smem = dq_smem(D);
   static std::atomic<unsigned> smem_set{0};
-  cudaError_t e = allow_smem(bwd_dq_kernel<K, D>, smem, smem_set);
+  cudaError_t e = allow_smem(bwd_dq_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<K, D><<<a.grid(), NT, smem, a.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-      static_cast<T*>(dq), str(st, 0), str(st, 1), str(st, 2), str(st, 3),
+  bwd_dq_kernel<D><<<a.grid(), NT, smem, a.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
+      static_cast<float*>(dq), str(st, 0), str(st, 1), str(st, 2), str(st, 3),
       str(st, 4), a.S, a.H, a.scale, a.mode);
   return cudaGetLastError();
 }
 
-template <int K, int D>
+template <int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dO, const float* lse, const float* delta,
                     void* dk, void* dv, const long long* st, const Launch& a) {
-  using T = typename Elem<K>::T;
   const size_t smem = dkv_smem(D);
   static std::atomic<unsigned> smem_set{0};
-  cudaError_t e = allow_smem(bwd_dkv_kernel<K, D>, smem, smem_set);
+  cudaError_t e = allow_smem(bwd_dkv_kernel<D>, smem, smem_set);
   if (e != cudaSuccess) return e;
-  bwd_dkv_kernel<K, D><<<a.grid(), NT, smem, a.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), str(st, 0), str(st, 1),
+  bwd_dkv_kernel<D><<<a.grid(), NT, smem, a.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), str(st, 0), str(st, 1),
       str(st, 2), str(st, 3), str(st, 4), str(st, 5), a.S, a.H, a.scale,
       a.mode);
   return cudaGetLastError();
 }
 
-// Dispatch on the head dim to F<K, D>(args...); returns from the caller.
-#define HVD_FLASH_DISPATCH(F, K, D, ...)                            \
+// Dispatch on the head dim to F<D>(args...); returns from the caller.
+#define HVD_FLASH_DISPATCH(F, D, ...)                               \
   do {                                                              \
     switch (D) {                                                    \
-      case 16: return static_cast<int>(F<K, 16>(__VA_ARGS__));      \
-      case 32: return static_cast<int>(F<K, 32>(__VA_ARGS__));      \
-      case 64: return static_cast<int>(F<K, 64>(__VA_ARGS__));      \
-      case 128: return static_cast<int>(F<K, 128>(__VA_ARGS__));    \
+      case 16: return static_cast<int>(F<16>(__VA_ARGS__));         \
+      case 32: return static_cast<int>(F<32>(__VA_ARGS__));         \
+      case 64: return static_cast<int>(F<64>(__VA_ARGS__));         \
+      case 128: return static_cast<int>(F<128>(__VA_ARGS__));       \
     }                                                               \
     return static_cast<int>(cudaErrorInvalidValue);                 \
   } while (0)
@@ -588,7 +567,11 @@ bool bad_args(int B, int S, int H, int mode) {
 
 }  // namespace
 
-// The bf16 backward pair on the tensor cores (flash_attention_bwd_sm90.cu).
+// The bf16 kernels on the tensor cores (flash_attention_fwd_sm90.cu,
+// flash_attention_bwd_sm90.cu).
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const long long* strides, int B, int S, int H,
+                   int D, float scale, int mode, cudaStream_t stream);
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dO, const float* lse, const float* delta,
                       void* dq, const long long* strides, int B, int S, int H,
@@ -615,13 +598,12 @@ extern "C" int hvd_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
   const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
-  if (kind == K_F32)
-    HVD_FLASH_DISPATCH(fwd, K_F32, D, q, k, v, out, static_cast<float*>(lse),
-                       strides, a);
   if (kind == K_BF16)
-    HVD_FLASH_DISPATCH(fwd, K_BF16, D, q, k, v, out,
-                       static_cast<float*>(lse), strides, a);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return flash_fwd_sm90(q, k, v, out, static_cast<float*>(lse), strides, B,
+                          S, H, D, scale, mask_mode, a.stream);
+  if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
+  HVD_FLASH_DISPATCH(fwd, D, q, k, v, out, static_cast<float*>(lse),
+                     strides, a);
 }
 
 extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -638,7 +620,7 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                              static_cast<const float*>(delta), dq, strides, B,
                              S, H, D, scale, mask_mode, a.stream);
   if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
-  HVD_FLASH_DISPATCH(bwd_dq, K_F32, D, q, k, v, dO,
+  HVD_FLASH_DISPATCH(bwd_dq, D, q, k, v, dO,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta), dq, strides, a);
 }
@@ -657,7 +639,7 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                               static_cast<const float*>(delta), dk, dv,
                               strides, B, S, H, D, scale, mask_mode, a.stream);
   if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
-  HVD_FLASH_DISPATCH(bwd_dkv, K_F32, D, q, k, v, dO,
+  HVD_FLASH_DISPATCH(bwd_dkv, D, q, k, v, dO,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta), dk, dv, strides, a);
 }

@@ -5,14 +5,16 @@ Port of ``horovod_tpu/parallel/flash.py``.  The three Pallas TPU kernels
 there become hand-written CUDA kernels for Hopper:
 
 * ``_fwd_kernel`` (``:125``) → ``hvd_flash_fwd``: out and the per-row
-  logsumexp, online softmax over key tiles (``csrc/flash_attention.cu``);
+  logsumexp, online softmax over key tiles;
 * ``_bwd_dq_kernel`` (``:158``) → ``hvd_flash_bwd_dq``;
 * ``_bwd_dkv_kernel`` (``:195``) → ``hvd_flash_bwd_dkv``.
 
-The backward pair has two routes, chosen by the operands' dtype alone
-(:func:`bwd_route`): bf16 operands run the tensor-core kernels of
-``csrc/flash_attention_bwd_sm90.cu`` (wgmma fed by TMA; P and dS enter
-the second products as bf16), anything else the f32 SIMT kernels of
+Each has two routes, chosen by the operands' dtype alone
+(:func:`fwd_route`, :func:`bwd_route`): bf16 operands run the
+tensor-core kernels (wgmma fed by TMA) of
+``csrc/flash_attention_fwd_sm90.cu`` (P enters P·V as bf16) and
+``csrc/flash_attention_bwd_sm90.cu`` (P and dS enter the second
+products as bf16), anything else the f32 SIMT kernels of
 ``csrc/flash_attention.cu``.
 
 The public functions keep the JAX signatures and the [B, S, H, D]
@@ -57,11 +59,12 @@ MASK_NONE, MASK_CAUSAL, MASK_STRICT = 0, 1, 2
 
 #: Kernel launches since the last reset, by kernel name.  Bumped once per
 #: wrapper call that launches its kernel, never by the plain versions.
-#: ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch of the backward
-#: pair; the ``_wgmma`` names count those that took the bf16 tensor-core
-#: route as well.
+#: ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch
+#: of their kernel; the ``_wgmma`` names count those that took the bf16
+#: tensor-core route as well.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_bwd_dq_wgmma": 0, "flash_bwd_dkv_wgmma": 0}
+            "flash_fwd_wgmma": 0, "flash_bwd_dq_wgmma": 0,
+            "flash_bwd_dkv_wgmma": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,6 +155,16 @@ def _scores(q, k, scale, mode):
     return s, keep
 
 
+def _softmax_parts(q, k, scale, mode):
+    """``(m, p, l)``: the row max [B, H, Sq] floored at ``NEG_INF / 2``,
+    ``p = exp(s - m)`` [B, H, Sq, Sk] and its row sum floored at 1e-30,
+    all f32, as in the forward kernel."""
+    s, _ = _scores(q, k, scale, mode)
+    m = torch.clamp_min(s.amax(dim=-1), NEG_INF / 2)
+    p = torch.exp(s - m[..., None])
+    return m, p, torch.clamp_min(p.sum(dim=-1), 1e-30)
+
+
 def attention_fwd_reference(q, k, v, *, mask_mode: int = MASK_NONE,
                             scale: Optional[float] = None, out_dtype=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -159,10 +172,7 @@ def attention_fwd_reference(q, k, v, *, mask_mode: int = MASK_NONE,
     ``out_dtype`` (default q's dtype), lse [B, H, S] f32)``.  The max is
     floored at ``NEG_INF / 2`` and the sum at 1e-30, as in the kernel."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    s, _ = _scores(q, k, scale, mask_mode)
-    m = torch.clamp_min(s.amax(dim=-1), NEG_INF / 2)
-    p = torch.exp(s - m[..., None])
-    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    m, p, l = _softmax_parts(q, k, scale, mask_mode)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) \
         / l.transpose(1, 2)[..., None]
     return out.to(out_dtype or q.dtype), m + torch.log(l)
@@ -206,6 +216,22 @@ def attention_bwd_dkv_reference(q, k, v, do, lse, delta, *,
 BF16_ROUNDOFF = 2.0 ** -8
 
 
+def attention_fwd_rounding_bound(q, k, v, *, mask_mode: int = MASK_NONE,
+                                 scale: Optional[float] = None):
+    """How far the bf16 (wgmma) route of the forward may move each output
+    element from the plain version, beyond the output's own rounding: it
+    rounds P = exp(s - m) to bf16 before ``P·V`` and divides by the sum
+    ``l`` of the unrounded P, so each term of ``out = Σ_k P_k·v_k / l``
+    may move by ``BF16_ROUNDOFF`` of its magnitude.  Returns
+    ``BF16_ROUNDOFF · Σ_k P_k·|v_k| / l`` in f32 [B, S, H, D]: at most
+    ``BF16_ROUNDOFF · max|v|``, and 0 on a row that sees no key."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    _, p, l = _softmax_parts(q, k, scale, mask_mode)
+    return BF16_ROUNDOFF * torch.einsum("bhqk,bkhd->bqhd", p,
+                                        v.float().abs()) \
+        / l.transpose(1, 2)[..., None]
+
+
 def attention_bwd_rounding_bound(q, k, v, do, lse, delta, *,
                                  mask_mode: int = MASK_NONE,
                                  scale: Optional[float] = None):
@@ -241,6 +267,14 @@ def kernel_dtype(*ts) -> torch.dtype:
         _check(t.dtype in _KINDS, f"dtype {t.dtype} (f32|bf16)")
     return torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in ts) \
         else torch.float32
+
+
+def fwd_route(q, k, v) -> str:
+    """The forward's route for these operands: ``"wgmma"`` (the bf16
+    tensor-core kernel) when q, k and v are all bf16, else ``"simt"``
+    (the f32 kernel).  The C entry point picks the same kernel from the
+    element type the wrapper passes it."""
+    return "wgmma" if kernel_dtype(q, k, v) == torch.bfloat16 else "simt"
 
 
 def bwd_route(q, k, v, do) -> str:
@@ -290,10 +324,17 @@ def _validate(q, k, v):
            f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
 
 
+def _count(name, route):
+    LAUNCHES[name] += 1
+    if route == "wgmma":
+        LAUNCHES[name + "_wgmma"] += 1
+
+
 def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):
     from ..csrc import build as _build
     _validate(q, k, v)
     B, S, H, D = q.shape
+    route = fwd_route(q, k, v)
     dtype, (q, k, v) = _kernel_operands(q, k, v)
     out = torch.empty((B, S, H, D), dtype=dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -304,7 +345,7 @@ def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_fwd", err)
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd", route)
     return out.to(out_dtype), lse
 
 
@@ -317,12 +358,6 @@ def _bwd_operands(q, k, v, do, lse, delta):
            "lse and delta must be f32 [B, H, S]")
     dtype, ops = _kernel_operands(q, k, v, do)
     return dtype, ops + [lse.contiguous(), delta.contiguous()]
-
-
-def _count_bwd(name, route):
-    LAUNCHES[name] += 1
-    if route == "wgmma":
-        LAUNCHES[name + "_wgmma"] += 1
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale):
@@ -339,7 +374,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dq", err)
-    _count_bwd("flash_bwd_dq", route)
+    _count("flash_bwd_dq", route)
     return dq.to(q_dtype)
 
 
@@ -358,7 +393,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dkv", err)
-    _count_bwd("flash_bwd_dkv", route)
+    _count("flash_bwd_dkv", route)
     return dk.to(k_dtype), dv.to(v_dtype)
 
 

@@ -256,3 +256,100 @@ def test_transformer_backward_takes_the_route_of_its_dtype(monkeypatch,
     tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 61, (2, 32)))
     model(tokens).float().square().mean().backward()
     assert seen == [route] * cfg.num_layers
+
+
+def test_forward_route_is_wgmma_only_when_every_operand_is_bf16():
+    b = torch.zeros((1, 8, 1, 16), dtype=torch.bfloat16)
+    f = b.float()
+    assert tfl.fwd_route(b, b, b) == "wgmma"
+    for i in range(3):
+        ops = [b] * 3
+        ops[i] = f
+        assert tfl.fwd_route(*ops) == "simt"
+    assert tfl.fwd_route(f, f, f) == "simt"
+    with pytest.raises(ValueError, match="dtype"):
+        tfl.fwd_route(b, b, b.half())
+
+
+def _spy_forward_routes(monkeypatch):
+    seen, fwd = [], tfl.flash_fwd
+
+    def spy(q, k, v, *rest):
+        seen.append(tfl.fwd_route(q, k, v))
+        return fwd(q, k, v, *rest)
+
+    monkeypatch.setattr(tfl, "flash_fwd", spy)
+    return seen
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+def test_transformer_forward_takes_the_route_of_its_dtype(monkeypatch,
+                                                          dtype, route):
+    """The model's attention hands the forward q/k/v of the compute dtype:
+    a bf16 model (BERT's and GPT-2's) takes the wgmma route, an f32 one
+    the SIMT route."""
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.transformer import init_gpt2_
+    cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
+                            d_model=32, d_ff=64, max_len=32, dtype=dtype,
+                            attention_impl="flash")
+    model = init_gpt2_(Transformer(cfg), torch.Generator().manual_seed(0))
+    seen = _spy_forward_routes(monkeypatch)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 61, (2, 32)))
+    model(tokens)
+    assert seen == [route] * cfg.num_layers
+
+
+def test_lse_out_dtype_f32_keeps_bf16_inputs_on_the_simt_route(monkeypatch):
+    """``out_dtype=f32`` casts q before the forward, as JAX does, so bf16
+    inputs go to the f32 kernel and the partial keeps f32 products."""
+    seen = _spy_forward_routes(monkeypatch)
+    q, k, v = _t(_inputs(7), torch.bfloat16)
+    tfl.flash_attention_lse(q, k, v, out_dtype=torch.float32)
+    tfl.flash_attention_lse(q, k, v)
+    assert seen == ["simt", "wgmma"]
+
+
+def _fwd_with_bf16_p(q, k, v, mode, scale):
+    """The wgmma forward's arithmetic, dense and in f32 but for one
+    rounding: P = exp(s - m) goes to bf16 before P·V, while l sums the
+    unrounded P."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    keep = tfl._keep(q.shape[1], mode, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, tfl.NEG_INF))
+    m = torch.clamp_min(s.amax(dim=-1), tfl.NEG_INF / 2)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    return torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v.float()) \
+        / l.transpose(1, 2)[..., None]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", [tfl.MASK_NONE, tfl.MASK_CAUSAL,
+                                  tfl.MASK_STRICT])
+def test_forward_rounding_bound_is_sound(mode, seed):
+    """``attention_fwd_rounding_bound`` covers the rounding of P to bf16:
+    an emulation that rounds only P stays within the bound of the plain
+    version in f32, and within FLASH_TOL's bf16 part (2 ulps + 1e-3·max)
+    plus the bound once both are rounded to bf16, as the card's checks
+    hold the kernel.  The bound is at most 2⁻⁸·max|v| and 0 on a row that
+    sees no key."""
+    shape = (2, 80, 2, 32)
+    q, k, v = _t(_inputs(60 + seed, shape), torch.bfloat16)
+    kw = dict(mask_mode=mode, scale=1.0 / np.sqrt(shape[-1]))
+    ref, _ = tfl.attention_fwd_reference(q, k, v, out_dtype=torch.float32,
+                                         **kw)
+    bound = tfl.attention_fwd_rounding_bound(q, k, v, **kw)
+    got = _fwd_with_bf16_p(q, k, v, mode, kw["scale"])
+    assert bound.shape == ref.shape and bound.dtype == torch.float32
+    assert bool(((got - ref).abs() <= bound + 1e-6).all())
+    assert float((got - ref).abs().max()) > 0   # P's rounding does show
+    got16, ref16 = got.bfloat16().float(), ref.bfloat16().float()
+    tol = 1e-3 * float(ref16.abs().max()) + 2 ** -6 * ref16.abs() + bound
+    assert bool(((got16 - ref16).abs() <= tol).all())
+    assert float(bound.max()) <= 2 ** -8 * float(v.float().abs().max())
+    if mode == tfl.MASK_STRICT:
+        assert float(bound[:, 0].abs().max()) == 0.0
+        assert float(got[:, 0].abs().max()) == 0.0

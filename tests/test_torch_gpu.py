@@ -159,15 +159,17 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
 
 
 # ---------------------------------------------------------------------------
-# FlashAttention-2 kernels (csrc/flash_attention.cu; the bf16 backward pair
-# in csrc/flash_attention_bwd_sm90.cu) against their plain versions: f32
+# FlashAttention-2 kernels (csrc/flash_attention.cu; the bf16 forward in
+# csrc/flash_attention_fwd_sm90.cu, the bf16 backward pair in
+# csrc/flash_attention_bwd_sm90.cu) against their plain versions: f32
 # forward 2e-4 / 2e-5 and gradients 2e-3 / 2e-4 (the JAX package's flash
 # tolerances, tests/test_flash.py).  In bf16 both sides sum in f32 and
 # round the output once: 2 bf16 ulps (rtol 2**-6) and an atol of 1e-3
-# times the plain output's largest magnitude; the bf16 gradients may also
-# move by the rounding of P and dS to bf16 before the wgmma products
-# (tfl.attention_bwd_rounding_bound, element by element).  lse is f32 on
-# both sides.
+# times the plain output's largest magnitude; the bf16 output may also
+# move by the rounding of P to bf16 before P.V, the bf16 gradients by the
+# rounding of P and dS before the second products
+# (tfl.attention_fwd_rounding_bound, tfl.attention_bwd_rounding_bound,
+# element by element).  lse is f32 on both sides, at the f32 tolerance.
 # ---------------------------------------------------------------------------
 
 from horovod_tpu_torch.parallel import flash as tfl  # noqa: E402
@@ -185,6 +187,33 @@ def _assert_close(got, want, rtol, atol, bound=0.0, msg=""):
     tol = atol + rtol * want.float().abs() + bound
     assert bool((diff <= tol).all()), \
         f"{msg}: max excess {float((diff - tol).max()):.3e}"
+
+
+def _check_fwd(q, k, v, mode, scale, dtype):
+    """The forward kernel against its plain version, and twice with the
+    same bits; counts one launch of each run on its route.  Returns
+    ``(out, lse)``."""
+    n0 = dict(tfl.LAUNCHES)
+    out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+    again = tfl.flash_fwd(q, k, v, mode, scale)
+    kw = dict(mask_mode=mode, scale=scale)
+    ref_out, ref_lse = tfl.attention_fwd_reference(q, k, v, **kw)
+    bound = (tfl.attention_fwd_rounding_bound(q, k, v, **kw)
+             if dtype == torch.bfloat16 else 0.0)
+    torch.cuda.synchronize()
+    (frt, fat), _ = _TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _assert_close(out, ref_out, frt, fat, bound, msg=f"out mode {mode}")
+    torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-5)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1]), \
+        "forward not bit-identical"
+    wg = 2 if dtype == torch.bfloat16 else 0
+    assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 2
+    assert tfl.LAUNCHES["flash_fwd_wgmma"] == n0["flash_fwd_wgmma"] + wg
+    if mode == tfl.MASK_STRICT:   # row 0 sees no key
+        assert float(out[:, 0].float().abs().max()) == 0.0
+        assert torch.all(lse[:, :, 0] == -1e30 / 2)
+    return out, lse
 
 
 def _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype):
@@ -221,20 +250,13 @@ def _flash_inputs(rng, shape, dtype, dev):
 def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
     rng = np.random.RandomState(sum(shape))
     q, k, v, do = _flash_inputs(rng, shape, dtype, cuda_device)
-    (frt, fat), _ = _TOL[dtype]
     scale = 1.0 / np.sqrt(shape[-1])
     for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        out, lse = _check_fwd(q, k, v, mode, scale, dtype)
         n0 = dict(tfl.LAUNCHES)
-        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
-        ref_out, ref_lse = tfl.attention_fwd_reference(
-            q, k, v, mask_mode=mode, scale=scale)
-        torch.cuda.synchronize()
-        assert out.dtype == dtype and lse.dtype == torch.float32
-        _assert_close(out, ref_out, frt, fat)
-        torch.testing.assert_close(lse, ref_lse, rtol=2e-4, atol=2e-5)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         got = _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype)
-        assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 1
+        assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"]
         assert tfl.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 2
         assert tfl.LAUNCHES["flash_bwd_dkv"] == n0["flash_bwd_dkv"] + 2
         wg = 2 if dtype == torch.bfloat16 else 0
@@ -243,8 +265,6 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
         assert tfl.LAUNCHES["flash_bwd_dkv_wgmma"] == \
             n0["flash_bwd_dkv_wgmma"] + wg
         if mode == tfl.MASK_STRICT:   # row 0 sees no key
-            assert float(out[:, 0].float().abs().max()) == 0.0
-            assert torch.all(lse[:, :, 0] == -1e30 / 2)
             assert float(got[0][:, 0].float().abs().max()) == 0.0
 
 
@@ -330,6 +350,50 @@ def test_bf16_backward_reads_head_major_views(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 80, 96, 256])
+def test_bf16_forward_reads_fused_qkv_views(cuda_device, S):
+    """The main path's layout: bf16 q/k/v as strided views of one fused
+    [B, S, 3, H, D] projection, through the wgmma forward, in every mask
+    mode (S past a multiple of the 64-row tile, and S = 8 below one),
+    against the plain version with bit-identical repeats."""
+    rng = np.random.RandomState(100 + S)
+    B, H, D = 2, 4, 64
+    qkv = torch.from_numpy((rng.randn(B, S, 3, H, D) * 0.5).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        _check_fwd(q, k, v, mode, 1.0 / np.sqrt(D), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_bf16_forward_reads_head_major_views(cuda_device):
+    """[B, H, S, D] tensors viewed as [B, S, H, D] (the head stride above
+    the sequence stride) go to the wgmma forward as they lie."""
+    rng = np.random.RandomState(6)
+    B, H, S, D = 2, 3, 80, 64
+    q, k, v = (torch.from_numpy((rng.randn(B, H, S, D) * 0.5).astype(
+        np.float32)).to(cuda_device, torch.bfloat16).transpose(1, 2)
+        for _ in range(3))
+    assert q.stride(2) > q.stride(1)
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        _check_fwd(q, k, v, mode, 1.0 / np.sqrt(D), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mode", [((32, 128, 16, 64), 0),
+                                        ((4, 1024, 12, 64), 1)])
+def test_bf16_forward_is_deterministic_at_the_main_path_shapes(
+        cuda_device, shape, mode):
+    """BERT-large's and GPT-2's forward shapes: two runs give the same out
+    and lse bits (no atomics, a fixed order of sums), both within the
+    plain version's tolerance."""
+    rng = np.random.RandomState(sum(shape))
+    q, k, v, _ = _flash_inputs(rng, shape, torch.bfloat16, cuda_device)
+    _check_fwd(q, k, v, mode, 1.0 / np.sqrt(shape[-1]), torch.bfloat16)
+
+
+@pytest.mark.gpu
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 64, 2, 48), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
@@ -399,7 +463,8 @@ def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
         L = cfg.num_layers
         assert got == {"flash_fwd": L * (2 if remat else 1),
                        "flash_bwd_dq": L, "flash_bwd_dkv": L,
-                       "flash_bwd_dq_wgmma": 0,   # an f32 model
+                       "flash_fwd_wgmma": 0,      # an f32 model
+                       "flash_bwd_dq_wgmma": 0,
                        "flash_bwd_dkv_wgmma": 0}, got
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
