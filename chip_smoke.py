@@ -9,13 +9,14 @@ Phases, each of which exits non-zero on failure:
 1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a, one
    process per source, all at once) and print ptxas's register /
    shared-memory report;
-2. hold the paged-attention kernel against its plain PyTorch version on
-   the card, at the serving path's shapes (gpt2-small: H=12, Dh=64,
+2. hold the paged-attention kernels against their plain PyTorch version
+   on the card, at the serving path's shapes (gpt2-small: H=12, Dh=64,
    BT=16; decode B=8 with contexts up to 1024, prefill chunks of C=64)
    and at the tiny test shapes, for every mask mode and pool type (f32,
-   bf16, int8, fp8) and with all-hole rows; time the kernel, its plain
-   version and the library yardstick (SDPA over the gathered K/V) with
-   CUDA events;
+   bf16, int8, fp8) and with all-hole rows: every decode case (one query
+   row) on the decode route, every chunk on the prefill kernel; time
+   each route, its plain version and the library yardstick (SDPA over
+   the gathered K/V) with CUDA events;
 3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
    their plain versions, in every mask mode, f32 and bf16 (the bf16 route
    of each is its wgmma kernel), with a row that sees no key,
@@ -27,9 +28,10 @@ Phases, each of which exits non-zero on failure:
    gpt2-small at full width and depth with random weights from a fixed
    seed, f32, ``attn_impl`` auto; check identical prompts give
    identical tokens, batched == single, /healthz reports the kernel and
-   paged KV, the kernel launch counter covers every layer of every
-   prefill chunk and decode step, and an ``attn_impl="gather"`` engine
-   on the card gives the same tokens;
+   paged KV, the decode route launched once per layer of every decode
+   step and the prefill kernel once per layer of every prefill chunk,
+   and an ``attn_impl="gather"`` engine on the card gives the same
+   tokens;
 5. drive the training path: ``examples/bert_pretraining.main`` at the
    bench configuration (BERT-large, 32 sequences of 128 tokens per
    micro-batch, 2 micro-batches per optimizer step, 20 masked positions,
@@ -269,9 +271,14 @@ def kernel_phase(torch, pa, device, rehearsal):
         cases[name] = case
         for mask in masks:
             ref = run_case(pa, case, mask, use_kernel=False)
+            decode0 = pa.LAUNCHES["paged_attention_decode"]
             got = run_case(pa, case, mask, use_kernel=True)
             if not rehearsal:
                 torch.cuda.synchronize()
+                # One query row takes the decode route, a chunk does not.
+                if pa.LAUNCHES["paged_attention_decode"] - decode0 != \
+                        (C == 1):
+                    raise SystemExit(f"{name}: C={C} took the wrong route")
             err = float((got - ref).abs().max())
             max_err = max(max_err, err)
             ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
@@ -303,13 +310,19 @@ def kernel_phase(torch, pa, device, rehearsal):
         sq, sk, sv, smask = sdpa_inputs(torch, pa, case, mask)
         lib_ms = time_ms(torch, lambda: sdpa(sq, sk, sv, attn_mask=smask),
                          iters, flush)
+        # What this timing shows for moving the same bytes with no
+        # arithmetic: one PyTorch copy reading and writing half as many.
+        half = torch.empty(nbytes // 8, dtype=torch.float32, device=device)
+        copy_ms = time_ms(torch, half.clone, iters, flush)
+        del half
         record[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "bytes": nbytes, "flops": flops}
         log(f"  timing {name} (cold L2): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa on gathered f32 K/V {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} "
-            f"flop), roofline share {bound_ms / ms:.3f}")
+            f"flop), roofline share {bound_ms / ms:.3f}; a copy moving "
+            f"the same bytes {copy_ms:.4f} ms")
     del flush
     return record
 
@@ -564,12 +577,14 @@ def main_path(torch, device, rehearsal, seed):
 
     if rehearsal:
         cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
-                                d_model=32, d_ff=64, max_len=64)
+                                d_model=32, d_ff=64, max_len=64,
+                                dtype=torch.float32)
         model = init_gpt2_(Transformer(cfg, device=device),
                            torch.Generator(device=device).manual_seed(seed))
         lens, long_len, max_new = (3, 8, 9, 16), 40, 6
     else:
-        model = create_gpt2("small", device=device, seed=seed)
+        model = create_gpt2("small", device=device, seed=seed,
+                            dtype=torch.float32)
         cfg = model.cfg
         lens, long_len, max_new = (5, 16, 17, 32), 900, 16
     log(f"  model: {cfg.num_layers} layers x d_model {cfg.d_model}, "
@@ -587,8 +602,9 @@ def main_path(torch, device, rehearsal, seed):
     try:
         if not rehearsal:
             torch.cuda.reset_peak_memory_stats()
-        # The launch count covers exactly the main path's run.
-        pa.LAUNCHES["paged_attention"] = 0
+        # The launch counts cover exactly the main path's run.
+        for name in pa.LAUNCHES:
+            pa.LAUNCHES[name] = 0
         steps0, pre0 = eng.steps, eng.prefill_steps
         t0 = time.monotonic()
         singles = [http_json(port, "/generate",
@@ -617,7 +633,8 @@ def main_path(torch, device, rehearsal, seed):
         results, t_batch = concurrent_batch()
         health = http_json(port, "/healthz")
         metrics = http_json(port, "/metrics")
-        launches = pa.LAUNCHES["paged_attention"]
+        decode_launches = pa.LAUNCHES["paged_attention_decode"]
+        prefill_launches = pa.LAUNCHES["paged_attention"] - decode_launches
         steps = eng.steps - steps0
         prefills = eng.prefill_steps - pre0
         step_ms = eng.metrics.snapshot()["token_step"]
@@ -646,12 +663,14 @@ def main_path(torch, device, rehearsal, seed):
                    f'impl="{want_impl}"'):
         if family not in metrics:
             failures.append(f"/metrics lacks {family}")
-    expected = cfg.num_layers * (steps + prefills)
-    log(f"  decode steps {steps}, prefill chunks {prefills}, kernel "
-        f"launches {launches} (num_layers x (steps + chunks) = {expected})")
-    if not rehearsal and launches < expected:
-        failures.append(f"kernel launched {launches} times, the path needed "
-                        f">= {expected}")
+    log(f"  decode steps {steps}, prefill chunks {prefills}; launches: "
+        f"decode route {decode_launches} (num_layers x steps = "
+        f"{cfg.num_layers * steps}), prefill kernel {prefill_launches} "
+        f"(num_layers x chunks = {cfg.num_layers * prefills})")
+    if not rehearsal and (decode_launches, prefill_launches) != (
+            cfg.num_layers * steps, cfg.num_layers * prefills):
+        failures.append("paged launches do not match num_layers x decode "
+                        "steps / prefill chunks")
     # The same prompts through the plain version ("gather") on the device.
     gather = InferenceEngine(
         TransformerAdapter(cfg, model, attn_impl="gather", device=device),
@@ -679,7 +698,7 @@ def main_path(torch, device, rehearsal, seed):
         log(f"  FAIL: {f}")
     if failures:
         raise SystemExit("main path failed")
-    return launches
+    return decode_launches, prefill_launches
 
 
 # ---------------------------------------------------------------------------
@@ -947,7 +966,8 @@ def main(argv=None) -> int:
         from horovod_tpu_torch.csrc import build
         t0 = time.monotonic()
         path, build_log = build.build()
-        log(f"  built {path} in {time.monotonic() - t0:.1f} s")
+        log(f"  built {path} in {time.monotonic() - t0:.1f} s from "
+            f"{', '.join(build.SOURCES)}")
         for line in build_log.splitlines():
             if ("ptxas info" in line and ("registers" in line
                                           or "bytes smem" in line
@@ -962,7 +982,8 @@ def main(argv=None) -> int:
     frec = flash_phase(torch, device, rehearsal)
 
     log("phase 4: serving path (HTTP server, GPT-2)")
-    launches = main_path(torch, device, rehearsal, args.seed)
+    decode_launches, prefill_launches = main_path(torch, device, rehearsal,
+                                                  args.seed)
 
     log("phase 5: training path (BERT-large, DistributedOptimizer, NCCL)")
     flash_launches = training_phase(torch, device, rehearsal)
@@ -977,21 +998,23 @@ def main(argv=None) -> int:
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi failed: {smi.stderr.strip()}")
-    dec = rec["decode B=8 ctx=1024 f32"]
-    kernels = [{
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "horovod_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "horovod_tpu/serve/paged_attention.py:156",
-        "launches": launches,
-        "max_abs_err": rec["max_abs_err"],
-        "ms": dec["ms"],
-        "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-        "shape": "decode B=8 H=12 Dh=64 BT=16 ctx=1024 f32 pool, cold L2",
-    }]
+    kernels = []
+    for name, source, launches, shape, what in (
+            ("paged_attention", "paged_attention_decode_sm90.cu",
+             decode_launches, "decode B=8 ctx=1024 f32",
+             "decode B=8 H=12 Dh=64 BT=16 ctx=1024 f32 pool, cold L2"),
+            ("paged_attention_prefill", "paged_attention.cu",
+             prefill_launches, "prefill C=64 f32",
+             "prefill B=4 C=64 H=12 Dh=64 BT=16 f32 pool, causal, cold L2")):
+        r = rec[shape]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/" + source,
+            "replaces": "horovod_tpu/serve/paged_attention.py:156",
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": what})
     replaces = {"flash_fwd": "horovod_tpu/parallel/flash.py:125",
                 "flash_bwd_dq": "horovod_tpu/parallel/flash.py:158",
                 "flash_bwd_dkv": "horovod_tpu/parallel/flash.py:195"}

@@ -23,8 +23,9 @@ import threading
 from typing import Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("paged_attention.cu", "flash_attention.cu",
-           "flash_attention_fwd_sm90.cu", "flash_attention_bwd_sm90.cu")
+SOURCES = ("paged_attention.cu", "paged_attention_decode_sm90.cu",
+           "flash_attention.cu", "flash_attention_fwd_sm90.cu",
+           "flash_attention_bwd_sm90.cu")
 HEADERS = ("sm90.cuh",)  # included by the sm90 sources; part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,12 +110,13 @@ def load() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.hvd_paged_attention.argtypes = [
-                p, p, p, p, p, p, p, p, p,  # q k v ks vs tables pos out scratch
-                i, i, i, i, i, i, i, i,     # B C H Dh NB BT MB split_blocks
-                ctypes.c_float, i, i, i,    # scale mask q_kind kv_kind
-                p]                          # stream
-            lib.hvd_paged_attention.restype = i
+            for fn in (lib.hvd_paged_attention, lib.hvd_paged_decode):
+                fn.argtypes = [
+                    p, p, p, p, p, p, p, p, p,  # q k v ks vs tbl pos out scr
+                    i, i, i, i, i, i, i, i,     # B C H Dh NB BT MB splits
+                    ctypes.c_float, i, i, i,    # scale mask q_kind kv_kind
+                    p]                          # stream
+                fn.restype = i
             f = ctypes.c_float
             tail = [i, i, i, i, f, i, i, p]  # B S H D scale mask kind stream
             lib.hvd_flash_fwd.argtypes = [p] * 6 + tail  # q k v out lse strides

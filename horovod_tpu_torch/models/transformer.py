@@ -53,7 +53,7 @@ class TransformerConfig:
     d_ff: int = 3072
     max_len: int = 1024
     causal: bool = True              # GPT style; False = BERT style
-    dtype: torch.dtype = torch.float32
+    dtype: torch.dtype = torch.bfloat16  # compute type, as in the JAX configs
     attention_impl: Optional[str] = None  # None (dense) | 'flash' (kernels)
     remat: bool = False
 
@@ -68,13 +68,12 @@ GPT2_MEDIUM = TransformerConfig(num_layers=24, num_heads=16, d_model=1024,
                                 d_ff=4096)
 GPT2_LARGE = TransformerConfig(num_layers=36, num_heads=20, d_model=1280,
                                d_ff=5120)
-# BERT computes in bf16, the JAX configs' default dtype.
 BERT_BASE = TransformerConfig(vocab_size=30522, num_layers=12, num_heads=12,
                               d_model=768, d_ff=3072, max_len=512,
-                              causal=False, dtype=torch.bfloat16)
+                              causal=False)
 BERT_LARGE = TransformerConfig(vocab_size=30522, num_layers=24, num_heads=16,
                                d_model=1024, d_ff=4096, max_len=512,
-                               causal=False, dtype=torch.bfloat16)
+                               causal=False)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -251,7 +250,8 @@ def _create(base: TransformerConfig, device, seed, overrides
 
 def create_gpt2(size: str = "medium", device=None,
                 seed: Optional[int] = 0, **overrides) -> Transformer:
-    """GPT-2 ``small|medium|large`` on ``device`` (cuda unless named),
+    """GPT-2 ``small|medium|large`` (bf16 compute, f32 parameters, as the
+    JAX configs) on ``device`` (cuda unless named),
     initialised from ``torch.Generator(device).manual_seed(seed)``;
     ``seed=None`` leaves the weights uninitialised for a load."""
     base = {"small": GPT2_SMALL, "medium": GPT2_MEDIUM,

@@ -2,8 +2,10 @@
 plain PyTorch version, and quantized KV block storage.
 
 Port of ``horovod_tpu/serve/paged_attention.py``.  The Pallas TPU kernel
-``_paged_kernel`` there becomes the hand-written CUDA kernel
-``csrc/paged_attention.cu``; ``paged_decode_attention`` and
+``_paged_kernel`` there becomes two hand-written CUDA kernels: one query
+row per sequence (every decode step, and a one-row prefill chunk) runs
+the decode route ``csrc/paged_attention_decode_sm90.cu``, longer chunks
+run ``csrc/paged_attention.cu``.  ``paged_decode_attention`` and
 ``paged_prefill_attention`` keep their signatures and layouts:
 
 * ``q`` [B, H, Dh] (decode) or [B, C, H, Dh] (prefill chunk), f32/bf16;
@@ -98,9 +100,10 @@ def dequantize_kv(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 #: Kernel launches since the last reset, by kernel name.  Bumped once per
-#: wrapper call that launches the kernel (and, for a split table, its
-#: merge pass), never by the plain version.
-LAUNCHES = {"paged_attention": 0}
+#: wrapper call that launches a kernel (and, for a split table, its merge
+#: pass), never by the plain version: ``paged_attention`` counts every
+#: launch, ``paged_attention_decode`` those of the decode route (C == 1).
+LAUNCHES = {"paged_attention": 0, "paged_attention_decode": 0}
 
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -126,8 +129,9 @@ def _check(cond: bool, msg: str) -> None:
 
 def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
                 scale: float, mask_mode: int) -> torch.Tensor:
-    """Validate, allocate the output and launch ``hvd_paged_attention`` on
-    the current stream.  ``q`` is [B, C, H, Dh]."""
+    """Validate, allocate the output and launch the kernel on the current
+    stream: ``hvd_paged_decode`` when C == 1, else
+    ``hvd_paged_attention``.  ``q`` is [B, C, H, Dh]."""
     from ..csrc import build as _build
     B, C, H, Dh = q.shape
     NB, BT = k_pool.shape[0], k_pool.shape[1]
@@ -168,7 +172,9 @@ def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
     scratch = (torch.empty((B * C * H * S * (Dh + 2),), dtype=torch.float32,
                            device=q.device) if S > 1 else None)
     lib = _build.load()
-    err = lib.hvd_paged_attention(
+    decode = C == 1
+    launch = lib.hvd_paged_decode if decode else lib.hvd_paged_attention
+    err = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
@@ -182,6 +188,8 @@ def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
             f"paged attention kernel launch failed: CUDA error {err} "
             f"({lib.hvd_cuda_error_string(err).decode()})")
     LAUNCHES["paged_attention"] += 1
+    if decode:
+        LAUNCHES["paged_attention_decode"] += 1
     return out
 
 

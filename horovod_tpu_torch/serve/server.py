@@ -328,14 +328,15 @@ class ServeServer:
 # ---------------------------------------------------------------------------
 
 def _build_adapter_factory(args):
-    """Model factory for the CLI: GPT-2 with random weights drawn from
-    ``--seed`` (loading checkpoints is not ported yet); the replicas
-    share the one weight copy."""
+    """Model factory for the CLI: GPT-2 in f32, as the JAX CLI builds it,
+    with random weights drawn from ``--seed`` (loading checkpoints is not
+    ported yet); the replicas share the one weight copy."""
+    import torch
     from ..models import create_gpt2
     from .engine import TransformerAdapter
     size = args.model.split("-", 1)[1] if "-" in args.model else "small"
     model = create_gpt2(size, device=args.device, seed=args.seed,
-                        max_len=args.max_len)
+                        max_len=args.max_len, dtype=torch.float32)
     get_logger().warning(
         "hvdserve: serving RANDOM weights from seed %d (stack exercise "
         "only)", args.seed)

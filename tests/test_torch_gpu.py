@@ -6,12 +6,15 @@ repository's ``conftest.py`` (which imports jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-The CUDA paged-attention kernel is held against its plain version
+The CUDA paged-attention kernels are held against their plain version
 (rtol 2e-4 / atol 2e-5, the JAX package's paged-attention tolerance) in
 every mask mode, for f32/bf16/int8/fp8 pools and f32/bf16 queries, with
 an all-hole row, a poisoned never-mapped block, and tables wide enough to
-be split; the engine's kernel path gives the gather path's tokens and
-batched == single on the card.
+be split: the decode route (one query row,
+``csrc/paged_attention_decode_sm90.cu``) at every head dim and at BT 8,
+16 and 64, bit for bit alone and in a batch; longer chunks on
+``csrc/paged_attention.cu``.  The engine's kernel path gives the gather
+path's tokens and batched == single on the card.
 """
 
 import threading
@@ -68,14 +71,19 @@ def _card_case(rng, kv, q_dtype, C, MB, dev):
 @pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
 @pytest.mark.parametrize("C,MB", [(1, 4), (1, 21), (37, 12)])
 def test_cuda_kernel_matches_plain_version(cuda_device, kv, C, MB):
+    """Every launch counts once; one query row takes the decode route,
+    a longer chunk the prefill kernel."""
     rng = np.random.RandomState(C * 100 + MB)
     for q_dtype in ("f32", "bf16"):
         args, kw = _card_case(rng, kv, q_dtype, C, MB, cuda_device)
         for mode in (tpa.MASK_NONE, tpa.MASK_CAUSAL, tpa.MASK_STRICT):
-            before = tpa.LAUNCHES["paged_attention"]
+            before = dict(tpa.LAUNCHES)
             got = tpa.paged_prefill_attention(*args, mask_mode=mode, **kw)
             torch.cuda.synchronize()
-            assert tpa.LAUNCHES["paged_attention"] == before + 1
+            assert tpa.LAUNCHES["paged_attention"] == \
+                before["paged_attention"] + 1
+            assert tpa.LAUNCHES["paged_attention_decode"] == \
+                before["paged_attention_decode"] + (C == 1)
             ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
             torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
             assert float(got[3].abs().max()) == 0.0
@@ -84,12 +92,116 @@ def test_cuda_kernel_matches_plain_version(cuda_device, kv, C, MB):
 @pytest.mark.gpu
 def test_cuda_decode_entry_point(cuda_device):
     rng = np.random.RandomState(3)
-    (q, k, v, tables, pos), _ = _card_case(rng, "f32", "f32", 1, 21,
-                                           cuda_device)
-    got = tpa.paged_decode_attention(q[:, 0].contiguous(), k, v, tables, pos)
-    ref = tpa.paged_attention_reference(q[:, 0], k, v, tables, pos)
-    assert got.shape == ref.shape == q[:, 0].shape
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    for kv in ("f32", "bf16", "int8", "fp8"):
+        (q, k, v, tables, pos), kw = _card_case(rng, kv, "f32", 1, 21,
+                                                cuda_device)
+        before = tpa.LAUNCHES["paged_attention_decode"]
+        got = tpa.paged_decode_attention(q[:, 0].contiguous(), k, v, tables,
+                                         pos, **kw)
+        ref = tpa.paged_attention_reference(q[:, 0], k, v, tables, pos,
+                                            **kw)
+        torch.cuda.synchronize()
+        assert tpa.LAUNCHES["paged_attention_decode"] == before + 1
+        assert got.shape == ref.shape == q[:, 0].shape
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def _decode_rows(rng, kv, q_dtype, Dh, BT, dev, H=3, MB=21):
+    """Eight decode rows of different lengths over one pool: a full
+    table, rows of 1, BT and BT + 1 keys, an all-hole row (4), a row with
+    a hole between its blocks (5), and two more; the pool's last block
+    is never mapped and holds garbage.  q is [8, 1, H, Dh]."""
+    lengths = [MB * BT, 1, BT, BT + 1, 0, 5 * BT - 3, MB * BT // 2 + 1, 2]
+    need = [-(-n // BT) for n in lengths]
+    NB = sum(need) + 1
+    kp = rng.randn(NB, BT, H, Dh).astype(np.float32)
+    vp = rng.randn(NB, BT, H, Dh).astype(np.float32)
+    kp[NB - 1], vp[NB - 1] = 1e4, -1e4
+    tables = np.full((len(lengths), MB), NB, np.int32)
+    perm, cur = rng.permutation(NB - 1), 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[cur:cur + n]
+        cur += n
+    tables[5, 1] = NB
+    pos = np.array([max(n - 1, 0) for n in lengths], np.int32)
+    k, v = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    ks = vs = None
+    if kv == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kv in ("int8", "fp8"):
+        k, ks = tpa.quantize_kv(k, kv)
+        v, vs = tpa.quantize_kv(v, kv)
+    q = torch.from_numpy(rng.randn(len(lengths), 1, H, Dh).astype(
+        np.float32)).to(dev)
+    if q_dtype == "bf16":
+        q = q.bfloat16()
+    return (q, k, v, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(pos).to(dev)), dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("BT", [8, 16, 64])
+def test_cuda_decode_route_matches_plain_version(cuda_device, kv, Dh, BT):
+    """The decode route against the plain version for every q kind and
+    mask mode: split tables (3 splits), short rows whose later splits
+    are empty, holes, and an all-hole row that comes out exactly 0."""
+    rng = np.random.RandomState(Dh * 100 + BT)
+    for q_dtype in ("f32", "bf16"):
+        args, kw = _decode_rows(rng, kv, q_dtype, Dh, BT, cuda_device)
+        for mode in (tpa.MASK_NONE, tpa.MASK_CAUSAL, tpa.MASK_STRICT):
+            before = dict(tpa.LAUNCHES)
+            got = tpa.paged_prefill_attention(*args, mask_mode=mode, **kw)
+            torch.cuda.synchronize()
+            assert {n: tpa.LAUNCHES[n] - before[n] for n in before} == {
+                "paged_attention": 1, "paged_attention_decode": 1}
+            ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
+            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{q_dtype} mode "
+                                       f"{mode}: {m}")
+            assert float(got[4].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+def test_cuda_decode_route_wide_table(cuda_device, kv):
+    """A table of 70 blocks has 9 splits, more than one cluster merges:
+    each split writes its partial and the merge pass combines them."""
+    rng = np.random.RandomState(70)
+    args, kw = _decode_rows(rng, kv, "f32", 64, 8, cuda_device, MB=70)
+    assert tpa.num_splits(70) == 9
+    for mode in (tpa.MASK_NONE, tpa.MASK_CAUSAL, tpa.MASK_STRICT):
+        got = tpa.paged_prefill_attention(*args, mask_mode=mode, **kw)
+        ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        assert float(got[4].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+def test_cuda_decode_route_batched_equals_single_bitwise(cuda_device, kv):
+    """At the serving shape (H=12, Dh=64, BT=16, MB=64: 8 splits) each
+    row computed alone gives the bits it gets in a batch of 8 rows of
+    other lengths, and a repeat gives the same bits."""
+    rng = np.random.RandomState(77)
+    (q, k, v, tables, pos), kw = _decode_rows(rng, kv, "f32", 64, 16,
+                                              cuda_device, H=12, MB=64)
+    q = q[:, 0].contiguous()
+    batch = tpa.paged_decode_attention(q, k, v, tables, pos, **kw)
+    again = tpa.paged_decode_attention(q, k, v, tables, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    for b in range(q.shape[0]):
+        alone = tpa.paged_decode_attention(
+            q[b:b + 1].contiguous(), k, v, tables[b:b + 1].contiguous(),
+            pos[b:b + 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batch[b]), f"row {b}"
+    torch.testing.assert_close(
+        batch, tpa.paged_attention_reference(q, k, v, tables, pos, **kw),
+        rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.gpu
@@ -114,7 +226,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 _TINY = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
-                          d_model=32, d_ff=64, max_len=64)
+                          d_model=32, d_ff=64, max_len=64,
+                          dtype=torch.float32)
 
 
 @pytest.mark.gpu
@@ -137,9 +250,9 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
     try:
         prompts = [np.random.RandomState(n).randint(0, 61, (n,)).tolist()
                    for n in (7, 8, 9, 16, 17, 3, 30, 41)]
-        before = tpa.LAUNCHES["paged_attention"]
+        before = dict(tpa.LAUNCHES)
         singles = [k.generate(p, max_new_tokens=6) for p in prompts]
-        assert tpa.LAUNCHES["paged_attention"] > before
+        assert all(tpa.LAUNCHES[n] > before[n] for n in before)
         assert singles == [g.generate(p, max_new_tokens=6) for p in prompts]
         results = [None] * len(prompts)
 

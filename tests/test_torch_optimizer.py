@@ -42,7 +42,8 @@ torch.set_num_threads(1)
 hvd.init(device="cpu")
 r = hvd.rank()
 cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2, d_model=32,
-                        d_ff=64, max_len=%(S)d, causal=False)
+                        d_ff=64, max_len=%(S)d, causal=False,
+                        dtype=torch.float32)
 state = {k: torch.from_numpy(v) for k, v in np.load(weights).items()}
 res = {}
 

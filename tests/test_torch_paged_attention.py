@@ -14,10 +14,12 @@ hole clamps onto.
 The quantizer must match the JAX one bit for bit (values and f16
 scales), since the pools it writes are what both kernels read.
 
-The CUDA kernel itself runs only on the card: the ``gpu``-marked tests
-of ``tests/test_torch_gpu.py`` hold it against the plain version there.
-Here its algorithm (query tiles, table splits, the merge) is checked in
-Python with the port's online-softmax helpers.
+The CUDA kernels themselves run only on the card: the ``gpu``-marked
+tests of ``tests/test_torch_gpu.py`` hold them against the plain version
+there.  Here their algorithms are checked in Python with the port's
+online-softmax helpers: the prefill kernel's (query tiles, table splits,
+the merge) and the decode route's (tiles of a split folded by warps
+apart, combined in warp order, then the merge).
 """
 
 import jax.numpy as jnp
@@ -254,14 +256,20 @@ def _blockwise(q, kp, vp, tables, positions, mask_mode, tq, split_blocks):
     return out
 
 
-def _merge(parts):
-    """The kernel's merge of a row's splits: rescale each split's sum and
-    accumulator to the largest max, then the flush's 1e-30 floor."""
+def _combine(parts):
+    """Partial softmax states in list order: rescale each sum and
+    accumulator to the largest max and add them up."""
     m = torch.stack([p[0] for p in parts]).max(dim=0).values
     w = [torch.exp(p[0] - m) for p in parts]
     l = sum(wi * p[1] for wi, p in zip(w, parts))
     acc = sum(wi[:, None] * p[2] for wi, p in zip(w, parts))
-    return tflash.online_softmax_flush(m, l, acc)[0]
+    return m, l, acc
+
+
+def _merge(parts):
+    """The kernel's merge of a row's splits: combine them in split order,
+    then the flush's 1e-30 floor."""
+    return tflash.online_softmax_flush(*_combine(parts))[0]
 
 
 @pytest.mark.parametrize("mask_mode", [tpa.MASK_NONE, tpa.MASK_CAUSAL,
@@ -290,6 +298,130 @@ def test_kernel_algorithm_matches_plain_version(mask_mode, split_blocks):
     assert float(got[2].abs().max()) == 0.0
     assert tpa.num_splits(4) == 1 and tpa.num_splits(64) == 8
     assert tpa.num_splits(tpa.SPLIT_BLOCKS + 1) == 2
+
+
+def _decode_route(q, kp, vp, tables, positions, mask_mode, *, warps,
+                  split_blocks, tile_rows, cluster, k_scale=None,
+                  v_scale=None):
+    """The decode kernel's schedule (``csrc/paged_attention_decode_sm90.cu``)
+    in Python, for q [B, H, Dh]: per (sequence, head, split), the split's
+    key blocks (holes and blocks past the query dropped before anything
+    is read) cut into tiles of ``tile_rows`` keys; warp w folds tiles w,
+    w + ``warps``, ... with the floored online softmax.  Up to
+    ``cluster`` splits merge all their warps' states at once, in (split,
+    warp) order; a wider table combines each split's warps in warp order
+    and then merges the splits in split order."""
+    B, H, Dh = q.shape
+    NB, BT = kp.shape[0], kp.shape[1]
+    MB = tables.shape[1]
+    scale = 1.0 / np.sqrt(Dh)
+
+    def rows(pool, scales, t, r0, h):
+        x = pool[t, r0:r0 + tile_rows, h].float()
+        if scales is not None:
+            x = x * scales[t, r0:r0 + tile_rows, h].float()[:, None]
+        return x
+
+    out = torch.zeros(B, H, Dh)
+    for b in range(B):
+        qpos = int(positions[b])
+        for h in range(H):
+            splits = []
+            for j0 in range(0, max(MB, 1), split_blocks):
+                live = [j for j in range(j0, min(MB, j0 + split_blocks))
+                        if 0 <= int(tables[b, j]) < NB
+                        and tflash.block_contributes(mask_mode, qpos, qpos,
+                                                     j * BT)]
+                tiles = [(j, r0) for j in live
+                         for r0 in range(0, BT, tile_rows)]
+                states = []
+                for w in range(warps):
+                    m, l, acc = tflash.online_softmax_init(1, Dh)
+                    for j, r0 in tiles[w::warps]:
+                        t = int(tables[b, j])
+                        k = rows(kp, k_scale, t, r0, h)
+                        s = (q[b, h].float() * scale)[None] @ k.T
+                        s = tflash.causal_mask(s, qpos, j * BT + r0,
+                                               mask_mode)
+                        m, l, acc = tflash.online_softmax_block(
+                            s, rows(vp, v_scale, t, r0, h), m, l, acc)
+                    states.append((m, l, acc))
+                splits.append(states)
+            if len(splits) <= cluster:
+                out[b, h] = _merge([st for sp in splits for st in sp])
+            else:
+                out[b, h] = _merge([_combine(sp) for sp in splits])
+    return out
+
+
+def _decode_problem(seed, kv_dtype=None):
+    """Decode rows over a pool of BT = 8 whose never-mapped block NB-1 is
+    poisoned: a row over the whole table, one with holes between its
+    blocks, a short row (its later splits see no block), and an all-hole
+    row.  Returns numpy arrays (scales None for a native pool)."""
+    NB, BT, H, Dh, MB = 10, 8, 2, 16, 6
+    rng = np.random.RandomState(seed)
+    kp, vp = _rand_pool(rng, NB, BT, H, Dh)
+    kp[NB - 1], vp[NB - 1] = 1e30, -1e30
+    ks = vs = None
+    if kv_dtype is not None:
+        kp[NB - 1], vp[NB - 1] = 1e4, -1e4   # finite under an f16 scale
+        kp, ks = (np.asarray(a) for a in jpa.quantize_kv(jnp.asarray(kp),
+                                                         kv_dtype))
+        vp, vs = (np.asarray(a) for a in jpa.quantize_kv(jnp.asarray(vp),
+                                                         kv_dtype))
+    q = rng.randn(4, H, Dh).astype(np.float32)
+    tables = np.array([[0, 1, 2, 3, 4, 5],
+                       [6, NB, 7, NB, 8, NB],
+                       [2, NB, NB, NB, NB, NB],
+                       [NB] * MB], np.int32)
+    positions = np.array([MB * BT - 1, 4 * BT + 2, 3, 0], np.int32)
+    return q, kp, vp, tables, positions, ks, vs
+
+
+@pytest.mark.parametrize("mask_mode", [tpa.MASK_NONE, tpa.MASK_CAUSAL,
+                                       tpa.MASK_STRICT])
+@pytest.mark.parametrize("warps,split_blocks,tile_rows,cluster",
+                         [(4, 8, 8, 8), (4, 2, 8, 8), (1, 2, 4, 2),
+                          (3, 4, 3, 8)])
+def test_decode_route_schedule_matches_plain_version_and_jax(
+        mask_mode, warps, split_blocks, tile_rows, cluster):
+    """The decode kernel's schedule gives the plain version's and JAX's
+    answers: one split or several (some rows' later splits empty), merged
+    in one cluster or, for more splits than a cluster holds, split by
+    split; one warp or several; tiles of a whole block or of part of one
+    (3 keys: a ragged last tile); holes between blocks; an all-hole row
+    that comes out exactly 0; and a poisoned block no table maps."""
+    q, kp, vp, tables, positions, _, _ = _decode_problem(50 + mask_mode)
+    args = tuple(_t(a) for a in (q, kp, vp, tables, positions))
+    got = _decode_route(*args, mask_mode, warps=warps,
+                        split_blocks=split_blocks, tile_rows=tile_rows,
+                        cluster=cluster)
+    ref = tpa.paged_attention_reference(*args, mask_mode=mask_mode)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    jargs = tuple(jnp.asarray(a) for a in (q, kp, vp, tables, positions))
+    _assert_matches_jax(got, {"reference": jpa.paged_attention_reference(
+        *jargs, mask_mode=mask_mode)})
+    assert float(got[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_decode_route_schedule_reads_quantized_pools(kv_dtype):
+    """The schedule over JAX-quantized pools, scaled as the kernel scales
+    (each score and each probability by its key's f16 scale), equals
+    the dequantizing plain version and JAX's reference."""
+    q, kp, vp, tables, positions, ks, vs = _decode_problem(60, kv_dtype)
+    args = tuple(_t(a) for a in (q, kp, vp, tables, positions))
+    kw = dict(k_scale=_t(ks), v_scale=_t(vs))
+    got = _decode_route(*args, tpa.MASK_CAUSAL, warps=4, split_blocks=2,
+                        tile_rows=8, cluster=8, **kw)
+    torch.testing.assert_close(
+        got, tpa.paged_attention_reference(*args, **kw), rtol=RTOL,
+        atol=ATOL)
+    jargs = tuple(jnp.asarray(a) for a in (q, kp, vp, tables, positions))
+    _assert_matches_jax(got, {"reference": jpa.paged_attention_reference(
+        *jargs, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))})
+    assert float(got[3].abs().max()) == 0.0
 
 
 def test_mask_vocabulary_matches_jax():
@@ -321,11 +453,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q = torch.from_numpy(rng.randn(2, 2, 16).astype(np.float32))
     tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
     pos = torch.tensor([9, 3], dtype=torch.int32)
-    before = tpa.LAUNCHES["paged_attention"]
+    before = dict(tpa.LAUNCHES)
     out = tpa.paged_decode_attention(q, kp, vp, tables, pos)
     ref = tpa.paged_attention_reference(q, kp, vp, tables, pos)
     assert torch.equal(out, ref)
-    assert tpa.LAUNCHES["paged_attention"] == before
+    assert tpa.LAUNCHES == before
 
 
 def test_other_devices_raise():

@@ -46,7 +46,8 @@ _JTINY = jt.TransformerConfig(vocab_size=VOCAB, num_layers=2, num_heads=2,
                               d_model=32, d_ff=64, max_len=64, causal=True,
                               dtype=jnp.float32, scan_layers=False)
 _TTINY = TransformerConfig(vocab_size=VOCAB, num_layers=2, num_heads=2,
-                           d_model=32, d_ff=64, max_len=64)
+                           d_model=32, d_ff=64, max_len=64,
+                           dtype=torch.float32)
 
 
 def _flax_params(seed=0):
@@ -408,3 +409,26 @@ def test_cli_serves_gpt2_small_on_cpu():
             proc.wait(timeout=30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+def test_cli_factory_builds_an_f32_model(monkeypatch):
+    """The CLI asks for GPT-2 in f32 by name, as the JAX CLI does
+    (``create_gpt2(..., dtype=jnp.float32)``), now that the configs
+    compute in bf16 by default: the model it builds and the adapters
+    its factory makes carry f32.  One layer at a small vocabulary keeps
+    the build cheap; the dtype is the factory's own."""
+    import argparse
+    from horovod_tpu_torch import models
+    from horovod_tpu_torch.serve import server
+    real, built = models.create_gpt2, []
+
+    def one_layer(size, **kw):
+        built.append(real(size, num_layers=1, vocab_size=97, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(models, "create_gpt2", one_layer)
+    factory = server._build_adapter_factory(argparse.Namespace(
+        model="gpt2-small", device="cpu", seed=0, max_len=64))
+    assert models.GPT2_SMALL.dtype == torch.bfloat16
+    assert [m.cfg.dtype for m in built] == [torch.float32]
+    assert factory().cfg.dtype == torch.float32

@@ -28,7 +28,7 @@ _J = jt.TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
                           d_model=32, d_ff=64, max_len=S, dtype=jnp.float32,
                           scan_layers=False)
 _T = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2, d_model=32,
-                       d_ff=64, max_len=S)
+                       d_ff=64, max_len=S, dtype=torch.float32)
 
 
 def _numpy_params(tree, seed):

@@ -29,7 +29,8 @@ _JTINY = jt.TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
                               d_model=32, d_ff=64, max_len=64, causal=True,
                               dtype=jnp.float32, scan_layers=False)
 _TTINY = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
-                           d_model=32, d_ff=64, max_len=64)
+                           d_model=32, d_ff=64, max_len=64,
+                           dtype=torch.float32)
 
 
 def numpy_params(tree, seed):
@@ -122,6 +123,9 @@ def test_gpt2_configs_match_jax(name):
     for field in ("vocab_size", "num_layers", "num_heads", "d_model",
                   "d_ff", "max_len", "causal"):
         assert getattr(port, field) == getattr(ref, field), field
+    # The compute type, by name: bf16 in both.
+    assert str(port.dtype).removeprefix("torch.") == \
+        jnp.dtype(ref.dtype).name, "dtype"
 
 
 def test_gpt2_small_param_shapes_match_flax():
