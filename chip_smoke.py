@@ -8,15 +8,17 @@ Phases, each of which exits non-zero on failure:
 
 1. build the CUDA kernels from the checkout's sources (nvcc, sm_90a, one
    process per source, all at once) and print ptxas's register /
-   shared-memory report;
+   shared-memory report and, per source, which kernels spill;
 2. hold the paged-attention kernels against their plain PyTorch version
    on the card, at the serving path's shapes (gpt2-small: H=12, Dh=64,
    BT=16; decode B=8 with contexts up to 1024, prefill chunks of C=64)
    and at the tiny test shapes, for every mask mode and pool type (f32,
-   bf16, int8, fp8) and with all-hole rows: every decode case (one query
-   row) on the decode route, every chunk on the prefill kernel; time
-   each route, its plain version and the library yardstick (SDPA over
-   the gathered K/V) with CUDA events;
+   bf16, int8, fp8) and with all-hole rows, a bf16 chunk and a table of
+   73 blocks (10 splits): every decode case (one query row)
+   on the decode route, every chunk on the prefill route (3xTF32 on the
+   tensor cores, each case's error printed beside its derived rounding
+   bound); time each route, its plain version and the library yardstick
+   (SDPA over the gathered K/V) with CUDA events;
 3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
    their plain versions, in every mask mode, f32 and bf16 (the bf16 route
    of each is its wgmma kernel), with a row that sees no key,
@@ -29,7 +31,7 @@ Phases, each of which exits non-zero on failure:
    seed, f32, ``attn_impl`` auto; check identical prompts give
    identical tokens, batched == single, /healthz reports the kernel and
    paged KV, the decode route launched once per layer of every decode
-   step and the prefill kernel once per layer of every prefill chunk,
+   step and the prefill route once per layer of every prefill chunk,
    and an ``attn_impl="gather"`` engine on the card gives the same
    tokens;
 5. drive the training path: ``examples/bert_pretraining.main`` at the
@@ -55,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -64,10 +67,11 @@ import urllib.request
 import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound: HBM bytes/s,
-# f32 FMA-pipe flop/s and dense bf16 tensor-core flop/s.
+# f32 FMA-pipe flop/s and dense bf16 and TF32 tensor-core flop/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 RTOL, ATOL = 2e-4, 2e-5   # the JAX package's paged-attention tolerance
 # Flash kernels against their plain versions, (forward, gradients) as
 # (rtol, atol).  f32: the JAX package's flash tolerances
@@ -88,6 +92,29 @@ FLASH_TOL = {"float32": ((2e-4, 2e-5), (2e-3, 2e-4)),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def spill_report(build_log: str) -> dict:
+    """ptxas's spill stores by source: ``{source: [(kernel, bytes), ...]}``
+    over the kernels that spill (an empty list: none does)."""
+    report, source, kernel = {}, None, None
+    for line in build_log.splitlines():
+        if " -c " in line and ".cu" in line:
+            source = next(w for w in line.split() if w.endswith(".cu"))
+            source = source.rsplit("/", 1)[-1]
+            report[source] = []
+        elif "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+            # _ZN..._<name>ILi0ELi2ELi32EEEv... -> <name><0,2,32>
+            m = re.search(r"([a-z_]+_kernel)I((?:Li\d+E)+)E", kernel)
+            if m:
+                kernel = m.group(1) + "<" + ",".join(
+                    re.findall(r"Li(\d+)E", m.group(2))) + ">"
+        elif "bytes spill stores" in line and source is not None:
+            n = int(line.split("bytes spill stores")[0].split(",")[-1])
+            if n:
+                report[source].append((kernel, n))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +285,12 @@ def kernel_phase(torch, pa, device, rehearsal):
                       (), (0, 1, 2), "f32"))
     specs.append(("decode bf16 q", main, 3, 1, [511, 300, 0], "bf16", (2,),
                   (1,), "bf16"))
+    # GPT-2's default compute type: a bf16 chunk over a bf16 pool.
+    specs.append(("prefill C=64 bf16 q", main, 4, 64, prefill_starts, "bf16",
+                  (), (0, 1, 2), "bf16"))
+    # 73 blocks: 10 splits, a table wider than the serving path's.
+    specs.append(("prefill wide table", main, 3, 64, [1100, 40, 0], "f32",
+                  (2,), (0, 1, 2), "f32"))
     for dh in (32, 128):
         specs.append((f"prefill Dh={dh}", dict(H=4, Dh=dh, BT=32), 2, 20,
                       [0, 50], "f32", (), (0, 1, 2), "f32"))
@@ -271,20 +304,33 @@ def kernel_phase(torch, pa, device, rehearsal):
         cases[name] = case
         for mask in masks:
             ref = run_case(pa, case, mask, use_kernel=False)
-            decode0 = pa.LAUNCHES["paged_attention_decode"]
+            before = dict(pa.LAUNCHES)
             got = run_case(pa, case, mask, use_kernel=True)
             if not rehearsal:
                 torch.cuda.synchronize()
-                # One query row takes the decode route, a chunk does not.
-                if pa.LAUNCHES["paged_attention_decode"] - decode0 != \
-                        (C == 1):
+                # One query row takes the decode route, a chunk the
+                # prefill route.
+                if (pa.LAUNCHES["paged_attention_decode"]
+                        - before["paged_attention_decode"],
+                        pa.LAUNCHES["paged_attention_prefill"]
+                        - before["paged_attention_prefill"]) != \
+                        (int(C == 1), int(C > 1)):
                     raise SystemExit(f"{name}: C={C} took the wrong route")
             err = float((got - ref).abs().max())
             max_err = max(max_err, err)
             ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
             for b in holes:
                 ok = ok and float(got[b].abs().max()) == 0.0
-            log(f"  {name} mask={mask}: max_abs_err {err:.3e} "
+            beside = ""
+            if C > 1:  # the prefill route's derived rounding bound
+                bound = pa.paged_prefill_rounding_bound(
+                    case["q"], case["k"], case["v"], case["tables"],
+                    case["pos"], mask_mode=mask, k_scale=case["ks"],
+                    v_scale=case["vs"])
+                beside = (f", bound max {float(bound.max()):.3e}, "
+                          f"err/bound max "
+                          f"{float(((got - ref).abs() / bound.clamp_min(1e-38)).max()):.3e}")
+            log(f"  {name} mask={mask}: max_abs_err {err:.3e}{beside} "
                 f"({'ok' if ok else 'MISMATCH'} at rtol {RTOL} atol {ATOL})")
             if not ok:
                 raise SystemExit(f"kernel disagrees with its plain version: "
@@ -295,14 +341,22 @@ def kernel_phase(torch, pa, device, rehearsal):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in ("decode B=8 ctx=1024 f32", "decode B=8 ctx<=1024 f32",
-                 "prefill C=64 f32", "decode B=8 ctx=1024 bf16",
-                 "decode B=8 ctx=1024 int8", "decode B=8 ctx=1024 fp8"):
+                 "prefill C=64 f32", "prefill C=64 bf16 q",
+                 "decode B=8 ctx=1024 bf16", "decode B=8 ctx=1024 int8",
+                 "decode B=8 ctx=1024 fp8"):
         case, mask, iters = cases[name], 1, 50
         nbytes, flops = live_work(case, mask, main["H"], main["Dh"])
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) \
-            * 1e3
-        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                    >= flops / F32_FLOPS_PER_S else "operations")
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        # The decode route's products run on the f32 FMA pipe; the prefill
+        # route's on the tensor cores in split-precision TF32: three
+        # passes a product, two when the pool's values are TF32 already.
+        ops_s = flops / F32_FLOPS_PER_S
+        f32_bound_ms = max(bytes_s, ops_s) * 1e3
+        if case["C"] > 1:
+            ops_s = (3 if case["k"].dtype == torch.float32 else 2) \
+                * flops / TF32_FLOPS_PER_S
+        bound_ms = max(bytes_s, ops_s) * 1e3
+        bound_by = "bytes" if bytes_s >= ops_s else "operations"
         ms = time_ms(torch, lambda: run_case(pa, case, mask, True), iters,
                      flush)
         plain_ms = time_ms(torch, lambda: run_case(pa, case, mask, False),
@@ -318,11 +372,14 @@ def kernel_phase(torch, pa, device, rehearsal):
         record[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "bytes": nbytes, "flops": flops}
+        f32_pipe = ("" if case["C"] == 1 else
+                    f"; on the f32 FMA pipe the bound would be "
+                    f"{f32_bound_ms:.4f} ms, share {f32_bound_ms / ms:.3f}")
         log(f"  timing {name} (cold L2): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa on gathered f32 K/V {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B, {flops} "
-            f"flop), roofline share {bound_ms / ms:.3f}; a copy moving "
-            f"the same bytes {copy_ms:.4f} ms")
+            f"flop), roofline share {bound_ms / ms:.3f}{f32_pipe}; a copy "
+            f"moving the same bytes {copy_ms:.4f} ms")
     del flush
     return record
 
@@ -565,6 +622,12 @@ def trace_batch(torch, concurrent_batch):
         f"{1 - busy_ms / (wall_s * 1e3):.3f})")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    for route, kernel in (("decode", "paged_decode_kernel"),
+                          ("prefill", "paged_prefill_kernel")):
+        mine = [r for r in rows if kernel in r[2]]
+        us, n = sum(r[0] for r in mine), sum(r[1] for r in mine)
+        log(f"    paged {route} route: {us / 1e3:.3f} ms of device time in "
+            f"{n} launches ({us / max(n, 1):.2f} us a launch)")
 
 
 def main_path(torch, device, rehearsal, seed):
@@ -634,7 +697,8 @@ def main_path(torch, device, rehearsal, seed):
         health = http_json(port, "/healthz")
         metrics = http_json(port, "/metrics")
         decode_launches = pa.LAUNCHES["paged_attention_decode"]
-        prefill_launches = pa.LAUNCHES["paged_attention"] - decode_launches
+        prefill_launches = pa.LAUNCHES["paged_attention_prefill"]
+        all_launches = pa.LAUNCHES["paged_attention"]
         steps = eng.steps - steps0
         prefills = eng.prefill_steps - pre0
         step_ms = eng.metrics.snapshot()["token_step"]
@@ -665,10 +729,13 @@ def main_path(torch, device, rehearsal, seed):
             failures.append(f"/metrics lacks {family}")
     log(f"  decode steps {steps}, prefill chunks {prefills}; launches: "
         f"decode route {decode_launches} (num_layers x steps = "
-        f"{cfg.num_layers * steps}), prefill kernel {prefill_launches} "
-        f"(num_layers x chunks = {cfg.num_layers * prefills})")
-    if not rehearsal and (decode_launches, prefill_launches) != (
-            cfg.num_layers * steps, cfg.num_layers * prefills):
+        f"{cfg.num_layers * steps}), prefill route {prefill_launches} "
+        f"(num_layers x chunks = {cfg.num_layers * prefills}), all "
+        f"{all_launches}")
+    if not rehearsal and (decode_launches, prefill_launches,
+                          all_launches) != (
+            cfg.num_layers * steps, cfg.num_layers * prefills,
+            cfg.num_layers * (steps + prefills)):
         failures.append("paged launches do not match num_layers x decode "
                         "steps / prefill chunks")
     # The same prompts through the plain version ("gather") on the device.
@@ -974,6 +1041,10 @@ def main(argv=None) -> int:
                                           or "Compiling" in line)) \
                     or "spill stores" in line:
                 log("  " + line.strip())
+        for source, spills in spill_report(build_log).items():
+            log(f"  spills in {source}: " + (", ".join(
+                f"{kernel} {n} B" for kernel, n in spills)
+                if spills else "none"))
 
     log("phase 2: paged attention kernel against its plain version")
     rec = kernel_phase(torch, pa, device, rehearsal)
@@ -1003,7 +1074,7 @@ def main(argv=None) -> int:
             ("paged_attention", "paged_attention_decode_sm90.cu",
              decode_launches, "decode B=8 ctx=1024 f32",
              "decode B=8 H=12 Dh=64 BT=16 ctx=1024 f32 pool, cold L2"),
-            ("paged_attention_prefill", "paged_attention.cu",
+            ("paged_attention_prefill", "paged_attention_prefill_sm90.cu",
              prefill_launches, "prefill C=64 f32",
              "prefill B=4 C=64 H=12 Dh=64 BT=16 f32 pool, causal, cold L2")):
         r = rec[shape]

@@ -16,8 +16,9 @@ Ported so far:
   (``csrc/flash_attention.cu``); the trainer is
   ``python -m horovod_tpu_torch.examples.bert_pretraining``;
 * the paged-KV, continuous-batching serving path (``serve/``,
-  ``python -m horovod_tpu_torch.serve``), with paged attention in a CUDA
-  kernel (``csrc/paged_attention.cu``).
+  ``python -m horovod_tpu_torch.serve``), with paged attention in two
+  CUDA kernels (``csrc/paged_attention_decode_sm90.cu`` for decode steps,
+  ``csrc/paged_attention_prefill_sm90.cu`` for prefill chunks).
 
 Entry points run on ``cuda`` unless the caller asks for
 ``device="cpu"``.

@@ -23,7 +23,7 @@ import threading
 from typing import Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("paged_attention.cu", "paged_attention_decode_sm90.cu",
+SOURCES = ("paged_attention_prefill_sm90.cu", "paged_attention_decode_sm90.cu",
            "flash_attention.cu", "flash_attention_fwd_sm90.cu",
            "flash_attention_bwd_sm90.cu")
 HEADERS = ("sm90.cuh",)  # included by the sm90 sources; part of the hash
@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.hvd_paged_attention, lib.hvd_paged_decode):
+            for fn in (lib.hvd_paged_prefill, lib.hvd_paged_decode):
                 fn.argtypes = [
                     p, p, p, p, p, p, p, p, p,  # q k v ks vs tbl pos out scr
                     i, i, i, i, i, i, i, i,     # B C H Dh NB BT MB splits

@@ -4,11 +4,10 @@
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (horovod_tpu/serve/paged_attention.py:156, launched by `_paged_call`
 // :236) where it runs with C = 1: `paged_decode_attention` :287, and a
-// one-row `paged_prefill_attention` :309.  It computes what
-// `hvd_paged_attention` (paged_attention.cu) computes at C = 1, which
-// keeps every other chunk length: attention of q [B, 1, H, Dh] against
-// one layer's K/V block pool [NB, BT, H, Dh] through the block tables
-// [B, MB]:
+// one-row `paged_prefill_attention` :309; the prefill route
+// (paged_attention_prefill_sm90.cu) takes every longer chunk.  It
+// computes attention of q [B, 1, H, Dh] against one layer's K/V block
+// pool [NB, BT, H, Dh] through the block tables [B, MB]:
 //   * a table entry outside [0, NB) (NB is the hole sentinel) is never a
 //     key and is never loaded, in every mask mode; a key block wholly
 //     past the query (causal: first key > position; strict: >=) is
@@ -31,7 +30,7 @@
 //
 // Design.  One thread block of W = 4 warps per (sequence b, head h,
 // split of split_blocks table entries); the split count depends on the
-// table width only, as in the prefill kernel, so a row's arithmetic never
+// table width only, as in the prefill route, so a row's arithmetic never
 // depends on its batch.
 //   * Each lane reads one table entry of the split, so one ballot gives
 //     the split's contributing blocks.  An empty split (a short row's
@@ -65,7 +64,7 @@
 //     distributed shared memory, in (split, warp) order, and writes the
 //     row: no second launch and no partials in device memory.  A wider
 //     table (S > 8) writes each split's partial, and a second kernel
-//     merges them in split order, as the prefill kernel's pass does.
+//     merges them in split order, as the prefill route's pass does.
 //     Every sum runs in an order fixed by the table, and there are no
 //     atomics: a row gets the same bits alone as in a batch.
 
@@ -560,7 +559,7 @@ cudaError_t by_pool(const Args& a, int Dh, int kv_kind) {
 }  // namespace
 
 // C interface, loaded through ctypes (horovod_tpu_torch/csrc/build.py),
-// with the argument list of `hvd_paged_attention`; C must be 1.  Every
+// with the argument list of `hvd_paged_prefill`; C must be 1.  Every
 // pointer is a device pointer; the scale pointers are null for f32/bf16
 // pools.  The pools must be 16-byte aligned.  With S = ceil(MB /
 // split_blocks) > 8, `scratch` holds B*H*S*(Dh + 2) floats; it is unused

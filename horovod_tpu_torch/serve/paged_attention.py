@@ -5,7 +5,9 @@ Port of ``horovod_tpu/serve/paged_attention.py``.  The Pallas TPU kernel
 ``_paged_kernel`` there becomes two hand-written CUDA kernels: one query
 row per sequence (every decode step, and a one-row prefill chunk) runs
 the decode route ``csrc/paged_attention_decode_sm90.cu``, longer chunks
-run ``csrc/paged_attention.cu``.  ``paged_decode_attention`` and
+the prefill route ``csrc/paged_attention_prefill_sm90.cu`` (tensor cores
+in split-precision TF32; its rounding bound is
+``paged_prefill_rounding_bound``).  ``paged_decode_attention`` and
 ``paged_prefill_attention`` keep their signatures and layouts:
 
 * ``q`` [B, H, Dh] (decode) or [B, C, H, Dh] (prefill chunk), f32/bf16;
@@ -37,7 +39,7 @@ __all__ = [
     "MASK_NONE", "MASK_CAUSAL", "MASK_STRICT",
     "KV_DTYPES", "SCALE_DTYPE", "kv_bytes_per_token", "quantize_kv",
     "dequantize_kv", "paged_decode_attention", "paged_prefill_attention",
-    "paged_attention_reference", "LAUNCHES",
+    "paged_attention_reference", "paged_prefill_rounding_bound", "LAUNCHES",
 ]
 
 
@@ -102,8 +104,10 @@ def dequantize_kv(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 #: Kernel launches since the last reset, by kernel name.  Bumped once per
 #: wrapper call that launches a kernel (and, for a split table, its merge
 #: pass), never by the plain version: ``paged_attention`` counts every
-#: launch, ``paged_attention_decode`` those of the decode route (C == 1).
-LAUNCHES = {"paged_attention": 0, "paged_attention_decode": 0}
+#: launch, ``paged_attention_decode`` those of the decode route (C == 1),
+#: ``paged_attention_prefill`` those of the prefill route (C > 1).
+LAUNCHES = {"paged_attention": 0, "paged_attention_decode": 0,
+            "paged_attention_prefill": 0}
 
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _KV_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -115,11 +119,23 @@ MAX_BLOCK_TOKENS = 64
 #: second pass merges.  Fixed, so a row's arithmetic never depends on
 #: the batch it rides in.
 SPLIT_BLOCKS = 8
+#: The prefill route's tiles: QUERY_TILE query rows a thread block (each
+#: of its two groups of warps: four warps of 16), key tiles of up to
+#: KEY_TILE keys made of whole table entries (``entries_per_tile``); group
+#: g folds the tiles of index g, g + 2, ... of a split.
+QUERY_TILE = 64
+KEY_TILE = 64
 
 
-def num_splits(mb: int) -> int:
-    """Splits of a table row of ``mb`` blocks (the kernel's own rule)."""
-    return -(-mb // SPLIT_BLOCKS) if mb > SPLIT_BLOCKS else 1
+def num_splits(mb: int, split_blocks: int = SPLIT_BLOCKS) -> int:
+    """Splits of a table row of ``mb`` blocks (the kernels' own rule)."""
+    return -(-mb // split_blocks) if mb > split_blocks else 1
+
+
+def entries_per_tile(bt: int, split_blocks: int = SPLIT_BLOCKS) -> int:
+    """Table entries in one key tile of the prefill route: as many whole
+    blocks of ``bt`` keys as fit in ``KEY_TILE``, at most a split."""
+    return max(1, min(split_blocks, KEY_TILE // bt))
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -130,8 +146,8 @@ def _check(cond: bool, msg: str) -> None:
 def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
                 scale: float, mask_mode: int) -> torch.Tensor:
     """Validate, allocate the output and launch the kernel on the current
-    stream: ``hvd_paged_decode`` when C == 1, else
-    ``hvd_paged_attention``.  ``q`` is [B, C, H, Dh]."""
+    stream: ``hvd_paged_decode`` when C == 1, else ``hvd_paged_prefill``.
+    ``q`` is [B, C, H, Dh]."""
     from ..csrc import build as _build
     B, C, H, Dh = q.shape
     NB, BT = k_pool.shape[0], k_pool.shape[1]
@@ -173,7 +189,7 @@ def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
                            device=q.device) if S > 1 else None)
     lib = _build.load()
     decode = C == 1
-    launch = lib.hvd_paged_decode if decode else lib.hvd_paged_attention
+    launch = lib.hvd_paged_decode if decode else lib.hvd_paged_prefill
     err = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
@@ -188,8 +204,8 @@ def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
             f"paged attention kernel launch failed: CUDA error {err} "
             f"({lib.hvd_cuda_error_string(err).decode()})")
     LAUNCHES["paged_attention"] += 1
-    if decode:
-        LAUNCHES["paged_attention_decode"] += 1
+    LAUNCHES["paged_attention_decode" if decode
+             else "paged_attention_prefill"] += 1
     return out
 
 
@@ -282,3 +298,98 @@ def paged_attention_reference(q, k_pool, v_pool, tables, positions, *,
     p = torch.where(keep.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
     out = torch.einsum("bhqk,bkhe->bqhe", p, vv.float())
     return out[:, 0] if decode else out
+
+
+# ---------------------------------------------------------------------------
+# The prefill route's rounding bound
+# ---------------------------------------------------------------------------
+
+_U = 2.0 ** -24            # f32 unit roundoff
+_U_MMA = 2.0 ** -22        # one mma.sync, of the magnitudes it adds
+_SPLIT = 3 * 2.0 ** -22    # one 3xTF32 product, of |a||b|
+_TINY = 2.0 ** -126        # f32's smallest normal: what underflow may lose
+
+
+def paged_prefill_rounding_bound(q, k_pool, v_pool, tables, positions, *,
+                                 mask_mode: int = MASK_CAUSAL,
+                                 k_scale=None, v_scale=None,
+                                 scale: Optional[float] = None,
+                                 split_blocks: int = SPLIT_BLOCKS
+                                 ) -> torch.Tensor:
+    """How far the prefill route (split-precision TF32 on the tensor cores,
+    ``csrc/paged_attention_prefill_sm90.cu``) may move each output element
+    from the exact attention of the same inputs.  Derived in PERF.md §6:
+
+    * a 3xTF32 product ``hi·hi + hi·lo + lo·hi`` misses ``a·b`` by at most
+      ``3·2⁻²²·|a||b|`` (the dropped ``lo·lo`` and the rounding of the lo
+      parts to TF32);
+    * each ``mma.sync`` adds its exact TF32 products to the accumulator
+      with an error of at most ``2⁻²²`` of the magnitudes it adds (a model
+      of the tensor core's truncating adder, with a factor 2 of margin;
+      the CPU tests' emulation adds exactly and rounds once, ``2⁻²⁴``);
+    * so a score moves by ``e = (3 + 3·Dh/8 + 2)·2⁻²²·Σ|q·scale||k| +
+      2⁻²⁴|s|`` (the prescale of q and a quantized key's scale round once
+      each); with ``exp``, the ``s - m`` subtraction and the rescales by
+      the running-max corrections, the combine of the two warp groups and
+      the split merge (2⁻²² each, at most T + 3 of them for T key tiles),
+      key k's weight moves by a factor ``1 + η_k``,
+      ``η_k = expm1(e_k + 2⁻²³|s_k - m| + (T + 3)·2⁻²²)``,
+      and the normalised output by ``Σ_k p_k·η_k·(|v_k| + |o|)``;
+    * P·V adds ``(3 + 3·(⌈K/8⌉ + T))·2⁻²²`` (split products and the mma
+      chain over the K keys the row sees, a k-step of 8 per tile edge)
+      plus ``(T + 2S + 5)·2⁻²⁴`` (rescales, the group combine, the merge
+      of S splits, a quantized value's scale) of ``Σ_k p_k|v_k|``;
+    * the sum l adds ``(K + 4T + 2S + 4)·2⁻²⁴·|o|``, the division 2⁻²⁴|o|;
+    * and f32 underflow (weights and products below 2⁻¹²⁶) at most 2⁻¹²⁶.
+
+    ``q`` is [B, C, H, Dh]; returns the bound in f32, q's shape; 0 on a row
+    that sees no key (the route gives it exactly 0)."""
+    B, C, H, Dh = q.shape
+    NB, BT = k_pool.shape[0], k_pool.shape[1]
+    MB = tables.shape[1]
+    K = MB * BT
+    dev = q.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dh)
+    idx = tables.long().clamp(0, NB - 1)
+    kk = k_pool[idx].reshape(B, K, H, Dh).double()
+    vv = v_pool[idx].reshape(B, K, H, Dh).double()
+    if k_scale is not None:
+        kk = kk * k_scale[idx].reshape(B, K, H).double()[..., None]
+        vv = vv * v_scale[idx].reshape(B, K, H).double()[..., None]
+    qs = q.double() * scale
+    s = torch.einsum("bqhe,bkhe->bhqk", qs, kk)
+    mag = torch.einsum("bqhe,bkhe->bhqk", qs.abs(), kk.abs())
+    q_pos = positions.long()[:, None, None, None] \
+        + torch.arange(C, device=dev)[None, None, :, None]
+    k_pos = torch.arange(K, device=dev)[None, None, None, :]
+    if mask_mode == MASK_CAUSAL:
+        keep = k_pos <= q_pos
+    elif mask_mode == MASK_STRICT:
+        keep = k_pos < q_pos
+    else:
+        keep = torch.ones_like(k_pos <= q_pos)
+    keep = keep & ~(tables >= NB).repeat_interleave(BT, dim=1)[:, None, None]
+    keep = keep.expand(B, H, C, K)
+    seen = keep.any(dim=-1, keepdim=True)
+    s = torch.where(keep, s, torch.full_like(s, -math.inf))
+    m = torch.where(seen, s.amax(dim=-1, keepdim=True), torch.zeros_like(s[..., :1]))
+    p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
+    p = p / torch.where(seen, p.sum(dim=-1, keepdim=True),
+                        torch.ones_like(m))
+    o = torch.einsum("bhqk,bkhe->bhqe", p, vv)
+    splits = num_splits(MB, split_blocks)
+    ent = entries_per_tile(BT, split_blocks)
+    T = splits * -(-min(split_blocks, MB) // ent)
+    n_keys = keep.sum(dim=-1, keepdim=True).double()
+    e = (_SPLIT + (3 * Dh / 8 + 2) * _U_MMA) * mag + _U * s.abs()
+    eta = torch.expm1(e + 2 * _U * (s - m).abs() + (T + 3) * _U_MMA)
+    eta = torch.where(keep, eta, torch.zeros_like(eta))
+    v_abs = vv.abs()
+    bound = torch.einsum("bhqk,bkhe->bhqe", p * eta, v_abs) \
+        + torch.einsum("bhqk->bhq", p * eta)[..., None] * o.abs()
+    eps_pv = _SPLIT + 3 * (torch.ceil(n_keys / 8) + T) * _U_MMA \
+        + (T + 2 * splits + 5) * _U
+    bound = bound + eps_pv * torch.einsum("bhqk,bkhe->bhqe", p, v_abs) \
+        + (n_keys + 4 * T + 2 * splits + 5) * _U * o.abs() + _TINY
+    bound = torch.where(seen, bound, torch.zeros_like(bound))
+    return bound.permute(0, 2, 1, 3).float()

@@ -11,10 +11,12 @@ The CUDA paged-attention kernels are held against their plain version
 every mask mode, for f32/bf16/int8/fp8 pools and f32/bf16 queries, with
 an all-hole row, a poisoned never-mapped block, and tables wide enough to
 be split: the decode route (one query row,
-``csrc/paged_attention_decode_sm90.cu``) at every head dim and at BT 8,
-16 and 64, bit for bit alone and in a batch; longer chunks on
-``csrc/paged_attention.cu``.  The engine's kernel path gives the gather
-path's tokens and batched == single on the card.
+``csrc/paged_attention_decode_sm90.cu``) and the prefill route (chunks
+of C > 1, ``csrc/paged_attention_prefill_sm90.cu``, 3xTF32 on the
+tensor cores) at every head dim and at BT 8, 16 and 64, bit for bit
+alone and in a batch (and, for chunks, at every chunk bucket).  The
+engine's kernel path gives the gather path's tokens and batched ==
+single on the card.
 """
 
 import threading
@@ -84,6 +86,8 @@ def test_cuda_kernel_matches_plain_version(cuda_device, kv, C, MB):
                 before["paged_attention"] + 1
             assert tpa.LAUNCHES["paged_attention_decode"] == \
                 before["paged_attention_decode"] + (C == 1)
+            assert tpa.LAUNCHES["paged_attention_prefill"] == \
+                before["paged_attention_prefill"] + (C > 1)
             ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
             torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
             assert float(got[3].abs().max()) == 0.0
@@ -155,7 +159,8 @@ def test_cuda_decode_route_matches_plain_version(cuda_device, kv, Dh, BT):
             got = tpa.paged_prefill_attention(*args, mask_mode=mode, **kw)
             torch.cuda.synchronize()
             assert {n: tpa.LAUNCHES[n] - before[n] for n in before} == {
-                "paged_attention": 1, "paged_attention_decode": 1}
+                "paged_attention": 1, "paged_attention_decode": 1,
+                "paged_attention_prefill": 0}
             ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
             torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL,
                                        msg=lambda m: f"{q_dtype} mode "
@@ -204,25 +209,154 @@ def test_cuda_decode_route_batched_equals_single_bitwise(cuda_device, kv):
         rtol=RTOL, atol=ATOL)
 
 
+def _prefill_rows(rng, kv, q_dtype, Dh, BT, dev, C=37, H=3, MB=21):
+    """Seven prefill chunks of C rows over one pool: a chunk ending at the
+    table's last key, chunks from position 0, BT - 1 and BT + 1, an
+    all-hole row (4), a row with a hole between its blocks (5) and one
+    in the middle of its table; the pool's last block is never mapped
+    and holds garbage.  q is [7, C, H, Dh]."""
+    K = MB * BT
+    starts = [K - C, 0, BT - 1, BT + 1, 0, 5 * BT - 3, K // 2 - C // 2]
+    need = [0 if b == 4 else min(-(-(s0 + C) // BT), MB)
+            for b, s0 in enumerate(starts)]
+    NB = sum(need) + 1
+    kp = rng.randn(NB, BT, H, Dh).astype(np.float32)
+    vp = rng.randn(NB, BT, H, Dh).astype(np.float32)
+    kp[NB - 1], vp[NB - 1] = 1e4, -1e4
+    tables = np.full((len(starts), MB), NB, np.int32)
+    perm, cur = rng.permutation(NB - 1), 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[cur:cur + n]
+        cur += n
+    tables[5, 1] = NB
+    k, v = torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev)
+    ks = vs = None
+    if kv == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kv in ("int8", "fp8"):
+        k, ks = tpa.quantize_kv(k, kv)
+        v, vs = tpa.quantize_kv(v, kv)
+    q = torch.from_numpy(rng.randn(len(starts), C, H, Dh).astype(
+        np.float32)).to(dev)
+    if q_dtype == "bf16":
+        q = q.bfloat16()
+    return (q, k, v, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(np.array(starts, np.int32)).to(dev)), \
+        dict(k_scale=ks, v_scale=vs)
+
+
+def _check_prefill(args, kw, mode, msg=""):
+    """One prefill-route launch against the plain version: the launch
+    counts, rtol 2e-4 / atol 2e-5, and the all-hole row exactly 0."""
+    before = dict(tpa.LAUNCHES)
+    got = tpa.paged_prefill_attention(*args, mask_mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert {n: tpa.LAUNCHES[n] - before[n] for n in before} == {
+        "paged_attention": 1, "paged_attention_decode": 0,
+        "paged_attention_prefill": 1}
+    ref = tpa.paged_attention_reference(*args, mask_mode=mode, **kw)
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL,
+                               msg=lambda m: f"{msg} mode {mode}: {m}")
+    assert float(got[4].abs().max()) == 0.0
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("BT", [8, 16, 64])
+def test_cuda_prefill_route_matches_plain_version(cuda_device, kv, Dh, BT):
+    """The prefill route (3xTF32 on the tensor cores) against the plain
+    version for both q kinds and every mask mode: split tables (3
+    splits, merged by the merge pass), short rows whose later splits are
+    empty, holes, and an all-hole row that comes out exactly 0."""
+    rng = np.random.RandomState(Dh * 100 + BT + 7)
+    for q_dtype in ("f32", "bf16"):
+        args, kw = _prefill_rows(rng, kv, q_dtype, Dh, BT, cuda_device)
+        for mode in (tpa.MASK_NONE, tpa.MASK_CAUSAL, tpa.MASK_STRICT):
+            _check_prefill(args, kw, mode, q_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+def test_cuda_prefill_route_wide_table(cuda_device, kv):
+    """A table of 72 blocks has 9 splits, each writing its partial for
+    the merge pass; a chunk of 100 rows spans two query tiles."""
+    rng = np.random.RandomState(72)
+    args, kw = _prefill_rows(rng, kv, "f32", 64, 16, cuda_device, C=100,
+                             H=4, MB=72)
+    assert tpa.num_splits(72) == 9
+    for mode in (tpa.MASK_NONE, tpa.MASK_CAUSAL, tpa.MASK_STRICT):
+        _check_prefill(args, kw, mode)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_route_bf16_chunk(cuda_device):
+    """GPT-2's default compute type: a bf16 q chunk over a bf16 pool at
+    the serving shape (H=12, Dh=64, BT=16, MB=64, C=64)."""
+    rng = np.random.RandomState(16)
+    args, kw = _prefill_rows(rng, "bf16", "bf16", 64, 16, cuda_device,
+                             C=64, H=12, MB=64)
+    assert args[0].dtype == args[1].dtype == torch.bfloat16
+    for mode in (tpa.MASK_CAUSAL, tpa.MASK_NONE):
+        _check_prefill(args, kw, mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8", "fp8"])
+def test_cuda_prefill_route_batched_equals_single_bitwise(cuda_device, kv):
+    """At the serving shape (H=12, Dh=64, BT=16, MB=64: 8 splits, two key
+    tiles each) each chunk computed alone gives the bits it gets in a batch
+    of 7 chunks of other starts, a repeat gives the same bits, and the
+    first 8 rows of a 64-row chunk equal the same rows sent as an 8-row
+    chunk (the engine's chunk buckets)."""
+    rng = np.random.RandomState(78)
+    (q, k, v, tables, starts), kw = _prefill_rows(rng, kv, "f32", 64, 16,
+                                                  cuda_device, C=64, H=12,
+                                                  MB=64)
+    batch = tpa.paged_prefill_attention(q, k, v, tables, starts, **kw)
+    again = tpa.paged_prefill_attention(q, k, v, tables, starts, **kw)
+    short = tpa.paged_prefill_attention(q[:, :8].contiguous(), k, v,
+                                        tables, starts, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    assert torch.equal(short, batch[:, :8])
+    for b in range(q.shape[0]):
+        alone = tpa.paged_prefill_attention(
+            q[b:b + 1].contiguous(), k, v, tables[b:b + 1].contiguous(),
+            starts[b:b + 1].contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batch[b]), f"row {b}"
+    torch.testing.assert_close(
+        batch, tpa.paged_attention_reference(q, k, v, tables, starts, **kw),
+        rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.gpu
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    rng = np.random.RandomState(0)
-    (q, k, v, tables, starts), _ = _card_case(rng, "f32", "f32", 1, 4,
-                                              cuda_device)
-    with pytest.raises(ValueError, match="head_dim"):
-        tpa.paged_prefill_attention(q[..., :48].contiguous(),
-                                    k[..., :48].contiguous(),
-                                    v[..., :48].contiguous(), tables, starts)
-    strided = q.transpose(0, 2).contiguous().transpose(0, 2)
-    assert strided.shape == q.shape and not strided.is_contiguous()
-    with pytest.raises(ValueError, match="contiguous"):
-        tpa.paged_prefill_attention(strided, k, v, tables, starts)
-    with pytest.raises(ValueError, match="int32"):
-        tpa.paged_prefill_attention(q, k, v, tables.long(), starts)
-    nb = k.shape[0] - 1
-    shifted = k.flatten()[1:1 + nb * 16 * 12 * 64].view(nb, 16, 12, 64)
-    with pytest.raises(ValueError, match="aligned"):
-        tpa.paged_prefill_attention(q, shifted, shifted, tables, starts)
+    """Both routes (a decode row, C = 1, and a chunk, C = 37) refuse the
+    same operands, before any launch."""
+    for C in (1, 37):
+        rng = np.random.RandomState(0)
+        (q, k, v, tables, starts), _ = _card_case(rng, "f32", "f32", C, 4,
+                                                  cuda_device)
+        before = dict(tpa.LAUNCHES)
+        with pytest.raises(ValueError, match="head_dim"):
+            tpa.paged_prefill_attention(q[..., :48].contiguous(),
+                                        k[..., :48].contiguous(),
+                                        v[..., :48].contiguous(), tables,
+                                        starts)
+        strided = q.transpose(0, 2).contiguous().transpose(0, 2)
+        assert strided.shape == q.shape and not strided.is_contiguous()
+        with pytest.raises(ValueError, match="contiguous"):
+            tpa.paged_prefill_attention(strided, k, v, tables, starts)
+        with pytest.raises(ValueError, match="int32"):
+            tpa.paged_prefill_attention(q, k, v, tables.long(), starts)
+        nb = k.shape[0] - 1
+        shifted = k.flatten()[1:1 + nb * 16 * 12 * 64].view(nb, 16, 12, 64)
+        with pytest.raises(ValueError, match="aligned"):
+            tpa.paged_prefill_attention(q, shifted, shifted, tables, starts)
+        assert tpa.LAUNCHES == before
 
 
 _TINY = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
