@@ -45,7 +45,18 @@ Phases, each of which exits non-zero on failure:
    bf16 step of a 2-layer BERT-large-width model through the kernels
    against the dense attention path, and run 3 steps of GPT-2 small
    (bf16) with causal flash attention at 1024 tokens;
-6. print the card's name and power limit, one JSON line describing every
+6. drive the ResNet-50 training path: ``examples/synthetic_benchmark.main``
+   at the JAX configuration (ResNet-50, 224x224x3, 1000 classes, 128
+   images per slot, bf16, synchronized batch norm) through
+   ``DistributedOptimizer`` over NCCL, 5 warm-up and 10 timed steps;
+   check the losses are finite and each step ran 53 statistics
+   allreduces forward and 53 backward; report images/s, step time, peak
+   memory, the device's busy share of 2 traced steps of bench.py's
+   configuration (the fast stem) and their ten largest device ops.  Then
+   hold the space-to-depth stem against the naive stem at 224,
+   max_pool_eq_grad's backward against the naive pool's, and a small f32
+   ResNet step against the same step on the CPU;
+7. print the card's name and power limit, one JSON line describing every
    ported kernel, and as the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
@@ -566,8 +577,11 @@ def flash_phase(torch, device, rehearsal):
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain "
                              f"versions: {name} {dt} mask={mode}")
-        if not rehearsal and dt == bf16 and shape in (bert, gpt2):
-            timed[name] = (shape, dt, mode, inputs)
+        if not rehearsal and shape in (bert, gpt2):
+            # bf16 (the training path's type) under the bare name; the
+            # f32 SIMT routes, which run only in correctness checks, too.
+            timed[name if dt == bf16 else f"{name} f32"] = (shape, dt, mode,
+                                                           inputs)
     for part in ("fwd", "grad"):
         log(f"  largest {part} err/tol: f32 {worst[part + ' float32']:.3f}, "
             f"bf16 {worst[part + ' bfloat16']:.3f} (over the fixed "
@@ -577,9 +591,10 @@ def flash_phase(torch, device, rehearsal):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
     record = {"max_abs_err": max_err}
     for name, (shape, dt, mode, inputs) in timed.items():
-        record[name] = flash_timing(torch, fl, f"{name} {list(shape)} bf16 "
-                                    f"mask={mode}", shape, dt, mode, inputs,
-                                    flush)
+        record[name] = flash_timing(
+            torch, fl, f"{name.split()[0]} {list(shape)} "
+            f"{str(dt).split('.')[-1]} mask={mode}", shape, dt, mode, inputs,
+            flush)
     del flush
     return record
 
@@ -1008,6 +1023,218 @@ def training_phase(torch, device, rehearsal):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the ResNet-50 training path
+# ---------------------------------------------------------------------------
+
+# Batch norms of ResNet-50: the stem's, three in each of 16 blocks and the
+# four projections'.  Synchronized, each runs one statistics allreduce
+# forward and one backward per step.
+RESNET50_BATCH_NORMS = 1 + 3 * 16 + 4
+
+
+def card_tag() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+def resnet_checks(torch, device, rehearsal):
+    """The ResNet path's pieces on the device in f32: the space-to-depth
+    stem against the naive 7x7/s2 SAME conv at 224, max_pool_eq_grad's
+    backward against the naive pool's (tie-free) and its gradient sum
+    (every window tied), and a small ResNet step against the same step on
+    the CPU (logits, loss, statistics 2e-4 / 2e-4, gradients
+    2e-3 / 2e-4)."""
+    from horovod_tpu_torch.models import resnet as tr
+    f32 = torch.float32
+    rng = np.random.RandomState(21)
+    n, hw = (2, 32) if rehearsal else (8, 224)
+    x = torch.as_tensor(rng.randn(n, hw, hw, 3).astype(np.float32),
+                        device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    naive = tr.NaiveStem(3, 64, dtype=f32, device=device)
+    naive.reset_parameters(gen)
+    s2d = tr.SpaceToDepthStem(3, 64, dtype=f32, device=device)
+    s2d.load_state_dict(naive.state_dict())
+    with torch.no_grad():
+        a, b = s2d(x), naive(x)
+    err = float((a - b).abs().max())
+    ok = bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5))
+    log(f"  SpaceToDepthStem vs 7x7/s2 SAME conv, {list(x.shape)} f32: max "
+        f"abs err {err:.3e} ({'ok' if ok else 'MISMATCH'} at 1e-5)")
+    failures = [] if ok else ["SpaceToDepthStem != naive stem"]
+
+    c, ph = 64, hw // 2
+    perm = rng.permutation(n * ph * ph * c).reshape(n, ph, ph, c)
+    xs = {"tie-free": torch.as_tensor(perm.astype(np.float32),
+                                      device=device),
+          "all tied": torch.ones((n, ph, ph, c), device=device)}
+    g = torch.as_tensor(rng.rand(n, ph // 2, ph // 2, c).astype(np.float32),
+                        device=device)
+    for name, xp in xs.items():
+        grads = []
+        for pool in (tr.max_pool_eq_grad, tr.max_pool_3x3s2):
+            xg = xp.clone().requires_grad_()
+            (pool(xg) * g).sum().backward()
+            grads.append(xg.grad)
+        if name == "tie-free":
+            err = float((grads[0] - grads[1]).abs().max())
+            ok = bool(torch.allclose(grads[0], grads[1], rtol=1e-6,
+                                     atol=1e-6))
+            what = f"backward vs the naive pool's: max abs err {err:.3e}"
+        else:
+            got, want = float(grads[0].double().sum()), float(g.double().sum())
+            ok = abs(got - want) <= 1e-5 * abs(want)
+            what = f"gradient sum {got:.6f}, pooled gradient sum {want:.6f}"
+        log(f"  max_pool_eq_grad {name} {list(xp.shape)}: {what} "
+            f"({'ok' if ok else 'MISMATCH'})")
+        if not ok:
+            failures.append(f"max_pool_eq_grad {name}")
+
+    xb = rng.randn(4, 32, 32, 3).astype(np.float32)
+    yb = rng.randint(0, 10, (4,))
+    small = dict(stage_sizes=[1, 1], num_classes=10, num_filters=8,
+                 dtype=f32)
+    ref = tr.init_kernels_(tr.ResNet(**small, device="cpu"),
+                           torch.Generator().manual_seed(4))
+    mine = tr.ResNet(**small, device=device)
+    mine.load_state_dict(ref.state_dict())
+    out = []
+    for m in (ref, mine):
+        dev = next(m.parameters()).device
+        logits = m(torch.as_tensor(xb, device=dev), train=True)
+        loss = torch.nn.functional.cross_entropy(
+            logits, torch.as_tensor(yb, device=dev))
+        loss.backward()
+        out.append((logits.detach().cpu(), loss.detach().cpu(),
+                    {k: v.cpu() for k, v in m.named_buffers()},
+                    {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (l0, s0, b0, g0), (l1, s1, b1, g1) = out
+    checks = [("logits", l1, l0, 2e-4, 2e-4), ("loss", s1, s0, 2e-4, 2e-4)]
+    checks += [(k, b1[k], v, 2e-4, 2e-4) for k, v in b0.items()]
+    checks += [(k, g1[k], v, 2e-3, 2e-4) for k, v in g0.items()]
+    bad = [k for k, a, b, rt, at in checks
+           if not torch.allclose(a, b, rtol=rt, atol=at)]
+    err = max(float((a - b).abs().max()) for _, a, b, _, _ in checks)
+    log(f"  ResNet([1, 1]) f32 step, 4x32x32, {device.type} vs cpu: "
+        f"{len(checks)} tensors, max abs err {err:.3e} "
+        f"({'ok' if not bad else 'MISMATCH ' + ', '.join(bad[:4])})")
+    if bad:
+        failures.append("small ResNet step on the device != on the CPU")
+    return failures
+
+
+def resnet_phase(torch, device, rehearsal):
+    """``synthetic_benchmark.main`` at the JAX configuration (ResNet-50,
+    224x224x3, 1000 classes, 128 images per slot, bf16, synchronized
+    batch norm, an NCCL world of one; 5 warm-up and 10 timed steps), then
+    3 steps of bench.py's configuration (the fast stem) on a second
+    trainer, 2 of them traced; returns the statistics allreduces per
+    step of the main run."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import sync_batch_norm as sbn
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    warm, iters, batch, hw = (1, 1, 2, 32) if rehearsal else (5, 10, 128, 224)
+    argv = ["--model", "resnet50", "--batch-size", str(batch),
+            "--num-warmup-batches", str(warm), "--num-iters", str(iters),
+            "--image-size", str(hw)]
+    if rehearsal:
+        argv += ["--device", "cpu"]
+    tag = "" if rehearsal else f" [{card_tag()}]"
+    failures = []
+    try:
+        log(f"  synthetic_benchmark.main({argv})")
+        if not rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        for k in sbn.STATS_ALLREDUCES:  # the counts cover the main run only
+            sbn.STATS_ALLREDUCES[k] = 0
+        losses, img_s = sb.main(argv)
+        counts = dict(sbn.STATS_ALLREDUCES)
+        peak = 0 if rehearsal else torch.cuda.max_memory_allocated()
+        steps = warm + iters
+        per_step = {k: v / steps for k, v in counts.items()}
+        log(f"  losses {[round(x, 4) for x in losses]}")
+        log(f"  statistics allreduces per step {per_step} (expected "
+            f"{RESNET50_BATCH_NORMS} each)")
+        if not all(np.isfinite(losses)) or len(losses) != steps:
+            failures.append(f"losses not finite: {losses}")
+        if per_step != {"forward": RESNET50_BATCH_NORMS,
+                        "backward": RESNET50_BATCH_NORMS}:
+            failures.append(f"statistics allreduces {counts} over {steps} "
+                            f"steps")
+        if not rehearsal:
+            log(f"  images/s {img_s:.1f}; step {batch / img_s * 1e3:.2f} ms "
+                f"(128 images); peak device memory {peak / 2**20:.1f} "
+                f"MiB{tag}")
+        bench = sb.parse_args(argv + ["--fast-stem"])
+        log(f"  bench.py configuration (fast stem): 3 steps on a trainer "
+            f"from build()")
+        model, step = sb.build(bench)
+        n0 = dict(sbn.STATS_ALLREDUCES)
+        bench_losses = [float(step())]
+        if not all(bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters()):
+            failures.append("a gradient is not finite")
+        if rehearsal:
+            bench_losses += [float(step()) for _ in range(2)]
+        else:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                traced = [step() for _ in range(2)]
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            bench_losses += [float(x) for x in traced]
+            busy_ms = _busy_ms(torch, prof)
+            step_ms = batch / img_s * 1e3
+            log(f"  traced 2 steps: wall {wall_ms:.1f} ms, device busy "
+                f"{busy_ms / wall_ms:.3f} of wall (idle "
+                f"{1 - busy_ms / wall_ms:.3f}){tag}")
+            log(f"  device time per step {busy_ms / 2:.2f} ms (traced) of "
+                f"{step_ms:.2f} ms untraced: busy "
+                f"{busy_ms / 2 / step_ms:.3f} of an untraced step{tag}")
+            cpu = torch.autograd.DeviceType.CPU
+            rows = sorted(((e.self_device_time_total, e.count, e.key)
+                           for e in prof.key_averages()
+                           if e.device_type != cpu
+                           and not e.is_user_annotation), reverse=True)
+            for us, count, key in rows[:10]:
+                log(f"    {us / 1e3:9.3f} ms  {count:6d}x  {key[:80]}{tag}")
+            # The convolutions' share: the device time of the kernels
+            # that cuDNN's forward and backward ops launched.
+            conv_ms = sum(e.device_time_total for e in prof.key_averages()
+                          if e.device_type == cpu and e.key in (
+                              "aten::convolution",
+                              "aten::convolution_backward")) / 1e3
+            log(f"    convolutions (forward, dgrad, wgrad): {conv_ms:.2f} ms "
+                f"of {busy_ms:.2f} ms device time; the rest (batch norms, "
+                f"ReLU, residual adds, casts, pools, optimizer) "
+                f"{busy_ms - conv_ms:.2f} ms{tag}")
+        bench_counts = {k: sbn.STATS_ALLREDUCES[k] - n0[k] for k in n0}
+        log(f"  bench losses {[round(x, 4) for x in bench_losses]}, "
+            f"statistics allreduces {bench_counts} over 3 steps")
+        if not all(np.isfinite(bench_losses)):
+            failures.append(f"bench losses not finite: {bench_losses}")
+        if bench_counts != {"forward": 3 * RESNET50_BATCH_NORMS,
+                            "backward": 3 * RESNET50_BATCH_NORMS}:
+            failures.append(f"bench statistics allreduces {bench_counts}")
+        del model, step
+        failures += resnet_checks(torch, device, rehearsal)
+    finally:
+        hvd.shutdown()  # the process group the trainer's init formed
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("ResNet training path failed")
+    return per_step
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -1059,16 +1286,15 @@ def main(argv=None) -> int:
     log("phase 5: training path (BERT-large, DistributedOptimizer, NCCL)")
     flash_launches = training_phase(torch, device, rehearsal)
 
+    log("phase 6: ResNet-50 training path (sync batch norm, "
+        "DistributedOptimizer, NCCL)")
+    resnet_phase(torch, device, rehearsal)
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
         return 0
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card_tag())
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",

@@ -18,7 +18,11 @@ Ported so far:
 * the paged-KV, continuous-batching serving path (``serve/``,
   ``python -m horovod_tpu_torch.serve``), with paged attention in two
   CUDA kernels (``csrc/paged_attention_decode_sm90.cu`` for decode steps,
-  ``csrc/paged_attention_prefill_sm90.cu`` for prefill chunks).
+  ``csrc/paged_attention_prefill_sm90.cu`` for prefill chunks);
+* synchronized batch norm (``SyncBatchNorm``, ``sync_batch_stats``) and
+  the ResNet family (``models/resnet.py``), trained by
+  ``python -m horovod_tpu_torch.examples.synthetic_benchmark``; the
+  flagship model's entry points are in ``entry.py``.
 
 Entry points run on ``cuda`` unless the caller asks for
 ``device="cpu"``.
@@ -47,3 +51,5 @@ from .functions import (  # noqa: F401
 )
 
 from .process_sets import ProcessSet, global_process_set  # noqa: F401
+
+from .sync_batch_norm import sync_batch_stats, SyncBatchNorm  # noqa: F401

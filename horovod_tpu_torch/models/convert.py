@@ -1,4 +1,4 @@
-"""Flax GPT-2 / BERT parameters → the port's parameters.
+"""Flax parameters → the port's parameters.
 
 ``params_from_jax`` takes the JAX package's ``models.Transformer`` param
 tree, as nested dicts of numpy arrays (``jax.device_get`` of the flax
@@ -12,10 +12,18 @@ module's own copy of ``unstack_block_params``,
 leaf layouts (qkv kernel [d, 3, H, Dh], proj kernel [H, Dh, d], dense
 kernels [in, out], tied ``wte``), so conversion renames and never
 transposes.
+
+``resnet_params_from_jax`` takes the ``{"params", "batch_stats"}``
+variables of the JAX package's ``ResNet`` (or the ``params`` of its
+``MLP`` / ``MnistCNN``) and returns the state dict of
+``models.resnet.ResNet`` (``models.mlp``), parameters and running
+statistics: HWIO conv kernels become OIHW, the stem's (7, 7, C, F)
+kernel and the (in, out) Dense kernels keep their layout.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -60,4 +68,37 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if key[0].startswith("block_"):
             key = ("blocks", key[0][len("block_"):]) + key[1:]
         state[".".join(key)] = torch.from_numpy(np.array(value))
+    return state
+
+
+# The flax module names of the ResNet, MLP and MnistCNN trees, and the
+# leaves each holds.
+_RESNET_MODULE = re.compile(
+    r"(conv_init|bn_init|BottleneckBlock_\d+|Conv_\d+|BatchNorm_\d+|"
+    r"conv_proj|norm_proj|Dense_\d+)$")
+_RESNET_LEAVES = {"params": ("kernel", "bias", "scale"),
+                  "batch_stats": ("mean", "var")}
+
+
+def resnet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state dict (CPU tensors) from flax ResNet variables
+    ``{"params", "batch_stats"}`` (or MLP / MnistCNN ``{"params"}``), as
+    nested dicts of arrays.  Every leaf is mapped exactly once; a name
+    the models do not have raises ``KeyError``."""
+    state = {}
+    for collection, tree in variables.items():
+        if collection not in _RESNET_LEAVES:
+            raise KeyError(f"unknown variable collection {collection!r}")
+        for key, value in _flatten(tree).items():
+            if key[-1] not in _RESNET_LEAVES[collection] or not all(
+                    _RESNET_MODULE.match(m) for m in key[:-1]):
+                raise KeyError(f"{collection}/{'/'.join(key)} is no "
+                               f"ResNet, MLP or MnistCNN leaf")
+            if key[-1] == "kernel" and value.ndim == 4 \
+                    and key[-2] != "conv_init":
+                value = value.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+            name = ".".join(key)
+            if name in state:
+                raise KeyError(f"{name} appears twice")
+            state[name] = torch.from_numpy(np.array(value, np.float32))
     return state

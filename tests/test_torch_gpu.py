@@ -715,3 +715,96 @@ def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
                        "flash_bwd_dkv_wgmma": 0}, got
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+# -- the ResNet path (chip_smoke.py phase 6's checks) -------------------------
+
+@pytest.mark.gpu
+def test_s2d_stem_equals_the_naive_stem_on_the_card(cuda_device):
+    from horovod_tpu_torch.models import resnet as tr
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 224, 224, 3)
+                         .astype(np.float32)).to(cuda_device)
+    naive = tr.NaiveStem(3, 64, dtype=torch.float32, device=cuda_device)
+    naive.reset_parameters(torch.Generator(cuda_device).manual_seed(1))
+    s2d = tr.SpaceToDepthStem(3, 64, dtype=torch.float32, device=cuda_device)
+    s2d.load_state_dict(naive.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(s2d(x), naive(x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_max_pool_eq_grad_on_the_card(cuda_device):
+    """Tie-free: the backward equals the naive pool's; every window
+    tied: the gradient's sum is kept."""
+    from horovod_tpu_torch.models import resnet as tr
+    rng = np.random.RandomState(2)
+    shape = (4, 112, 112, 64)
+    g = torch.from_numpy(rng.rand(4, 56, 56, 64).astype(np.float32)).to(
+        cuda_device)
+    x = torch.from_numpy(rng.permutation(int(np.prod(shape))).reshape(shape)
+                         .astype(np.float32)).to(cuda_device)
+    grads = []
+    for xp, pool in ((x, tr.max_pool_eq_grad), (x, tr.max_pool_3x3s2),
+                     (torch.ones_like(x), tr.max_pool_eq_grad)):
+        xg = xp.clone().requires_grad_()
+        (pool(xg) * g).sum().backward()
+        grads.append(xg.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(grads[2].double().sum()),
+                               float(g.double().sum()), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fast_stem", [False, True])
+def test_small_resnet_step_on_the_card_equals_the_cpu(cuda_device,
+                                                      fast_stem):
+    """f32 logits, loss and new statistics within 2e-4 / 2e-4, gradients
+    within 2e-3 / 2e-4 of the same step on the CPU."""
+    from horovod_tpu_torch.models import resnet as tr
+    kw = dict(stage_sizes=[1, 1], num_classes=10, num_filters=8,
+              dtype=torch.float32, s2d_stem=fast_stem, eq_pool_grad=fast_stem)
+    ref = tr.init_kernels_(tr.ResNet(**kw, device="cpu"),
+                           torch.Generator().manual_seed(4))
+    mine = tr.ResNet(**kw, device=cuda_device)
+    mine.load_state_dict(ref.state_dict())
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, (4,)))
+    outs = []
+    for m, dev in ((ref, "cpu"), (mine, cuda_device)):
+        logits = m(x.to(dev), train=True)
+        loss = torch.nn.functional.cross_entropy(logits, y.to(dev))
+        loss.backward()
+        outs.append((logits.cpu(), loss.cpu(),
+                     {k: v.cpu() for k, v in m.named_buffers()},
+                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (l0, s0, b0, g0), (l1, s1, b1, g1) = outs
+    torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s1, s0, rtol=2e-4, atol=2e-4)
+    for k in b0:
+        torch.testing.assert_close(b1[k], b0[k], rtol=2e-4, atol=2e-4)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_sync_bn_resnet50_trains_through_nccl(cuda_device):
+    """Two bf16 synchronized-batch-norm steps of ResNet-50 in an NCCL
+    world of one: finite losses, finite gradients, and one statistics
+    allreduce forward and one backward per batch norm (53) a step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import sync_batch_norm as sbn
+    from horovod_tpu_torch.examples import synthetic_benchmark as sb
+    n0 = dict(sbn.STATS_ALLREDUCES)
+    try:
+        model, step = sb.build(sb.parse_args(
+            ["--batch-size", "8", "--image-size", "64", "--fast-stem"]))
+        assert torch.distributed.get_backend() == "nccl"
+        losses = [float(step()) for _ in range(2)]
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    finally:
+        hvd.shutdown()
+    assert np.all(np.isfinite(losses))
+    assert {k: sbn.STATS_ALLREDUCES[k] - n0[k] for k in n0} == {
+        "forward": 106, "backward": 106}
