@@ -56,8 +56,22 @@ Phases, each of which exits non-zero on failure:
    hold the space-to-depth stem against the naive stem at 224,
    max_pool_eq_grad's backward against the naive pool's, and a small f32
    ResNet step against the same step on the CPU;
-7. print the card's name and power limit, one JSON line describing every
-   ported kernel, and as the last line ``{"ok": true, "device": ...}``.
+7. drive the collective API over NCCL in a world of one (one card hosts
+   one NCCL rank), through ``hvd.init()``: allgather (even, 0 rows,
+   grouped, async), alltoall (with and without splits, async),
+   reducescatter (Sum and Average with pre/post scale, grouped, async),
+   broadcast and the in-place and async forms on CUDA tensors of f32,
+   bf16, f16, int32, int64 and bool, ``broadcast_object`` /
+   ``allgather_object`` of a nested dict, ``sparse_allreduce`` of a COO
+   tensor, ``add_process_set([0])``, ``partition_process_sets(1)`` and 3
+   steps of ``DistributedOptimizer(process_set=...)`` on the MLP; check
+   each output against what a world of one must give, computed on the
+   CPU, that it lies on the card and that the backend is NCCL; time one
+   call of allgather, alltoall and reducescatter at 4 KiB and 64 MiB of
+   f32 and a device-to-device copy of the same bytes with CUDA events;
+8. print the card's name and power limit, one JSON line of phase 7's
+   times, one JSON line describing every ported kernel, and as the last
+   line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.  ``--device cpu`` rehearses the same phases at a tiny
@@ -1235,6 +1249,214 @@ def resnet_phase(torch, device, rehearsal):
     return per_step
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the collective API over NCCL
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_DTYPES = ("float32", "bfloat16", "float16", "int32", "int64",
+                     "bool")
+
+
+def single_scale(torch, x, factor):
+    """What a world of one gives for a pre- or postscale: f16/bf16 scale
+    in f32 and round once, integers truncate (the JAX package's
+    ``_apply_scale``), on the CPU."""
+    if factor == 1.0:
+        return x
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return (x.float() * factor).to(x.dtype)
+    if not x.is_floating_point():
+        return (x * factor).to(x.dtype)
+    return x * factor
+
+
+def collective_checks(torch, hvd, device):
+    """Every new op of the collective API in a world of one, on each
+    dtype, against the value a world of one must give (``single`` in the
+    JAX package's ops), computed on the CPU.  Returns the failures."""
+    failures, n_checked = [], 0
+
+    def check(what, got, want):
+        nonlocal n_checked
+        n_checked += 1
+        outs = got if isinstance(got, (list, tuple)) else [got]
+        wants = want if isinstance(want, (list, tuple)) else [want]
+        for g, w in zip(outs, wants):
+            if g.device.type != device.type:
+                failures.append(f"{what}: output on {g.device}")
+            elif g.dtype != w.dtype or g.shape != w.shape or \
+                    not torch.equal(g.cpu(), w):
+                failures.append(f"{what}: {g.dtype} {tuple(g.shape)} != "
+                                f"{w.dtype} {tuple(w.shape)} or values")
+        if len(outs) != len(wants):
+            failures.append(f"{what}: {len(outs)} outputs, {len(wants)} "
+                            f"expected")
+
+    rng = np.random.RandomState(7)
+    ps0 = hvd.add_process_set([0])
+    whole = hvd.partition_process_sets(1)[0]
+    if whole is not ps0 or ps0.process_set_id != 1:
+        failures.append(f"set registration: {ps0!r}, {whole!r}")
+    for name in COLLECTIVE_DTYPES:
+        dt = getattr(torch, name)
+        cpu = torch.as_tensor(rng.randn(5, 3) * 8).to(dt)
+        x = cpu.to(device)
+        empty = x[:0]
+        check(f"allgather {name}", hvd.allgather(x), cpu)
+        check(f"allgather {name} 0 rows", hvd.allgather(empty, process_set=ps0),
+              cpu[:0])
+        check(f"grouped_allgather {name}",
+              hvd.grouped_allgather([x, x[:2]]), [cpu, cpu[:2]])
+        check(f"allgather_async {name}",
+              hvd.synchronize(hvd.allgather_async(x)), cpu)
+        check(f"alltoall {name}", hvd.alltoall(x, process_set=ps0), cpu)
+        out, recv = hvd.alltoall(x, splits=[5])
+        check(f"alltoall splits {name}", [out, recv],
+              [cpu, torch.tensor([5], dtype=torch.int32)])
+        h = hvd.alltoall_async(x)
+        hvd.poll(h)
+        check(f"alltoall_async {name}", hvd.synchronize(h), cpu)
+        check(f"broadcast {name}", hvd.broadcast(x, 0, process_set=ps0), cpu)
+        t = x.clone()
+        check(f"broadcast_ {name}", [hvd.broadcast_(t, 0), t], [cpu, cpu])
+        check(f"broadcast_async_ {name}",
+              hvd.synchronize(hvd.broadcast_async_(x.clone(), 0)), cpu)
+        if dt == torch.bool:
+            # A bool sum counts (int32), as lax.psum does; JAX refuses a
+            # bool reduce-scatter.
+            check("allreduce Sum bool", hvd.allreduce(x, op=hvd.Sum),
+                  cpu.to(torch.int32))
+            try:
+                hvd.reducescatter(x)
+                failures.append("reducescatter of bool did not raise")
+            except TypeError:
+                pass
+            continue
+        for op in (hvd.Sum, hvd.Average):
+            want = single_scale(torch, single_scale(torch, cpu, 0.5), 3.0)
+            check(f"reducescatter {op.name} {name}", hvd.reducescatter(
+                x, op=op, prescale_factor=0.5, postscale_factor=3.0,
+                process_set=ps0), want)
+            check(f"allreduce_ {op.name} {name}", hvd.allreduce_(
+                x.clone(), op=op, prescale_factor=0.5, postscale_factor=3.0),
+                want)
+        check(f"grouped_reducescatter {name}",
+              hvd.grouped_reducescatter([x, x[:1]]), [cpu, cpu[:1]])
+        check(f"reducescatter_async {name}",
+              hvd.synchronize(hvd.reducescatter_async(x)), cpu)
+        ts = [x.clone(), x[:2].clone()]
+        check(f"grouped_allreduce_ {name}", hvd.grouped_allreduce_(
+            ts, op=hvd.Sum, process_set=ps0) + ts, [cpu, cpu[:2]] * 2)
+        t = x.clone()
+        h = hvd.allreduce_async_(t, op=hvd.Sum)
+        check(f"allreduce_async_ {name}", [hvd.synchronize(h), t], [cpu, cpu])
+        check(f"grouped_allreduce_async {name}", hvd.synchronize(
+            hvd.grouped_allreduce_async([x, x[:1]], op=hvd.Sum)),
+            [cpu, cpu[:1]])
+
+    obj = {"step": 3, "lr": [0.1, 0.01], "name": "phase 7",
+           "nested": {"shape": (5, 3), "tags": {"a", "b"}, "none": None}}
+    got = [hvd.broadcast_object(obj), hvd.broadcast_object_fn()(obj),
+           hvd.allgather_object(obj, process_set=ps0)]
+    n_checked += 3
+    if got != [obj, obj, [obj]]:
+        failures.append(f"object helpers gave {got}")
+
+    dense = torch.zeros(6, 4)
+    dense[[0, 2, 5], [1, 1, 3]] = torch.tensor([1.5, -2.0, 4.0])
+    sp = dense.to_sparse().to(device)
+    for op in (hvd.Sum, hvd.Average):
+        out = hvd.sparse_allreduce(sp, op=op, process_set=ps0)
+        if not out.is_sparse:
+            failures.append(f"sparse_allreduce {op.name}: dense output")
+        check(f"sparse_allreduce {op.name}", hvd.densify_if_sparse(out),
+              dense)
+
+    # Three SGD-momentum steps of the MLP through the optimizer over the
+    # set, against plain SGD on the same gradients.
+    from horovod_tpu_torch.models.mlp import create_mlp
+    model = create_mlp((128, 10), in_features=784, device=device, seed=0)
+    plain = create_mlp((128, 10), in_features=784, device=device, seed=0)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=0.05, momentum=0.9), process_set=ps0)
+    ref = torch.optim.SGD(plain.parameters(), lr=0.05, momentum=0.9)
+    gen = torch.Generator(device=device).manual_seed(11)
+    for _ in range(3):
+        xb = torch.randn(32, 784, device=device, generator=gen)
+        for m, o in ((model, opt), (plain, ref)):
+            o.zero_grad()
+            (m(xb) ** 2).mean().backward()
+            o.step()
+    n_checked += 1
+    for (k, a), b in zip(model.state_dict().items(),
+                         plain.state_dict().values()):
+        if not a.is_cuda == (device.type == "cuda") or \
+                not torch.equal(a, b):
+            failures.append(f"DistributedOptimizer(process_set) {k} != "
+                            f"plain SGD")
+    log(f"  {n_checked} checks of the new ops on {device.type} tensors of "
+        f"{', '.join(COLLECTIVE_DTYPES)} over {hvd.ops.dist.get_backend()}"
+        f": {'ok' if not failures else f'{len(failures)} FAILED'}")
+    return failures
+
+
+def collective_timing(torch, hvd, device):
+    """Device time of one call of allgather, alltoall and reducescatter
+    at 4 KiB and 64 MiB of f32 (CUDA events around each call, mean over
+    the calls), and of one device-to-device copy of the same bytes, the
+    yardstick.  In a world of one these show the port's per-call
+    overhead (the header exchange and its host sync, the launches), not
+    the link."""
+    ops = {"allgather": hvd.allgather, "alltoall": hvd.alltoall,
+           "reducescatter": hvd.reducescatter}
+    out = {}
+    for label, numel, iters in (("4KiB", 1024, 50), ("64MiB", 16 << 20, 10)):
+        x = torch.randn(numel, device=device)
+        dst = torch.empty_like(x)
+        calls = dict(ops)
+        calls["d2d_copy"] = lambda t: dst.copy_(t)
+        for name, fn in calls.items():
+            for _ in range(3):
+                fn(x)
+            torch.cuda.synchronize()
+            pairs = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(iters)]
+            for start, end in pairs:
+                start.record()
+                fn(x)
+                end.record()
+            torch.cuda.synchronize()
+            ms = sum(s.elapsed_time(e) for s, e in pairs) / iters
+            out.setdefault(name, {})[label] = ms
+            log(f"  {name:13s} {label:>5s} f32: {ms:.4f} ms per call")
+    return out
+
+
+def collectives_phase(torch, device, rehearsal):
+    """Phase 7: ``hvd.init()`` (an NCCL world of one on the card, gloo on
+    the CPU), every new op checked, then timed on the card; returns the
+    times (None on the CPU)."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu" if rehearsal else None)
+    try:
+        backend = hvd.ops.dist.get_backend()
+        want = "gloo" if rehearsal else "nccl"
+        failures = [] if backend == want else [f"backend {backend}"]
+        failures += collective_checks(torch, hvd, device)
+        for f in failures[:20]:
+            log(f"  FAIL: {f}")
+        if failures:
+            raise SystemExit("collective API failed")
+        if rehearsal:
+            return None
+        return {"card": card_tag(), "world_size": hvd.size(),
+                "backend": backend, "ms_per_call":
+                collective_timing(torch, hvd, device)}
+    finally:
+        hvd.shutdown()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -1290,11 +1512,16 @@ def main(argv=None) -> int:
         "DistributedOptimizer, NCCL)")
     resnet_phase(torch, device, rehearsal)
 
+    log("phase 7: collectives over NCCL (allgather, alltoall, "
+        "reducescatter, in-place, async, objects, sparse, process sets)")
+    collectives = collectives_phase(torch, device, rehearsal)
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
         return 0
     print(card_tag())
+    print(json.dumps({"collectives": collectives}))
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",

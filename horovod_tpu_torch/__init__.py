@@ -8,13 +8,16 @@ anything of ``horovod_tpu``.
 
 Ported so far:
 
-* the data-parallel training path, with the Horovod API exported here as
-  the JAX package exports it (``hvd.init``, rank / size, ``allreduce``,
-  ``broadcast_parameters``, ``DistributedOptimizer`` ...), over
-  ``torch.distributed`` (NCCL on a card, gloo on the CPU), and GPT-2 /
-  BERT with FlashAttention-2 in CUDA kernels
-  (``csrc/flash_attention.cu``); the trainer is
-  ``python -m horovod_tpu_torch.examples.bert_pretraining``;
+* the Horovod API as the JAX package exports it (``hvd.init``, rank /
+  size, ``allreduce``, ``allgather``, ``broadcast``, ``alltoall``,
+  ``reducescatter`` with their grouped, in-place and async forms,
+  ``poll`` / ``synchronize``, the object and sparse helpers, process
+  sets, ``DistributedOptimizer`` ...) over ``torch.distributed`` (NCCL
+  on a card, gloo on the CPU), every collective over the world or a
+  registered process set;
+* the data-parallel training path and GPT-2 / BERT with
+  FlashAttention-2 in CUDA kernels (``csrc/flash_attention.cu``); the
+  trainer is ``python -m horovod_tpu_torch.examples.bert_pretraining``;
 * the paged-KV, continuous-batching serving path (``serve/``,
   ``python -m horovod_tpu_torch.serve``), with paged attention in two
   CUDA kernels (``csrc/paged_attention_decode_sm90.cu`` for decode steps,
@@ -24,14 +27,22 @@ Ported so far:
   ``python -m horovod_tpu_torch.examples.synthetic_benchmark``; the
   flagship model's entry points are in ``entry.py``.
 
+Not exported yet (ROADMAP A2/A3): ``join``, ``mesh``, ``mesh_axis``,
+``start_timeline`` / ``stop_timeline`` and the optimizer extras
+(``PartialDistributedOptimizer``, ``value_and_grad``, ``grad``,
+``local_value_and_grad``, ``adasum_delta_step``,
+``distributed_gradient_transformation``).
+
 Entry points run on ``cuda`` unless the caller asks for
 ``device="cpu"``.
 """
 
+from .version import __version__  # noqa: F401
+
 from .core import (  # noqa: F401
     init, shutdown, is_initialized,
     rank, size, local_rank, local_size, cross_rank, cross_size,
-    num_slots, device,
+    num_slots, local_slots, is_homogeneous, device,
     mpi_threads_supported, mpi_enabled, mpi_built,
     gloo_enabled, gloo_built, nccl_built, ddl_built, ccl_built,
     cuda_built, rocm_built, xla_built, xla_enabled,
@@ -39,7 +50,15 @@ from .core import (  # noqa: F401
 
 from .ops import (  # noqa: F401
     ReduceOp, Average, Sum, Adasum, Min, Max, Product,
-    allreduce, grouped_allreduce, broadcast, barrier,
+    allreduce, allreduce_, allreduce_async, allreduce_async_,
+    grouped_allreduce, grouped_allreduce_, grouped_allreduce_async,
+    grouped_allreduce_async_,
+    allgather, allgather_async, grouped_allgather, grouped_allgather_async,
+    broadcast, broadcast_, broadcast_async, broadcast_async_,
+    alltoall, alltoall_async,
+    reducescatter, reducescatter_async,
+    grouped_reducescatter, grouped_reducescatter_async,
+    poll, synchronize, barrier,
 )
 
 from .compression import Compression  # noqa: F401
@@ -48,8 +67,19 @@ from .optimizer import DistributedOptimizer  # noqa: F401
 
 from .functions import (  # noqa: F401
     broadcast_variables, broadcast_parameters, broadcast_optimizer_state,
+    broadcast_object, broadcast_object_fn, allgather_object,
 )
 
-from .process_sets import ProcessSet, global_process_set  # noqa: F401
-
 from .sync_batch_norm import sync_batch_stats, SyncBatchNorm  # noqa: F401
+
+from .sparse import sparse_allreduce, densify_if_sparse  # noqa: F401
+
+from .process_sets import (  # noqa: F401
+    ProcessSet, global_process_set, add_process_set, remove_process_set,
+    get_process_set_ids, partition_process_sets,
+)
+
+from .exceptions import (  # noqa: F401
+    HorovodInternalError, HostsUpdatedInterrupt, CollectiveRejectedError,
+    RendezvousUnreachableError,
+)

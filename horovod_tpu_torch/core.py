@@ -1,8 +1,10 @@
 """Global runtime state and the init / info API.
 
 Port of ``horovod_tpu/core.py:146-453``: ``init``, ``shutdown``,
-``is_initialized``, rank / size / local / cross, ``num_slots`` and the
-built / enabled queries.
+``is_initialized``, rank / size / local / cross, ``num_slots``,
+``local_slots``, ``is_homogeneous`` and the built / enabled queries.
+The state holds the process-set table (``process_sets.py``) and the
+async handles (``ops/eager.py``).
 
 The world forms through ``torch.distributed.init_process_group``: NCCL
 for a CUDA device, gloo for ``device="cpu"``.  Under a launcher
@@ -41,6 +43,8 @@ class _GlobalState:
         self.device: Optional[torch.device] = None
         self.backend: Optional[str] = None
         self.owns_group = False
+        self.process_set_table = None
+        self.handles = None
 
 
 _state = _GlobalState()
@@ -66,10 +70,11 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
          device=None) -> None:
     """Join the world (``hvd.init``).  ``device`` is where this rank's
     tensors live: ``cuda`` unless named (it raises without a card);
-    ``cpu`` forms a gloo world.  ``comm`` must be every rank, and
-    ``process_sets`` other than the global set are not ported yet
-    (ROADMAP A1)."""
-    from .process_sets import require_global
+    ``cpu`` forms a gloo world.  ``comm`` must be every rank.
+    ``process_sets`` are registered once the world has formed, in their
+    order, which must be the same on every rank."""
+    from . import process_sets as _ps
+    from .ops.eager import HandleManager
     with _state.lock:
         if _state.initialized:
             return
@@ -80,8 +85,6 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
             raise ValueError(
                 "init(comm=...) with a strict subset of ranks is not "
                 "supported; use process sets instead")
-        for ps in process_sets or ():
-            require_global(ps)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if dev.type == "cuda":
             if dev.index is None:
@@ -106,7 +109,11 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
         _state.config, _state.topology = cfg, topo
         _state.device, _state.backend = dev, dist.get_backend()
         _state.owns_group = owns
+        _state.process_set_table = _ps.ProcessSetTable(topo.num_slots)
+        _state.handles = HandleManager()
         _state.initialized = True
+        for ps in process_sets or ():
+            _state.process_set_table.register(ps)
         get_logger().info(
             "horovod_tpu_torch initialized: rank=%d size=%d local=%d/%d "
             "cross=%d/%d backend=%s device=%s", topo.rank, topo.size,
@@ -115,15 +122,18 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
 
 
 def shutdown() -> None:
-    """Leave the world (``horovod_shutdown``); destroys the process group
-    if ``init`` created it."""
+    """Leave the world (``horovod_shutdown``): destroys every process
+    set's group, and the world's if ``init`` created it."""
     with _state.lock:
         if not _state.initialized:
             return
-        if _state.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        if dist.is_initialized():
+            _state.process_set_table.destroy()
+            if _state.owns_group:
+                dist.destroy_process_group()
         _state.initialized = False
         _state.topology = _state.device = _state.backend = None
+        _state.process_set_table = _state.handles = None
 
 
 def _require_init() -> _GlobalState:
@@ -171,6 +181,16 @@ def cross_size() -> int:
 def num_slots() -> int:
     """Cards in the job: one per rank."""
     return _require_init().topology.num_slots
+
+
+def local_slots() -> int:
+    """Cards this process drives: one."""
+    return _require_init().topology.local_slots
+
+
+def is_homogeneous() -> bool:
+    """``horovod_is_homogeneous``: equal slots on every process."""
+    return _require_init().topology.is_homogeneous
 
 
 def device() -> torch.device:

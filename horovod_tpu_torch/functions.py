@@ -1,4 +1,4 @@
-"""Broadcast helpers for start-up and restore.
+"""Broadcast helpers for start-up and restore, and the object helpers.
 
 Port of ``broadcast_variables`` / ``broadcast_parameters``
 (``horovod_tpu/functions.py:27-42``) and ``broadcast_optimizer_state``
@@ -7,13 +7,19 @@ start from the same weights and optimizer state.  They act in place on
 what torch holds (a module's parameters and buffers, a ``state_dict`` or
 any mapping or list of tensors, a ``torch.optim`` optimizer's state),
 which is the reference's ``torch/functions.py`` contract; each returns
-its argument.  The object and allgather helpers are not ported yet
-(ROADMAP A2).
+its argument.
+
+``broadcast_object`` (``:73``), ``broadcast_object_fn`` (``:100``) and
+``allgather_object`` (``:110``) pickle an object to a uint8 tensor on
+the rank's device (NCCL takes no CPU tensor), exchange its size, then
+its bytes.  Every member goes over the wire, a world of one too.  Only
+unpickle what ranks of the same job sent: unpickling runs code.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping
+import pickle
+from typing import Any, Iterable, Mapping, Optional
 
 import torch
 from torch import nn
@@ -101,3 +107,54 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                         not isinstance(val, bool):
                     state[key] = bcast_number(val)
     return optimizer
+
+
+def _to_bytes(obj: Any) -> torch.Tensor:
+    data = bytearray(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+    return torch.frombuffer(data, dtype=torch.uint8).to(_core.device())
+
+
+def _from_bytes(t: torch.Tensor) -> Any:
+    return pickle.loads(t.cpu().numpy().tobytes())
+
+
+def broadcast_object(obj: Any = None, root_rank: int = 0,
+                     name: Optional[str] = None,
+                     process_set: ProcessSet = global_process_set) -> Any:
+    """The root's ``obj`` on every member of the set (``root_rank`` is
+    the root's rank within it); a rank outside the set gets its own
+    ``obj`` back."""
+    m = _ops.members_of(process_set)
+    if not m.included:
+        return obj
+    dev = _core.device()
+    root = m.set_rank == root_rank
+    payload = _to_bytes(obj) if root else None
+    size = torch.tensor([payload.numel() if root else 0], dtype=torch.int64,
+                        device=dev)
+    size = _ops.broadcast(size, root_rank, process_set=process_set)
+    buf = payload if root else torch.empty(int(size), dtype=torch.uint8,
+                                           device=dev)
+    return _from_bytes(_ops.broadcast(buf, root_rank, name=name,
+                                      process_set=process_set))
+
+
+def broadcast_object_fn(root_rank: int = 0, name: Optional[str] = None,
+                        process_set: ProcessSet = global_process_set):
+    """A function that broadcasts an object from ``root_rank``."""
+    def fn(obj=None):
+        return broadcast_object(obj, root_rank=root_rank, name=name,
+                                process_set=process_set)
+    return fn
+
+
+def allgather_object(obj: Any, name: Optional[str] = None,
+                     process_set: ProcessSet = global_process_set) -> list:
+    """Every member's ``obj``, in rank order; a rank outside the set
+    gets ``[obj]``, as the JAX package gives it."""
+    del name
+    m = _ops.members_of(process_set)
+    if not m.included:
+        return [obj]
+    out, rows = _ops._gather(_to_bytes(obj), m)
+    return [_from_bytes(b) for b in _ops._blocks(out, rows)]

@@ -1,18 +1,30 @@
-"""Reduce operators and the pre/post scale, in torch.
+"""Reduce operators, the pre/post scale, and what the eager collectives
+share, in torch.
 
 Port of ``ReduceOp`` and its aliases (``horovod_tpu/ops/collective_ops.py
-:53-69``) and ``_apply_scale`` (``:72``), plus the one reduction the
-eager collectives share: AVERAGE is a SUM followed by a division by the
-member count (floor division for integers), on gloo and NCCL alike.
-Gloo has no AVG, and one formula keeps the CPU and the card identical.
+:53-69``), ``_apply_scale`` (``:72``), ``reducescatter_padded_size``
+(``:351``) and the reduce-scatter rule (``:360-396``), plus:
+
+* ``Members``: who takes part in a collective over a process set: the
+  set's group (None for the world), its member ranks, and this rank's
+  place among them (None for a rank outside the set, which issues no
+  collective and gets its input back);
+* ``reduce_in_place``: AVERAGE is a SUM followed by a division by the
+  member count (floor division for integers), on gloo and NCCL alike.
+  Gloo has no AVG, and one formula keeps the CPU and the card identical.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .. import core as _core
 
 
 class ReduceOp(enum.IntEnum):
@@ -37,6 +49,32 @@ _DIST_OPS = {ReduceOp.AVERAGE: dist.ReduceOp.SUM, ReduceOp.SUM: dist.ReduceOp.SU
              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
 
 
+@dataclasses.dataclass(frozen=True)
+class Members:
+    """The ranks of a collective over a process set."""
+    group: Optional[dist.ProcessGroup]   # None: the world's group
+    ranks: Tuple[int, ...]               # global ranks, ascending
+    set_rank: Optional[int]              # this rank's place; None: outside
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def included(self) -> bool:
+        return self.set_rank is not None
+
+
+def members_of(process_set) -> Members:
+    """Resolve a ``ProcessSet`` (None: the global set) against the
+    registered sets; an unregistered strict subset raises ``ValueError``."""
+    st = _core._require_init()
+    group, ranks = st.process_set_table.resolve(process_set)
+    me = st.topology.rank
+    return Members(group, tuple(ranks),
+                   ranks.index(me) if me in ranks else None)
+
+
 def _apply_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
     """``x * factor``; f16/bf16 scale in f32 and round once, integers
     truncate back to their dtype (the JAX package's rules)."""
@@ -49,21 +87,75 @@ def _apply_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
     return x * factor
 
 
-def allreduce_(buf: torch.Tensor, op: ReduceOp, n: int) -> torch.Tensor:
-    """Reduce ``buf`` in place over the world and return the reduced
+def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.is_floating_point() or x.is_complex():
+        return x / n
+    return torch.div(x, n, rounding_mode="floor")
+
+
+def _checked(what: str, t: torch.Tensor, call) -> None:
+    """Run one collective on ``t``: a CUDA tensor goes through NCCL or
+    raises (gloo would take some CUDA tensors and stage them through the
+    host), and a failure names the op, the tensor and the backend."""
+    backend = dist.get_backend()
+    if t.is_cuda and backend != "nccl":
+        raise RuntimeError(
+            f"{what} of a CUDA tensor needs the nccl backend; this world "
+            f"is {backend} (hvd.init(device='cpu') forms a gloo world for "
+            f"CPU tensors)")
+    try:
+        call()
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"{what} of a {t.dtype} tensor on {t.device} failed on the "
+            f"{backend} backend: {e}") from e
+
+
+def reduce_in_place(buf: torch.Tensor, op: ReduceOp, m: Members
+                    ) -> torch.Tensor:
+    """Reduce ``buf`` in place over the members and return the reduced
     tensor (a new one for AVERAGE)."""
     op = ReduceOp(op)
     if op == ReduceOp.ADASUM:
         raise NotImplementedError(
             "Adasum is not ported yet (ROADMAP A5)")
-    try:
-        dist.all_reduce(buf, op=_DIST_OPS[op])
-    except RuntimeError as e:
-        raise RuntimeError(
-            f"allreduce of a {buf.dtype} tensor on {buf.device} failed on "
-            f"the {dist.get_backend()} backend: {e}") from e
+    _checked("allreduce", buf,
+             lambda: dist.all_reduce(buf, op=_DIST_OPS[op], group=m.group))
+    return _divide(buf, m.size) if op == ReduceOp.AVERAGE else buf
+
+
+def reducescatter_padded_size(dim0: int, n: int) -> int:
+    """Dim 0 padded up to a multiple of ``n``, so every member's shard is
+    equal (the reference gives the first ``dim0 % n`` ranks one extra
+    row instead)."""
+    return math.ceil(dim0 / n) * n
+
+
+def reducescatter(x: torch.Tensor, op: ReduceOp, m: Members,
+                  prescale_factor: float = 1.0,
+                  postscale_factor: float = 1.0) -> torch.Tensor:
+    """prescale → dim 0 zero-padded to a multiple of the member count →
+    reduce-scatter (SUM) over the members → AVERAGE's division →
+    postscale.  Member i gets rows [i·b, (i+1)·b) of the padded sum."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("reducescatter supports SUM and AVERAGE")
+    if x.dtype == torch.bool:
+        raise TypeError("reducescatter sums its input, and a bool tensor "
+                        "has no sum (as in the JAX package)")
+    if x.dim() == 0:
+        raise ValueError("reducescatter needs a tensor of at least one dim")
+    x = _apply_scale(x, prescale_factor)
+    n = m.size
+    padded = reducescatter_padded_size(x.shape[0], n)
+    xp = x.contiguous()
+    if padded != x.shape[0]:
+        xp = torch.cat([xp, xp.new_zeros((padded - x.shape[0],)
+                                         + tuple(x.shape[1:]))])
+    out = xp.new_empty((padded // n,) + tuple(x.shape[1:]))
+    if out.numel():  # every member passes this shape, so all skip alike
+        _checked("reducescatter", xp, lambda: dist.reduce_scatter_tensor(
+            out, xp, op=dist.ReduceOp.SUM, group=m.group))
     if op == ReduceOp.AVERAGE:
-        if buf.is_floating_point() or buf.is_complex():
-            return buf / n
-        return torch.div(buf, n, rounding_mode="floor")
-    return buf
+        out = _divide(out, n)
+    return _apply_scale(out, postscale_factor)

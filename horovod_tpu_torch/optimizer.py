@@ -15,7 +15,10 @@ per-parameter hooks:
 * between those calls neither the parameters nor the wrapped
   optimizer's state change (``:480-489``).
 
-It supports ``op`` (Average / Sum), ``compression``,
+With ``process_set``, the gradients reduce over the set's ranks, and a
+rank outside the set steps on its own gradients (the JAX package's
+non-member passthrough).  It supports ``op`` (Average / Sum),
+``compression``,
 ``gradient_predivide_factor`` (``:320-330``: prescale 1/f, postscale f)
 and ``groups`` / ``num_groups`` (each group one grouped allreduce, the
 planner bypassed, as in JAX).  ``named_parameters`` is accepted and
@@ -35,7 +38,7 @@ from . import ops as _ops
 from .compression import Compression
 from .ops import ReduceOp
 from .ops.fusion import plan_fusion
-from .process_sets import ProcessSet, global_process_set, require_global
+from .process_sets import ProcessSet, global_process_set
 
 
 class DistributedOptimizer:
@@ -50,7 +53,6 @@ class DistributedOptimizer:
                  num_groups: int = 0, groups=None,
                  process_set: ProcessSet = global_process_set):
         del named_parameters  # API parity: parameter order is the contract
-        require_global(process_set)
         op = ReduceOp(op)
         if op == ReduceOp.ADASUM:
             raise NotImplementedError(

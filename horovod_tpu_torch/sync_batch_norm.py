@@ -10,7 +10,10 @@ the ``hvd.SyncBatchNormalization`` analog.
   same vector, as the transpose of the JAX package's in-step psum does: a
   rank's statistics feed every rank's loss, so each rank's input gradient
   needs the sum of every rank's statistics-cotangent.  A plain
-  ``dist.all_reduce`` would drop those cross-rank terms silently.
+  ``dist.all_reduce`` would drop those cross-rank terms silently.  Over
+  a ``process_set`` the sums run over its members, and a rank outside
+  it keeps its own statistics, as ``C.allreduce(members=...)`` gives it
+  in JAX (``:48``).
 * ``FusedBatchNorm`` takes its statistics in f32 over every axis but the
   last (the features, as flax's), keeps f32 running ``mean`` / ``var``
   buffers updated as ``m * running + (1 - m) * batch`` with the biased
@@ -35,7 +38,7 @@ import torch
 from torch import nn
 
 from . import ops as _ops
-from .process_sets import ProcessSet, global_process_set, require_global
+from .process_sets import ProcessSet, global_process_set
 
 # The statistics allreduces made, forward and backward (a step of a
 # synchronized network makes one of each per batch norm).
@@ -43,7 +46,7 @@ STATS_ALLREDUCES = {"forward": 0, "backward": 0}
 
 
 class _AllreduceSum(torch.autograd.Function):
-    """Sum over the world, forward and backward."""
+    """Sum over the set, forward and backward."""
 
     @staticmethod
     def forward(ctx, vec, process_set):
@@ -64,8 +67,9 @@ def sync_batch_stats(x: torch.Tensor, *,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and (biased) variance of ``x`` over ``reduction_axes`` (every
     axis but the last by default) and over every rank, from one
-    differentiable Sum allreduce of (sum, sum of squares, count)."""
-    require_global(process_set)
+    differentiable Sum allreduce of (sum, sum of squares, count).  Over a
+    ``process_set``, a rank outside the set gets its own statistics (and
+    its own cotangent back)."""
     if reduction_axes is None:
         reduction_axes = tuple(range(x.dim() - 1))
     reduction_axes = tuple(reduction_axes)
@@ -89,7 +93,8 @@ def sync_batch_stats(x: torch.Tensor, *,
 class FusedBatchNorm(nn.Module):
     """Batch norm over the last axis with f32 statistics and a folded
     apply (``horovod_tpu/sync_batch_norm.py:99-159``).  ``axis_name`` not
-    None synchronizes the statistics over the world;
+    None synchronizes the statistics over ``process_set`` (the world by
+    default);
     ``use_running_average`` is given here or at the call, not both, as
     flax's ``merge_param``."""
 
@@ -99,10 +104,11 @@ class FusedBatchNorm(nn.Module):
                  epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None,
                  use_bias: bool = True, use_scale: bool = True,
                  bias_init: Callable = nn.init.zeros_,
-                 scale_init: Callable = nn.init.ones_, device=None):
+                 scale_init: Callable = nn.init.ones_, device=None,
+                 process_set: ProcessSet = global_process_set):
         super().__init__()
         self.use_running_average = use_running_average
-        self.axis_name = axis_name
+        self.axis_name, self.process_set = axis_name, process_set
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
         f32 = dict(dtype=torch.float32, device=device)
         self.register_buffer("mean", torch.zeros(num_features, **f32))
@@ -130,7 +136,8 @@ class FusedBatchNorm(nn.Module):
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
             if self.axis_name is not None:
-                mean, var = sync_batch_stats(xf, reduction_axes=axes)
+                mean, var = sync_batch_stats(
+                    xf, reduction_axes=axes, process_set=self.process_set)
             else:
                 mean = xf.mean(dim=axes)
                 var = torch.clamp_min(
@@ -153,11 +160,12 @@ class FusedBatchNorm(nn.Module):
 #: FusedBatchNorm's keyword arguments (SyncBatchNorm takes these only).
 _FUSED_KWARGS = frozenset({
     "use_running_average", "axis_name", "momentum", "epsilon", "dtype",
-    "use_bias", "use_scale", "bias_init", "scale_init", "device"})
+    "use_bias", "use_scale", "bias_init", "scale_init", "device",
+    "process_set"})
 
 
 def SyncBatchNorm(num_features: int, **kwargs) -> FusedBatchNorm:
-    """Batch norm synchronized over the world (the
+    """Batch norm synchronized over the world or a ``process_set`` (the
     ``hvd.SyncBatchNormalization`` analog): ``FusedBatchNorm`` with
     ``axis_name="hvd"`` unless the caller names another."""
     unknown = set(kwargs) - _FUSED_KWARGS

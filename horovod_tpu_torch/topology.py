@@ -30,6 +30,18 @@ class Topology:
     def num_slots(self) -> int:
         return self.size
 
+    @property
+    def local_slots(self) -> int:
+        """Cards this process drives: one."""
+        return 1
+
+    @property
+    def is_homogeneous(self) -> bool:
+        """Equal slots on every process (the JAX package counts slots per
+        process, ``topology.py:60-67``): every process drives one card,
+        so always true."""
+        return True
+
 
 def _from_launcher_env() -> Optional[Topology]:
     """Topology from launcher-injected env, or None outside a launcher."""

@@ -75,16 +75,21 @@ WORKER = textwrap.dedent('''
     hvd.broadcast_variables(state, root_rank=0)
     res["bcast_state_a"], res["bcast_state_b"] = state["a"], state["b"][0]
     hvd.barrier()
-    for name, call in (
-            ("adasum", lambda: hvd.allreduce(x, op=hvd.Adasum)),
-            ("subset", lambda: hvd.allreduce(
-                x, process_set=ProcessSet([0])))):
-        try:
-            call()
-            res[f"raises_{name}"] = torch.tensor(0)
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e), e
-            res[f"raises_{name}"] = torch.tensor(1)
+    try:
+        hvd.allreduce(x, op=hvd.Adasum)
+        res["raises_adasum"] = torch.tensor(0)
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e), e
+        res["raises_adasum"] = torch.tensor(1)
+    # A subset runs once registered; a rank outside it gets its input.
+    try:
+        hvd.allreduce(x, process_set=ProcessSet([1]))
+        res["raises_unregistered"] = torch.tensor(0)
+    except ValueError as e:
+        assert "add_process_set" in str(e), e
+        res["raises_unregistered"] = torch.tensor(1)
+    res["subset"] = hvd.allreduce(x, prescale_factor=2.0,
+                                  process_set=hvd.add_process_set([0]))
     np.savez(out_path, **{k: v.detach().numpy() for k, v in res.items()})
     hvd.shutdown()
 ''' % {"ops": OPS})
@@ -236,9 +241,14 @@ def test_broadcast_and_broadcast_variables(world, jax2):
 
 
 def test_unported_ops_raise_naming_the_roadmap(world):
+    """Adasum still refuses; a subset no longer does: over (0,), rank 0
+    averages its prescaled input alone and rank 1 keeps its input.  A
+    subset must be registered first."""
     for r in (0, 1):
         assert int(world[r]["raises_adasum"]) == 1
-        assert int(world[r]["raises_subset"]) == 1
+        assert int(world[r]["raises_unregistered"]) == 1
+    np.testing.assert_array_equal(world[0]["subset"], 2 * _x()[0])
+    np.testing.assert_array_equal(world[1]["subset"], _x()[1])
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -808,3 +808,126 @@ def test_sync_bn_resnet50_trains_through_nccl(cuda_device):
     assert np.all(np.isfinite(losses))
     assert {k: sbn.STATS_ALLREDUCES[k] - n0[k] for k in n0} == {
         "forward": 106, "backward": 106}
+
+
+# -- the collective API over NCCL in a world of one --------------------------
+
+COLLECTIVE_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
+                     torch.int32, torch.int64, torch.bool]
+
+
+@pytest.fixture()
+def nccl_world(cuda_device):
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield hvd
+    finally:
+        hvd.shutdown()
+
+
+def _same(got, want):
+    assert got.is_cuda and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", COLLECTIVE_DTYPES, ids=str)
+def test_nccl_collectives_in_a_world_of_one(nccl_world, cuda_device, dtype):
+    """Every new op on a CUDA tensor gives what a world of one must: its
+    input (scaled for the reductions), on the card."""
+    hvd = nccl_world
+    ps = hvd.add_process_set([0])
+    assert hvd.partition_process_sets(1)[0] is ps
+    x = (torch.arange(15, device=cuda_device).reshape(5, 3) % 4).to(dtype)
+    _same(hvd.allgather(x), x)
+    _same(hvd.allgather(x[:0], process_set=ps), x[:0])
+    _same(hvd.grouped_allgather([x, x[:2]])[1], x[:2])
+    _same(hvd.alltoall(x, process_set=ps), x)
+    out, recv = hvd.alltoall(x, splits=[5])
+    _same(out, x)
+    _same(recv, torch.tensor([5], dtype=torch.int32))
+    t = x.clone()
+    assert hvd.broadcast_(t, 0, process_set=ps) is t
+    _same(t, x)
+    h = hvd.broadcast_async(x, 0)
+    hvd.poll(h)
+    _same(hvd.synchronize(h), x)
+    with pytest.raises(ValueError, match="already-synchronized"):
+        hvd.synchronize(h)
+    if dtype == torch.bool:
+        _same(hvd.allreduce(x, op=hvd.Sum), x.to(torch.int32))  # counts
+        with pytest.raises(TypeError):
+            hvd.reducescatter(x)
+        return
+    want = x * 3
+    for op in (hvd.Sum, hvd.Average):
+        _same(hvd.reducescatter(x, op=op, postscale_factor=3.0,
+                                process_set=ps), want.to(dtype))
+        t = x.clone()
+        assert hvd.allreduce_(t, op=op, postscale_factor=3.0) is t
+        _same(t, want.to(dtype))
+    _same(hvd.synchronize(hvd.reducescatter_async(x)), x)
+    ts = [x.clone(), x[:1].clone()]
+    h = hvd.grouped_allreduce_async_(ts, op=hvd.Sum, process_set=ps)
+    outs = hvd.synchronize(h)
+    assert outs[0] is ts[0]
+    _same(outs[1], x[:1])
+
+
+@pytest.mark.gpu
+def test_nccl_object_helpers_keep_their_bytes_on_the_card(
+        nccl_world, monkeypatch):
+    hvd = nccl_world
+    from horovod_tpu_torch import functions
+    seen = []
+    real = functions._ops.broadcast
+
+    def spy(t, *args, **kwargs):
+        seen.append(t.device.type)
+        return real(t, *args, **kwargs)
+
+    monkeypatch.setattr(functions._ops, "broadcast", spy)
+    obj = {"a": [1, 2.5, None], "b": {"c": (3, "d")}}
+    assert hvd.broadcast_object(obj) == obj
+    assert hvd.broadcast_object_fn(root_rank=0)(obj) == obj
+    assert seen == ["cuda"] * 4          # size and payload, twice
+    assert hvd.allgather_object(obj) == [obj]
+
+
+@pytest.mark.gpu
+def test_nccl_sparse_allreduce_and_optimizer_over_a_set(nccl_world,
+                                                        cuda_device):
+    hvd = nccl_world
+    dense = torch.zeros(6, 4, device=cuda_device)
+    dense[[0, 2, 5], [1, 1, 3]] = torch.tensor([1.5, -2.0, 4.0],
+                                               device=cuda_device)
+    ps = hvd.add_process_set([0])
+    out = hvd.sparse_allreduce(dense.to_sparse(), op=hvd.Average,
+                               process_set=ps)
+    assert out.is_sparse and out.is_cuda
+    _same(hvd.densify_if_sparse(out), dense)
+    w = torch.nn.Parameter(torch.ones(4, device=cuda_device))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.5),
+                                   process_set=ps)
+    w.grad = torch.arange(4.0, device=cuda_device)
+    opt.step()
+    _same(w.detach(), 1 - 0.5 * torch.arange(4.0, device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_a_cuda_tensor_in_a_gloo_world_raises(cuda_device):
+    """Gloo takes some CUDA tensors; the port refuses them rather than
+    move a card's collective through the host."""
+    import horovod_tpu_torch as hvd
+    hvd.init(device="cpu")
+    try:
+        x = torch.ones(4, device=cuda_device)
+        for call in (lambda: hvd.allreduce(x), lambda: hvd.allgather(x),
+                     lambda: hvd.broadcast(x, 0),
+                     lambda: hvd.reducescatter(x)):
+            with pytest.raises(RuntimeError, match="nccl"):
+                call()
+    finally:
+        hvd.shutdown()

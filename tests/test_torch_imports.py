@@ -56,8 +56,9 @@ def test_importing_every_port_module_loads_no_jax():
     modules = _port_modules()
     for name in ("serve.engine", "csrc.build", "config", "exceptions",
                  "topology", "process_sets", "core", "compression",
-                 "ops", "ops.collective_ops", "ops.fusion", "functions",
-                 "optimizer", "parallel.flash", "models.transformer",
+                 "ops", "ops.collective_ops", "ops.fusion", "ops.eager",
+                 "functions", "sparse", "version", "optimizer",
+                 "parallel.flash", "models.transformer",
                  "examples.bert_pretraining"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
@@ -113,7 +114,8 @@ def test_no_port_file_imports_jax(path):
 
 
 @pytest.mark.parametrize("name", ["serve/blocks.py", "serve/batcher.py",
-                                  "serve/tenancy.py", "exceptions.py"])
+                                  "serve/tenancy.py", "exceptions.py",
+                                  "version.py"])
 def test_copied_modules_match_their_source(name):
     """The pure-Python modules the port copies keep the source's code:
     only the module docstring (which names the source) differs."""

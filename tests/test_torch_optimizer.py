@@ -224,14 +224,26 @@ def test_broadcast_optimizer_state_takes_the_roots_state(setup):
 
 
 def test_wrapper_refuses_what_is_not_ported():
+    """Adasum still refuses; a process set does not: in a gloo world of
+    one, a step over the registered set (0,) applies the gradient."""
     import torch
     import horovod_tpu_torch as thvd
     from horovod_tpu_torch.process_sets import ProcessSet
-    sgd = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
+    w = torch.nn.Parameter(torch.zeros(2))
+    sgd = torch.optim.SGD([w], lr=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         thvd.DistributedOptimizer(sgd, op=thvd.Adasum)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        thvd.DistributedOptimizer(sgd, process_set=ProcessSet([0]))
+    ps = ProcessSet([0])
+    opt = thvd.DistributedOptimizer(sgd, process_set=ps)
+    assert opt.process_set is ps
+    thvd.shutdown()
+    thvd.init(device="cpu", process_sets=[ps])
+    try:
+        w.grad = torch.tensor([1.0, -2.0])
+        opt.step()
+        torch.testing.assert_close(w.detach(), torch.tensor([-0.1, 0.2]))
+    finally:
+        thvd.shutdown()
     with pytest.raises(ValueError, match="predivide"):
         thvd.DistributedOptimizer(sgd, op=thvd.Sum,
                                   gradient_predivide_factor=2.0)
