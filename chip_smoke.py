@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure:
    shared-memory report and, per source, which kernels spill;
 2. hold the paged-attention kernels against their plain PyTorch version
    on the card, at the serving path's shapes (gpt2-small: H=12, Dh=64,
-   BT=16; decode B=8 with contexts up to 1024, prefill chunks of C=64)
+   BT=16; decode B=8 with contexts up to 1024, prefill chunks of C=64,
+   speculative verify chunks of C=8 from mid-block starts 17, 100, 513,
+   1000 with f32 and bf16 pools)
    and at the tiny test shapes, for every mask mode and pool type (f32,
    bf16, int8, fp8) and with all-hole rows, a bf16 chunk and a table of
    73 blocks (10 splits): every decode case (one query row)
@@ -33,7 +35,25 @@ Phases, each of which exits non-zero on failure:
    paged KV, the decode route launched once per layer of every decode
    step and the prefill route once per layer of every prefill chunk,
    and an ``attn_impl="gather"`` engine on the card gives the same
-   tokens;
+   tokens.  Then the decode-algorithm layer on the same model: the
+   device sampler's 20000 draws from fixed keys against the filtered
+   distribution (chi-square); a sampled drive over HTTP (temperature
+   0.8, top_k 40, top_p 0.95, fixed seeds, one n = 3 request) checking
+   the same seed twice, batched == single, kernel engine == gather
+   engine, full-length completions, fork and CoW counters above 0 and
+   no block reference held after it; a speculative drive (k = 4, a
+   2-layer draft) whose greedy tokens equal greedy's (else the position
+   and logit margin are printed) and whose sampled run completes, with
+   the decode route launched 12 × decode steps + 2 × draft steps and the
+   prefill route 12 × (prefill chunks + verify steps); the same drive
+   on a copy whose blocks 2..11 have zero output projections, so the
+   draft agrees with the target: its greedy run must accept drafts and
+   still give that model's plain greedy tokens; an ``MLPAdapter`` spec
+   run accepting every draft (one target call per k + 1 tokens); and
+   slot mode giving the paged engine's greedy tokens.  The drives'
+   tokens/s (smoke readings of a few requests, not throughput), the
+   same-batch greedy and sampled step times, the mean inter-token step
+   and the acceptance rates are printed;
 5. drive the training path: ``examples/bert_pretraining.main`` at the
    bench configuration (BERT-large, 32 sequences of 128 tokens per
    micro-batch, 2 micro-batches per optimizer step, 20 masked positions,
@@ -295,6 +315,7 @@ def kernel_phase(torch, pa, device, rehearsal):
     tiny = dict(H=2, Dh=16, BT=8)
     decode_ctx = [1024, 1000, 777, 513, 256, 17, 1, 0]   # last: all holes
     prefill_starts = [0, 960, 448, 100]
+    verify_starts = [17, 100, 513, 1000, 333, 64, 900, 0]  # last: all holes
     specs = []
     for kv in ("f32", "bf16", "int8", "fp8"):
         specs.append((f"decode B=8 ctx=1024 {kv}", main, 8, 1, [1023] * 8,
@@ -319,6 +340,14 @@ def kernel_phase(torch, pa, device, rehearsal):
     for dh in (32, 128):
         specs.append((f"prefill Dh={dh}", dict(H=4, Dh=dh, BT=32), 2, 20,
                       [0, 50], "f32", (), (0, 1, 2), "f32"))
+    # Speculative decoding's verify chunk at the serving shape: k + 1 = 5
+    # rows padded to the chunk bucket of 8, causal, starting mid-block
+    # (after a rollback a row restarts anywhere), one all-hole row.
+    for kv in ("f32", "bf16"):
+        specs.append((f"verify C=8 {kv}", main, 8, 8, verify_starts, kv,
+                      (7,), (1,), "f32"))
+    specs.append(("tiny verify C=8", tiny, 3, 8, [9, 21, 0], "f32", (2,),
+                  (1,), "f32"))
     if rehearsal:
         specs = [s for s in specs if s[0].startswith("tiny")]
     max_err = 0.0
@@ -367,6 +396,7 @@ def kernel_phase(torch, pa, device, rehearsal):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name in ("decode B=8 ctx=1024 f32", "decode B=8 ctx<=1024 f32",
                  "prefill C=64 f32", "prefill C=64 bf16 q",
+                 "verify C=8 f32", "verify C=8 bf16",
                  "decode B=8 ctx=1024 bf16", "decode B=8 ctx=1024 int8",
                  "decode B=8 ctx=1024 fp8"):
         case, mask, iters = cases[name], 1, 50
@@ -659,14 +689,13 @@ def trace_batch(torch, concurrent_batch):
             f"{n} launches ({us / max(n, 1):.2f} us a launch)")
 
 
-def main_path(torch, device, rehearsal, seed):
+def serving_model(torch, device, rehearsal, seed):
+    """gpt2-small at full width and depth in f32 (a 2-layer model on the
+    CPU), random weights from ``seed``, and the serving drives' prompts
+    (5, 16, 17, 32 and 900 tokens) and new-token count."""
     from horovod_tpu_torch.models import TransformerConfig, create_gpt2
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       init_gpt2_)
-    from horovod_tpu_torch.serve import (InferenceEngine, ServeServer,
-                                         TransformerAdapter, build_replicas)
-    from horovod_tpu_torch.serve import paged_attention as pa
-
     if rehearsal:
         cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
                                 d_model=32, d_ff=64, max_len=64,
@@ -685,6 +714,36 @@ def main_path(torch, device, rehearsal, seed):
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).tolist()
                for n in lens + (long_len,)]
+    return cfg, model, prompts, max_new
+
+
+def reset_launches(pa):
+    for name in pa.LAUNCHES:
+        pa.LAUNCHES[name] = 0
+
+
+def check_launches(pa, cfg, rehearsal, decode_want, prefill_want, what,
+                   failures):
+    """The paged routes' launches of one drive against what its steps
+    need; returns (decode, prefill) launches."""
+    dec = pa.LAUNCHES["paged_attention_decode"]
+    pre = pa.LAUNCHES["paged_attention_prefill"]
+    log(f"  {what} launches: decode route {dec} (want {decode_want}), "
+        f"prefill route {pre} (want {prefill_want}), all "
+        f"{pa.LAUNCHES['paged_attention']}")
+    if not rehearsal and (dec, pre, pa.LAUNCHES["paged_attention"]) != (
+            decode_want, prefill_want, decode_want + prefill_want):
+        failures.append(f"{what}: paged launches do not match the steps")
+    return dec, pre
+
+
+def main_path(torch, device, rehearsal, cfg, model, prompts, max_new):
+    """The greedy drive: the HTTP server over gpt2-small.  Returns the
+    paged routes' launches and the greedy tokens of each prompt."""
+    from horovod_tpu_torch.serve import (InferenceEngine, ServeServer,
+                                         TransformerAdapter, build_replicas)
+    from horovod_tpu_torch.serve import paged_attention as pa
+
     sched = build_replicas(
         lambda: TransformerAdapter(cfg, model, device=device),
         num_replicas=1, max_batch=8, prefill_chunk=64)
@@ -695,8 +754,7 @@ def main_path(torch, device, rehearsal, seed):
         if not rehearsal:
             torch.cuda.reset_peak_memory_stats()
         # The launch counts cover exactly the main path's run.
-        for name in pa.LAUNCHES:
-            pa.LAUNCHES[name] = 0
+        reset_launches(pa)
         steps0, pre0 = eng.steps, eng.prefill_steps
         t0 = time.monotonic()
         singles = [http_json(port, "/generate",
@@ -794,7 +852,426 @@ def main_path(torch, device, rehearsal, seed):
         log(f"  FAIL: {f}")
     if failures:
         raise SystemExit("main path failed")
-    return decode_launches, prefill_launches
+    return decode_launches, prefill_launches, tokens
+
+
+# The sampled drives' filters: GPT-2's usual sampling settings.
+SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def chi2_bound(df: int) -> float:
+    """Above the 99.9th percentile of chi2(df) over the df used here (the
+    bound of the JAX package's sampling tests)."""
+    return df + 4 * (2 * df) ** 0.5 + 11
+
+
+def sampler_check(torch, device):
+    """``sampling.sample_batched`` on the device, fed by ``pack_params``
+    as the sampled decode step feeds it: 20000 draws from fixed keys over
+    a filtered 64-token distribution against ``filtered_probs`` by
+    chi-square (deterministic once the keys are fixed); nothing may land
+    outside the filtered support."""
+    from horovod_tpu_torch.serve import sampling as sm
+    rng = np.random.RandomState(11)
+    x = (rng.randn(64) * 1.5).astype(np.float32)
+    N = 20000
+    keys = np.stack([sm.seq_key(2024, i) for i in range(N)])
+    packed = torch.as_tensor(sm.pack_params(
+        keys, np.full(N, 9), np.full(N, SAMPLING["temperature"]),
+        np.full(N, SAMPLING["top_k"]), np.full(N, SAMPLING["top_p"])),
+        device=device)
+    out = sm.sample_batched(torch.as_tensor(x, device=device)[None].expand(
+        N, 64), packed)
+    if out.device.type != device.type:
+        raise SystemExit("the sampler left the device")
+    counts = np.bincount(out.cpu().numpy(), minlength=64)
+    expected = sm.filtered_probs(x, **SAMPLING) * N
+    live = expected > 0
+    chi2 = float(((counts[live] - expected[live]) ** 2
+                  / expected[live]).sum())
+    df = int(live.sum()) - 1
+    log(f"  device sampler: {N} draws on {device.type}, support "
+        f"{int(live.sum())} of 64, chi2 {chi2:.2f} (bound "
+        f"{chi2_bound(df):.2f}, df {df}), outside the support "
+        f"{int(counts[~live].sum())}")
+    if counts[~live].sum() or chi2 >= chi2_bound(df):
+        raise SystemExit("the device sampler does not follow the filtered "
+                         "distribution")
+
+
+def sampled_path(torch, device, rehearsal, cfg, model, prompts, max_new):
+    """The sampled drive over HTTP: each prompt sampled with its own seed
+    and one n = 3 request on the 17-token prompt (one full block and a
+    shared partial one, so the forks copy it on write).  Returns the
+    paged routes' launches."""
+    from horovod_tpu_torch.serve import (InferenceEngine, Request,
+                                         ServeServer, TransformerAdapter,
+                                         build_replicas)
+    from horovod_tpu_torch.serve import paged_attention as pa
+
+    bodies = [dict(tokens=p, max_new_tokens=max_new, seed=11 + i,
+                   **SAMPLING) for i, p in enumerate(prompts)]
+    bodies.append(dict(tokens=prompts[2], max_new_tokens=max_new, seed=99,
+                       n=3, **SAMPLING))
+    sched = build_replicas(
+        lambda: TransformerAdapter(cfg, model, device=device),
+        num_replicas=1, max_batch=8, prefill_chunk=64)
+    eng = sched.replicas[0].engine
+    server = ServeServer(sched)
+    port = server.start(port=0, host="127.0.0.1")
+    failures = []
+    try:
+        reset_launches(pa)
+        steps0, pre0 = eng.steps, eng.prefill_steps
+        t0 = time.monotonic()
+        singles = [http_json(port, "/generate", b) for b in bodies]
+        t_single = time.monotonic() - t0
+        again = http_json(port, "/generate", bodies[0])
+        batched = [None] * len(bodies)
+
+        def post(i):
+            batched[i] = http_json(port, "/generate", bodies[i])
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        t1 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        t_batch = time.monotonic() - t1
+        kv = eng.kv_stats()
+        launches = check_launches(
+            pa, cfg, rehearsal, cfg.num_layers * (eng.steps - steps0),
+            cfg.num_layers * (eng.prefill_steps - pre0), "sampled drive",
+            failures)
+        step_ms = eng.metrics.snapshot()["token_step"]
+    finally:
+        server.stop()
+
+    def streams(r):
+        return r["completions"] if "completions" in r else [r["tokens"]]
+
+    want = [streams(r) for r in singles]
+    if again["tokens"] != singles[0]["tokens"]:
+        failures.append("the same seed twice gave different tokens")
+    if any(r is None for r in batched) or \
+            [streams(r) for r in batched] != want:
+        failures.append("sampled batched != single given the same seeds")
+    if any(len(t) != max_new for w in want for t in w) or \
+            len(want[-1]) != 3 or singles[-1]["n"] != 3:
+        failures.append("a completion is not full length")
+    if [r["seed"] for r in singles] != [b["seed"] for b in bodies]:
+        failures.append("the seed was not echoed")
+    if not (kv["seq_forks"] > 0 and kv["cow"] > 0):
+        failures.append(f"fork / CoW counters not above 0: "
+                        f"{kv['seq_forks']} / {kv['cow']}")
+    if kv["used"] != 0:
+        failures.append(f"{kv['used']} block references held after the "
+                        f"drive beyond the prefix cache")
+    # The same seeds through the plain version ("gather") on the device.
+    gather = InferenceEngine(
+        TransformerAdapter(cfg, model, attn_impl="gather", device=device),
+        max_batch=8, prefill_chunk=64, replica_id="gather").start()
+    try:
+        g = []
+        for b in bodies:
+            r = Request(b["tokens"], max_new_tokens=max_new, seed=b["seed"],
+                        n=b.get("n", 1), **SAMPLING)
+            gather.batcher.submit(r)
+            first = r.result(timeout=600)
+            g.append(r.samples if r.samples is not None else [first])
+    finally:
+        gather.stop()
+    if g != want:
+        failures.append("kernel engine sampled tokens != gather engine's")
+    n_tok = sum(len(t) for w in want for t in w)
+    log(f"  sampled: {len(bodies)} requests ({SAMPLING}, fixed seeds, one "
+        f"n=3), forks {kv['seq_forks']}, CoW copies {kv['cow']}, blocks "
+        f"used after {kv['used']}")
+    if not rehearsal:
+        log(f"  sampled drive smoke reading ({len(bodies)} requests of "
+            f"{max_new} tokens; not a throughput): sequential "
+            f"{n_tok / t_single:.1f} tokens/s, concurrent batch "
+            f"{n_tok / t_batch:.1f}; inter-token step "
+            f"(host clock) mean "
+            f"{step_ms['sum_ms'] / max(step_ms['count'], 1):.3f} ms over "
+            f"{step_ms['count']} steps")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("sampled path failed")
+    return launches
+
+
+def sampled_step_timing(torch, device, cfg, model):
+    """One decode step at B = 8 (contexts 5 to 900) through
+    ``decode_paged`` and ``decode_paged_sampled`` on one pool, in turns
+    (greedy, sampled, sampled, greedy, ...): host-clock ms per step, each
+    ending in its device-to-host copy of the tokens.  Then the sampler
+    alone on the step's [8, V] logits, enqueued behind a ~0.1 s device
+    sleep: if the host returns from the call before the device wakes, the
+    call does not wait for the device, and CUDA events around it read
+    its device time alone; the host-clock ms per call, synchronized,
+    beside it."""
+    from horovod_tpu_torch.serve import TransformerAdapter
+    from horovod_tpu_torch.serve import sampling as sm
+    ad = TransformerAdapter(cfg, model, device=device)
+    B, MB = 8, ad.max_blocks_per_seq
+    pool = ad.init_paged_cache(B * MB, B)
+    tables = np.arange(B * MB).reshape(B, MB)
+    positions = np.array([5, 16, 17, 32, 900, 100, 300, 600])
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, B)
+    keys = np.stack([sm.seq_key(11, b) for b in range(B)])
+    extra = (keys, np.full(B, SAMPLING["temperature"], np.float32),
+             np.full(B, SAMPLING["top_k"]),
+             np.full(B, SAMPLING["top_p"], np.float32))
+    steps = {"greedy": lambda: ad.decode_paged(pool, tokens, positions,
+                                               tables),
+             "sampled": lambda: ad.decode_paged_sampled(
+                 pool, tokens, positions, tables, *extra)}
+    ms = {"greedy": [], "sampled": []}
+    for _ in range(2):
+        for fn in steps.values():
+            fn()
+    for _ in range(15):
+        for name in ("greedy", "sampled", "sampled", "greedy"):
+            t0 = time.perf_counter()
+            steps[name]()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    logits = ad._paged_step_body(pool, tokens, positions, tables)
+    packed = torch.as_tensor(sm.pack_params(keys, positions + 1, *extra[1:]),
+                             device=device)
+    sm.sample_batched(logits, packed)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(2 * 10**8)
+    t0 = time.perf_counter()
+    start.record()
+    sm.sample_batched(logits, packed)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    waited = enqueue_ms > 0.5 * (time.perf_counter() - t0) * 1e3
+    dev_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sm.sample_batched(logits, packed)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    g, smp = np.median(ms["greedy"]), np.median(ms["sampled"])
+    log(f"  decode step at B=8 (median of 30, host clock): greedy "
+        f"{g:.3f} ms, sampled {smp:.3f} ms (sampled/greedy {smp / g:.3f}; "
+        f"tokens/s at the same batch {B * 1e3 / g:.1f} vs "
+        f"{B * 1e3 / smp:.1f}); the sampler alone on [8, "
+        f"{cfg.vocab_size}] logits: {host_ms:.3f} ms a call on the host "
+        f"clock; enqueued in {enqueue_ms:.3f} ms behind a device sleep, "
+        + ("it WAITED for the device (events read "
+           f"{dev_ms:.4f} ms, host gaps included)" if waited else
+           f"it did not wait for the device, which then took "
+           f"{dev_ms:.4f} ms"))
+
+
+def first_divergence(ad, prompt, got, want):
+    """Where a speculative greedy stream first leaves the plain one, and
+    the target's logit margin (top-1 minus top-2) there."""
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    logits = np.sort(ad.prompt_logits(list(prompt) + want[:j]))
+    return j, float(logits[-1] - logits[-2])
+
+
+def draft_layers_of(rehearsal):
+    """The spec drives' draft depth: 2 of gpt2-small's 12 blocks, 1 of
+    the CPU rehearsal's 2."""
+    return 1 if rehearsal else 2
+
+
+def spec_path(torch, device, rehearsal, cfg, model, prompts, max_new,
+              greedy, what="spec drive"):
+    """A speculative drive: k = 4 with a ``draft_layers_of`` draft, the
+    prompts greedy and batched (their tokens must be ``greedy``), then
+    sampled.  Returns the paged routes' launches and the greedy run's
+    spec counters."""
+    from horovod_tpu_torch.serve import (InferenceEngine, Request,
+                                         ServeMetrics, TransformerAdapter)
+    from horovod_tpu_torch.serve import paged_attention as pa
+
+    k, dl = 4, draft_layers_of(rehearsal)
+    ad = TransformerAdapter(cfg, model, device=device, draft_layers=dl)
+    eng = InferenceEngine(ad, max_batch=8, prefill_chunk=64, spec_k=k,
+                          metrics=ServeMetrics(), replica_id="spec").start()
+    failures = []
+
+    def run(kw):
+        reqs = [Request(p, max_new_tokens=max_new, **kw(i))
+                for i, p in enumerate(prompts)]
+        t0 = time.monotonic()
+        for r in reqs:
+            eng.batcher.submit(r)
+        out = [r.result(timeout=600) for r in reqs]
+        return out, time.monotonic() - t0
+
+    try:
+        reset_launches(pa)
+        got, t_greedy = run(lambda i: {})
+        g_spec = dict(eng.metrics.snapshot()["spec"])
+        sampled, t_sampled = run(lambda i: dict(seed=11 + i, **SAMPLING))
+        snap = eng.metrics.snapshot()
+        kv = eng.kv_stats()
+        launches = check_launches(
+            pa, cfg, rehearsal,
+            cfg.num_layers * (eng.steps - eng.spec_steps)
+            + dl * eng.draft_steps,
+            cfg.num_layers * (eng.prefill_steps + eng.spec_steps),
+            what, failures)
+    finally:
+        eng.stop()
+    for p, a, b in zip(prompts, got, greedy):
+        if a != b:
+            j, margin = first_divergence(ad, p, a, b)
+            failures.append(f"greedy spec != greedy for the {len(p)}-token "
+                            f"prompt at new token {j} (logit margin "
+                            f"{margin:.3e})")
+    if any(len(t) != max_new for t in sampled):
+        failures.append("a sampled spec request is not full length")
+    if kv["used"] != 0:
+        failures.append(f"{kv['used']} block references leaked")
+    spec = snap["spec"]
+    s_drafted = spec["drafted"] - g_spec["drafted"]
+    s_accepted = spec["accepted"] - g_spec["accepted"]
+    log(f"  greedy streams: {[len(set(t)) for t in greedy]} distinct "
+        f"tokens of {max_new} per prompt")
+    log(f"  {what}: k={k}, draft {dl} of {cfg.num_layers} layers; "
+        f"{eng.spec_steps} verify steps, {eng.draft_steps} draft steps, "
+        f"{eng.prefill_steps} prefill chunks; greedy run drafted "
+        f"{g_spec['drafted']}, accepted {g_spec['accepted']} (acceptance "
+        f"rate {g_spec['acceptance_rate']}); sampled run drafted "
+        f"{s_drafted}, accepted {s_accepted}")
+    if not rehearsal:
+        n_tok = len(prompts) * max_new
+        step_ms = snap["token_step"]
+        log(f"  {what} smoke reading ({len(prompts)} requests of {max_new} "
+            f"tokens, batched; not a throughput): greedy "
+            f"{n_tok / t_greedy:.1f} tokens/s, sampled "
+            f"{n_tok / t_sampled:.1f}; inter-step (one verify each, host "
+            f"clock) mean "
+            f"{step_ms['sum_ms'] / max(step_ms['count'], 1):.3f} ms over "
+            f"{step_ms['count']} steps")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit(f"{what} failed")
+    return launches, g_spec
+
+
+def aligned_spec_path(torch, device, rehearsal, cfg, model, prompts,
+                      max_new):
+    """A speculative drive whose draft agrees with its target: a copy of
+    the model whose blocks from ``draft_layers`` up have zero output
+    projections (attention and MLP, kernels and biases), so they add
+    nothing to the residual stream and the truncated stack computes the
+    full stack's hidden state.  Every block still runs its attention on
+    the kernels.  The greedy run must accept drafts — so the accepted
+    path runs on the card: m > 0, the bonus token, later decode steps
+    reading K/V that verify wrote at accepted positions — and still give
+    plain greedy's tokens on this model; the sampled run (point-mass
+    accept at temperature 0.8) accepts some drafts and rolls back
+    others.  Returns the spec drive's paged launches."""
+    import copy
+    from horovod_tpu_torch.serve import InferenceEngine, TransformerAdapter
+    aligned = copy.deepcopy(model)
+    with torch.no_grad():
+        for blk in aligned.blocks[draft_layers_of(rehearsal):]:
+            for p in (blk.attn.proj.kernel, blk.attn.proj.bias,
+                      blk.fc2.kernel, blk.fc2.bias):
+                p.zero_()
+    plain = InferenceEngine(TransformerAdapter(cfg, aligned, device=device),
+                            max_batch=8, prefill_chunk=64,
+                            replica_id="aligned").start()
+    try:
+        greedy = [plain.generate(p, max_new_tokens=max_new) for p in prompts]
+    finally:
+        plain.stop()
+    launches, g_spec = spec_path(torch, device, rehearsal, cfg, aligned,
+                                 prompts, max_new, greedy,
+                                 what="aligned-draft spec drive")
+    if not g_spec["accepted"] > 0:
+        raise SystemExit("the aligned-draft greedy spec run accepted no "
+                         "draft")
+    return launches
+
+
+def mlp_spec_path(torch, device, seed):
+    """``MLPAdapter`` is its own draft: a spec run accepts every draft and
+    makes one target call per k + 1 decode tokens, and emits plain
+    greedy's tokens."""
+    from horovod_tpu_torch.models import create_mlp
+    from horovod_tpu_torch.serve import (InferenceEngine, MLPAdapter,
+                                         ServeMetrics)
+    V, k, new = 256, 4, 21
+    ad = MLPAdapter(create_mlp((64, V), in_features=V, device=device,
+                               seed=seed), vocab_size=V, max_len=256)
+    outs, snaps = [], []
+    for spec_k in (0, k):
+        eng = InferenceEngine(ad, max_batch=8, kv_mode="paged",
+                              spec_k=spec_k, metrics=ServeMetrics(),
+                              replica_id=f"mlp-{spec_k}").start()
+        try:
+            outs.append(eng.generate([1, 2, 3], max_new_tokens=new))
+            snaps.append(eng.metrics.snapshot())
+        finally:
+            eng.stop()
+    snap = snaps[1]
+    calls = snap["decode_steps"] / (snap["tokens_total"] - 1)
+    log(f"  MLPAdapter spec (k={k}): acceptance rate "
+        f"{snap['spec']['acceptance_rate']}, target calls per decode token "
+        f"{calls:.4f} (1/(k+1) = {1 / (k + 1):.4f})")
+    if outs[0] != outs[1] or snap["spec"]["acceptance_rate"] != 1.0 \
+            or snap["decode_steps"] * (k + 1) != snap["tokens_total"] - 1:
+        raise SystemExit("MLPAdapter spec run did not accept every draft")
+
+
+def slot_path(torch, device, cfg, model, prompts, max_new, greedy):
+    """Slot mode (dense f32 attention over a contiguous cache) gives the
+    paged engine's greedy tokens."""
+    from horovod_tpu_torch.serve import InferenceEngine, TransformerAdapter
+    eng = InferenceEngine(TransformerAdapter(cfg, model, device=device),
+                          kv_mode="slot", max_batch=8,
+                          replica_id="slot").start()
+    try:
+        got = [eng.generate(p, max_new_tokens=max_new) for p in prompts]
+    finally:
+        eng.stop()
+    log(f"  slot mode: {len(prompts)} prompts, greedy tokens "
+        f"{'equal' if got == greedy else 'DIFFER from'} the paged engine's")
+    if got != greedy:
+        raise SystemExit("slot-mode tokens != paged tokens")
+
+
+def serving_phase(torch, device, rehearsal, seed):
+    """Phase 4: every serving drive over one gpt2-small.  Returns the
+    paged routes' launches summed over the drives that run them (each
+    drive counted from 0)."""
+    cfg, model, prompts, max_new = serving_model(torch, device, rehearsal,
+                                                 seed)
+    dec, pre, greedy = main_path(torch, device, rehearsal, cfg, model,
+                                 prompts, max_new)
+    log("  -- seeded sampling and n > 1 forks")
+    sampler_check(torch, device)
+    sdec, spre = sampled_path(torch, device, rehearsal, cfg, model, prompts,
+                              max_new)
+    if not rehearsal:
+        sampled_step_timing(torch, device, cfg, model)
+    log("  -- speculative decoding")
+    (xdec, xpre), _ = spec_path(torch, device, rehearsal, cfg, model,
+                                prompts, max_new, greedy)
+    adec, apre = aligned_spec_path(torch, device, rehearsal, cfg, model,
+                                   prompts, max_new)
+    mlp_spec_path(torch, device, seed)
+    log("  -- slot mode")
+    slot_path(torch, device, cfg, model, prompts, max_new, greedy)
+    return dec + sdec + xdec + adec, pre + spre + xpre + apre
 
 
 # ---------------------------------------------------------------------------
@@ -1501,9 +1978,10 @@ def main(argv=None) -> int:
     log("phase 3: flash attention kernels against their plain versions")
     frec = flash_phase(torch, device, rehearsal)
 
-    log("phase 4: serving path (HTTP server, GPT-2)")
-    decode_launches, prefill_launches = main_path(torch, device, rehearsal,
-                                                  args.seed)
+    log("phase 4: serving path (HTTP server, GPT-2; sampling, forks, "
+        "speculative decoding, slot mode)")
+    decode_launches, prefill_launches = serving_phase(torch, device,
+                                                      rehearsal, args.seed)
 
     log("phase 5: training path (BERT-large, DistributedOptimizer, NCCL)")
     flash_launches = training_phase(torch, device, rehearsal)

@@ -102,3 +102,10 @@ def resnet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"{name} appears twice")
             state[name] = torch.from_numpy(np.array(value, np.float32))
     return state
+
+
+def mlp_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``MLP`` state dict (CPU tensors) from the ``params`` of
+    the JAX package's ``MLP`` (``Dense_i`` kernels [in, out] and biases,
+    kept as they are) — what ``serve.MLPAdapter`` serves."""
+    return resnet_params_from_jax({"params": params})

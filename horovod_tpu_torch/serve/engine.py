@@ -1,9 +1,8 @@
-"""Continuous-batching inference engine over the port's GPT-2 (paged KV,
-greedy decoding).
+"""Continuous-batching inference engine over the port's GPT-2 and MLP.
 
-Port of the paged, greedy path of ``horovod_tpu/serve/engine.py``: the
-design is Orca's iteration-level scheduling with vLLM's block-paged KV
-storage and Sarathi-Serve's chunked prefill.
+Port of the serving core of ``horovod_tpu/serve/engine.py``: the design
+is Orca's iteration-level scheduling with vLLM's block-paged KV storage
+and Sarathi-Serve's chunked prefill.
 
 * **paged KV cache** — a pool of fixed-size blocks
   (``HVD_SERVE_BLOCK_TOKENS`` positions each, ``serve/blocks.py``); a
@@ -16,21 +15,36 @@ storage and Sarathi-Serve's chunked prefill.
 * **chunked prefill** — prompts stream through the per-iteration token
   budget ``HVD_SERVE_PREFILL_CHUNK``;
 * **prefix caching** — full prompt blocks are content-hashed and shared
-  (copy-on-write protects shared blocks from writes).
+  (copy-on-write protects shared blocks from writes);
+* **slot mode** (``kv_mode="slot"``) — the contiguous
+  ``[L, max_batch, max_len, H, Dh]`` layout with dense f32 attention,
+  for adapters without a paged interface; ``auto`` picks paged when the
+  adapter can page;
+* **the decode-algorithm layer** (paged mode) — seeded sampling
+  (temperature / top-k / top-p, ``serve/sampling.py``), n > 1 forks that
+  prefill the prompt once and decode through copy-on-write block tables
+  (``_ForkGroup``), and speculative decoding (``spec_k`` /
+  ``HVD_SERVE_SPEC_K``: a truncated-stack draft proposes k tokens, the
+  target verifies k + 1 positions in one chunk step, ``_spec_once``).
 
-Exactness: decoding is greedy and every per-sequence computation is
-row-independent — positions past a sequence's length are masked to
-weight 0 and block-table holes carry the out-of-bounds sentinel ``NB``
-(the scatter drops those rows, the attention skips them) — so a request
-receives the same tokens alone or packed in a batch.  Chunk batches keep
-the JAX adapter's power-of-two padding and decode runs at the fixed
-``max_batch`` width, which pins the shapes that contract holds at.
+Exactness: every per-sequence computation is row-independent —
+positions past a sequence's length are masked to weight 0 and
+block-table holes carry the out-of-bounds sentinel ``NB`` (the scatter
+drops those rows, the attention skips them), and every random draw is
+keyed by (seed, sample, position) — so a request receives the same
+tokens alone or packed in a batch, greedy or sampled with the same seed.
+Chunk batches keep the JAX adapter's power-of-two padding and decode
+runs at the fixed ``max_batch`` width, which pins the shapes that
+contract holds at.  Greedy speculative decoding emits the tokens of
+greedy decoding.
 
-Not ported yet (later slices): slot mode and ``MLPAdapter``, seeded
-sampling and n>1 forks, speculative decoding, grammars and logprobs,
-streaming, tiering, sequence-parallel prefill, warmup, multi-model
-residency, faultline injection and request tracing.  A request that
-asks for one of these fails with a ValueError naming it (HTTP 400).
+``MLPAdapter`` is the engine-mechanics model: next token =
+argmax MLP(one_hot(token)), no cache, and its own perfect draft.
+
+Not ported yet (later slices): grammars, logprobs, streaming, tiering,
+sequence-parallel prefill, warmup, multi-model residency, faultline
+injection and request tracing.  A request that asks for one of these
+fails with a ValueError naming it (HTTP 400).
 """
 
 from __future__ import annotations
@@ -49,8 +63,9 @@ from ..models.transformer import layer_norm
 from ..utils import get_logger
 from ..utils.device import resolve_device
 from . import paged_attention as _pa
-from .batcher import DeadlineExceededError, DynamicBatcher, Request, \
-    prompt_bucket
+from . import sampling as _sampling
+from .batcher import (DeadlineExceededError, DynamicBatcher, Request,
+                      bucket_requests, prompt_bucket)
 from .blocks import BlockManager, NoFreeBlocksError, chain_hashes
 from .metrics import ServeMetrics
 
@@ -88,10 +103,20 @@ class TransformerAdapter:
     default), ``f32``/``bf16``, or ``int8``/``fp8`` quantized blocks with
     per-(position, head) f16 scale rows written at append time.
 
+    ``draft_layers`` (``HVD_SERVE_DRAFT_LAYERS``, default 0): the
+    speculative draft is the first ``draft_layers`` blocks plus the
+    final LayerNorm and the tied head, sharing the target's weights and
+    block pool (its layer-l K/V at a verified position is the same math
+    the target writes there, so a rejected draft leaves nothing to
+    reconcile); 0 disables it (``spec_capable`` False).
+
     The pool is updated in place: the JAX adapter donates the pool to
     each jitted step and writes it with ``.at[].set``; here the scatter
     is an ``index_put_`` and the CoW block copy a ``copy_`` into the
-    same tensors.
+    same tensors.  Slot mode (``init_cache`` / ``prefill`` /
+    ``decode``) runs dense f32 attention over a contiguous
+    ``[L, B, max_len, H, Dh]`` cache, in plain PyTorch: the JAX package
+    has no kernel there.
     """
 
     kv_token_cost = 1  # cache positions consumed per token
@@ -100,6 +125,7 @@ class TransformerAdapter:
                  block_tokens: Optional[int] = None,
                  attn_impl: Optional[str] = None,
                  kv_dtype: Optional[str] = None,
+                 draft_layers: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -134,6 +160,18 @@ class TransformerAdapter:
         self._kv_store_dtype = {
             "native": dtype, "f32": torch.float32, "bf16": torch.bfloat16,
             "int8": torch.int8, "fp8": torch.float8_e4m3fn}[kvd]
+        dl = (draft_layers if draft_layers is not None
+              else int(os.environ.get("HVD_SERVE_DRAFT_LAYERS", "0")))
+        if not 0 <= dl < self.num_layers:
+            raise ValueError(
+                f"draft_layers must be in [0, num_layers), got {dl} "
+                f"(num_layers {self.num_layers})")
+        self.draft_layers = dl
+
+    @property
+    def spec_capable(self) -> bool:
+        """True when a draft stack is configured (draft_layers >= 1)."""
+        return self.draft_layers > 0
 
     def _layout(self, state) -> dict:
         """Weights on the device in the serving dtype, per layer, with the
@@ -181,6 +219,16 @@ class TransformerAdapter:
     @property
     def max_blocks_per_seq(self) -> int:
         return -(-self.max_len // self.block_tokens)
+
+    def init_cache(self, max_batch: int):
+        """Slot-mode cache ``[L, max_batch, max_len, H, Dh]`` in the
+        compute dtype."""
+        shape = (self.num_layers, max_batch, self.max_len, self.num_heads,
+                 self.head_dim)
+        return {"k": torch.zeros(shape, dtype=self._dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=self._dtype,
+                                 device=self.device)}
 
     def init_paged_cache(self, num_blocks: int, max_batch: int):
         """Block pool ``[L, num_blocks, block_tokens, H, Dh]`` (plus scale
@@ -290,6 +338,78 @@ class TransformerAdapter:
         return (self.params["wte"][torch.as_tensor(tokens, device=dev)]
                 + self.params["wpe"][torch.as_tensor(pos, device=dev)])
 
+    # -- slot mode ------------------------------------------------------------
+
+    def _dense_attend(self, q, k, v, valid):
+        """Dense f32 softmax attention: ``q`` [n, q, H, Dh], ``k``/``v``
+        [n, s, H, Dh]; ``valid`` broadcasts to [n, H, q, s].  Masked
+        scores are -1e30, so their weight is exactly 0."""
+        scale = 1.0 / math.sqrt(self.head_dim)
+        s = torch.einsum("nqhe,nkhe->nhqk", q.float(), k.float()) * scale
+        s = torch.where(valid, s, torch.tensor(-1e30, device=s.device))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("nhqk,nkhe->nqhe", p, v.float()).to(self._dtype)
+
+    @torch.no_grad()
+    def prefill(self, cache, prompts, slots):
+        """Slot-mode prompt phase: ``prompts[i]`` into cache row
+        ``slots[i]``; returns ``(cache, first_tokens)`` (the argmax at
+        each prompt's last position).  The batch pads to the JAX
+        adapter's (power-of-two count, ``prompt_bucket`` length) bucket;
+        padding rows compute but write nothing (JAX gives them slot
+        index ``max_batch`` and its scatter drops them; here they are
+        dropped on the host, since ``index_put_`` would raise)."""
+        max_p = max(len(p) for p in prompts)
+        if max_p > self.max_len:
+            raise ValueError(f"prompt length {max_p} exceeds max_len "
+                             f"{self.max_len}")
+        n_bucket = _next_pow2(len(prompts))
+        p_bucket = prompt_bucket(max_p, cap=self.max_len)
+        tokens = np.zeros((n_bucket, p_bucket), np.int64)
+        lengths = np.ones((n_bucket,), np.int64)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = p
+            lengths[i] = len(p)
+        dev = self.device
+        n = len(prompts)
+        slot_t = torch.as_tensor(np.asarray(slots[:n], np.int64), device=dev)
+        x = self._embed(tokens, np.arange(p_bucket))
+        causal = torch.ones((p_bucket, p_bucket), dtype=torch.bool,
+                            device=dev).tril()
+        for layer, blk in enumerate(self.params["blocks"]):
+            q, k, v = self._qkv(x, blk)                  # [n, P, H, Dh]
+            cache["k"][layer, slot_t, :p_bucket] = k[:n].to(cache["k"].dtype)
+            cache["v"][layer, slot_t, :p_bucket] = v[:n].to(cache["v"].dtype)
+            out = self._dense_attend(q, k, v, causal)
+            x = self._ffn(self._proj(x, out, blk), blk)
+        last = torch.as_tensor(np.maximum(lengths - 1, 0), device=dev)
+        logits = self._logits(x[torch.arange(n_bucket, device=dev), last])
+        return cache, logits.argmax(dim=-1).cpu().numpy()[:n]
+
+    @torch.no_grad()
+    def decode(self, cache, tokens, positions):
+        """One slot-mode token step for the whole slot batch: feed
+        ``tokens[b]`` at ``positions[b]`` (the cache index its K/V lands
+        at); attention over the row's cache positions <= its own.
+        Returns ``(cache, next_tokens[max_batch])``; inactive rows carry
+        token 0 at position 0 and their output is ignored."""
+        S = self.max_len
+        pos = np.minimum(np.asarray(positions, np.int64), S - 1)
+        x = self._embed(np.asarray(tokens, np.int64), pos)     # [B, d]
+        dev = self.device
+        pos_t = torch.as_tensor(pos, device=dev)
+        rows = torch.arange(len(pos), device=dev)
+        valid = (torch.arange(S, device=dev)[None, :]
+                 <= pos_t[:, None])[:, None, None, :]          # [B,1,1,S]
+        for layer, blk in enumerate(self.params["blocks"]):
+            q, k, v = self._qkv(x, blk)                         # [B, H, Dh]
+            cache["k"][layer, rows, pos_t] = k.to(cache["k"].dtype)
+            cache["v"][layer, rows, pos_t] = v.to(cache["v"].dtype)
+            out = self._dense_attend(q[:, None], cache["k"][layer],
+                                     cache["v"][layer], valid)[:, 0]
+            x = self._ffn(self._proj(x, out, blk), blk)
+        return cache, self._logits(x).argmax(dim=-1).cpu().numpy()
+
     # -- chunked prefill ------------------------------------------------------
 
     def _chunk_body(self, cache, tokens: np.ndarray, starts: np.ndarray,
@@ -361,6 +481,32 @@ class TransformerAdapter:
         return cache, logits.argmax(dim=-1).cpu().numpy()[:len(chunks)]
 
     @torch.no_grad()
+    def prefill_chunk_logits(self, cache, chunks, starts, tables):
+        """``prefill_chunk`` returning each row's final-position LM logits
+        [n, V] instead of their argmax — the sampled / n>1 first-token
+        path: the engine draws the first generated token(s) on the host
+        (an n-way fork draws n tokens from one logit row, each with its
+        own key).  Greedy batches keep ``prefill_chunk``."""
+        args = self._pack_chunk_args(cache, chunks, starts, tables)
+        logits = self._chunk_forward(cache, *args)
+        return cache, logits[:len(chunks)].cpu().numpy()
+
+    @torch.no_grad()
+    def verify_chunk(self, cache, chunks, starts, tables):
+        """Speculative verify: ``chunks[i]`` (the row's last emitted token
+        and its drafted tokens) through the FULL model in one chunk step,
+        scattering their K/V, returning the LM logits at every chunk
+        position [n, c, V] (c = the longest chunk).  ``logits[i, j]`` is
+        the target distribution of the token at absolute position
+        ``starts[i] + j + 1``.  The chunk pads to its ``prompt_bucket``
+        like a prefill chunk, so on a card it runs the prefill route
+        from a start that need not be block-aligned."""
+        args = self._pack_chunk_args(cache, chunks, starts, tables)
+        x = self._chunk_body(cache, *args)
+        n, c = len(chunks), max(len(ch) for ch in chunks)
+        return cache, self._logits(x)[:n, :c].cpu().numpy()
+
+    @torch.no_grad()
     def prompt_logits(self, prompt: Sequence[int]) -> np.ndarray:
         """Final-position LM logits for ``prompt`` through the full paged
         pipeline on a throwaway pool (storage quantization and attention
@@ -380,11 +526,13 @@ class TransformerAdapter:
 
     # -- paged decode -------------------------------------------------------
 
-    def _paged_step_body(self, cache, tokens, positions, tables):
-        """The single-token paged decode forward: ``tokens`` [B],
-        ``positions`` [B] (the cache index this token's K/V lands at),
-        ``tables`` [B, MB] (entry NB for holes and inactive rows).
-        Returns the LM logits [B, V]."""
+    def _paged_step_body(self, cache, tokens, positions, tables,
+                         num_layers: Optional[int] = None):
+        """The single-token paged decode forward through the first
+        ``num_layers`` blocks (all by default; the draft runs fewer) and
+        the LM head: ``tokens`` [B], ``positions`` [B] (the cache index
+        this token's K/V lands at), ``tables`` [B, MB] (entry NB for
+        holes and inactive rows).  Returns the LM logits [B, V]."""
         BT, MB = self.block_tokens, self.max_blocks_per_seq
         nb = int(cache["k"].shape[1])
         tables = np.asarray(tables, np.int64)
@@ -396,7 +544,7 @@ class TransformerAdapter:
         dev = self.device
         tables_t = torch.as_tensor(tables, dtype=torch.int32, device=dev)
         pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-        for layer, blk in enumerate(self.params["blocks"]):
+        for layer, blk in enumerate(self.params["blocks"][:num_layers]):
             q, k, v = self._qkv(x, blk)                      # [B, H, Dh]
             self._scatter(cache, layer, rows, k, v)
             out = self._paged_attend(q, cache, layer, tables_t, pos_t)
@@ -410,6 +558,40 @@ class TransformerAdapter:
         return cache, logits.argmax(dim=-1).cpu().numpy()
 
     @torch.no_grad()
+    def decode_paged_sampled(self, cache, tokens, positions, tables, keys,
+                             temps, top_ks, top_ps):
+        """One sampled token step for the whole batch: the forward of
+        ``decode_paged``, then ``sampling.sample_batched`` on the device
+        with per-row base keys and sampling parameters (one host-to-device
+        copy of them, one device-to-host copy of the B tokens; the [B, V]
+        logits stay on the device).  Rows with temperature 0 return the
+        argmax, bit-identical to ``decode_paged``."""
+        # The token this step emits OCCUPIES position fed + 1.  The copy
+        # comes first: a host-to-device copy synchronizes the stream, and
+        # after the forward it would hold the host until the forward ran.
+        packed = torch.as_tensor(_sampling.pack_params(
+            keys, np.asarray(positions, np.int64) + 1, temps, top_ks,
+            top_ps), device=self.device)
+        logits = self._paged_step_body(cache, tokens, positions, tables)
+        return cache, _sampling.sample_batched(logits, packed).cpu().numpy()
+
+    @torch.no_grad()
+    def draft_decode(self, cache, tokens, positions, tables):
+        """One draft proposal step: blocks ``0..draft_layers-1``, the
+        final LayerNorm and the tied head, writing the draft's K/V for
+        those layers into the same pool; returns the draft's argmax (a
+        point-mass proposal, which keeps rejection sampling exact
+        without shipping draft distributions to the host)."""
+        if not self.spec_capable:
+            raise ValueError(
+                "no draft stack configured: set HVD_SERVE_DRAFT_LAYERS "
+                ">= 1 (or pass draft_layers=) to enable speculative "
+                "decoding")
+        logits = self._paged_step_body(cache, tokens, positions, tables,
+                                       self.draft_layers)
+        return cache, logits.argmax(dim=-1).cpu().numpy()
+
+    @torch.no_grad()
     def copy_block(self, cache, src: int, dst: int):
         """Copy-on-write data move: duplicate one physical block across all
         layers, in place (the BlockManager already moved the reference)."""
@@ -418,14 +600,119 @@ class TransformerAdapter:
         return cache
 
 
+class MLPAdapter:
+    """Cache-free stand-in model for engine-mechanics tests
+    (``horovod_tpu/serve/engine.py:1147``): the next token is
+    ``argmax(MLP(one_hot(token)))`` — a deterministic Markov chain over
+    the vocab.  Serves in both modes; its paged interface consumes zero
+    blocks (``kv_token_cost = 0``).  Sampling draws from
+    ``softmax(MLP(one_hot(token)))`` through the same keyed sampler as
+    the transformer, and the speculative draft is the model ITSELF
+    (``draft_decode`` == greedy decode): a perfect proposer, so a spec
+    run accepts every draft and makes one target call per k + 1 tokens.
+
+    ``mlp`` is a ``models.MLP`` over ``vocab_size`` one-hot features
+    ending in ``vocab_size`` logits (``create_mlp((hidden, vocab),
+    in_features=vocab)``; flax weights convert through
+    ``models.mlp_params_from_jax``); it runs on the device its
+    parameters live on."""
+
+    kv_token_cost = 0
+    block_tokens = 1
+    max_blocks_per_seq = 0
+    spec_capable = True
+
+    def __init__(self, mlp, vocab_size: int, max_len: int = 1024):
+        self.mlp = mlp
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+        self.device = next(mlp.parameters()).device
+
+    def weight_bytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in self.mlp.parameters())
+
+    @torch.no_grad()
+    def _logits_of(self, tokens) -> torch.Tensor:
+        """f32 logits [..., V] of the next token after each of
+        ``tokens``."""
+        t = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        x = F.one_hot(t.reshape(-1), self.vocab_size).float()
+        return self.mlp(x).float().reshape(*t.shape, self.vocab_size)
+
+    def _next(self, tokens) -> np.ndarray:
+        return self._logits_of(tokens).argmax(dim=-1).cpu().numpy()
+
+    def init_cache(self, max_batch: int):
+        return {}
+
+    def init_paged_cache(self, num_blocks: int, max_batch: int):
+        return {}
+
+    def prefill(self, cache, prompts, slots):
+        return cache, self._next([p[-1] for p in prompts])
+
+    def prefill_chunk(self, cache, chunks, starts, tables):
+        # The next token depends only on the chunk's last token; a
+        # non-final chunk's output is ignored by the engine.
+        return cache, self._next([ch[-1] for ch in chunks])
+
+    def prefill_chunk_logits(self, cache, chunks, starts, tables):
+        return cache, self._logits_of([ch[-1] for ch in chunks]).cpu().numpy()
+
+    def verify_chunk(self, cache, chunks, starts, tables):
+        # Markov chain: the logits at chunk position j depend only on the
+        # chunk token at j.
+        n, c = len(chunks), max(len(ch) for ch in chunks)
+        tok = np.zeros((n, c), np.int64)
+        for i, ch in enumerate(chunks):
+            tok[i, :len(ch)] = ch
+        return cache, self._logits_of(tok).cpu().numpy()
+
+    def decode(self, cache, tokens, positions):
+        return cache, self._next(tokens)
+
+    def decode_paged(self, cache, tokens, positions, tables):
+        return self.decode(cache, tokens, positions)
+
+    def decode_paged_sampled(self, cache, tokens, positions, tables, keys,
+                             temps, top_ks, top_ps):
+        packed = torch.as_tensor(_sampling.pack_params(
+            keys, np.asarray(positions, np.int64) + 1, temps, top_ks,
+            top_ps), device=self.device)
+        logits = self._logits_of(tokens)
+        return cache, _sampling.sample_batched(logits, packed).cpu().numpy()
+
+    def draft_decode(self, cache, tokens, positions, tables):
+        # The draft IS the target (perfect proposer).
+        return self.decode(cache, tokens, positions)
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
+class _Slot:
+    """Slot-mode sequence state (contiguous per-slot cache rows)."""
+    __slots__ = ("request", "length")
+
+    def __init__(self, request: Request, length: int):
+        self.request = request
+        self.length = length  # prompt + generated so far (cache positions)
+
+
 class _Seq:
-    """Paged-mode sequence state."""
+    """Paged-mode sequence state.
+
+    ``generated`` is the authoritative token list of THIS sequence: for
+    an n == 1 request it IS ``request.generated``, for a member of an
+    n > 1 fork family it is the member's own stream, copied into
+    ``request.samples[sample_index]`` at retirement.  ``parked`` marks a
+    fork slot reserved at admission but not yet activated (the prompt is
+    still prefilling through the family's primary)."""
     __slots__ = ("request", "length", "prompt_pos", "table", "hashes",
-                 "admit_seq", "published", "generated")
+                 "admit_seq", "published", "generated", "group",
+                 "sample_index", "base_key", "parked")
 
     def __init__(self, request: Request, cached_tokens: int,
                  table: List[int], hashes: List[int], admit_seq: int):
@@ -436,11 +723,40 @@ class _Seq:
         self.hashes = hashes             # prompt full-block chain hashes
         self.admit_seq = admit_seq       # admission order (preempt youngest)
         self.published = 0               # prefix-registered block watermark
-        self.generated = request.generated
+        self.generated = request.generated  # n>1 members get own lists
+        self.group: Optional[_ForkGroup] = None
+        self.sample_index = 0
+        self.base_key: Optional[np.ndarray] = None  # sampled only
+        self.parked = False              # reserved fork slot, pre-activation
 
     @property
     def decoding(self) -> bool:
-        return self.prompt_pos >= len(self.request.prompt)
+        return not self.parked and self.prompt_pos >= len(self.request.prompt)
+
+
+class _ForkGroup:
+    """One n>1 request's fork family (``engine.py:1335``): the primary
+    (sample 0) prefills the prompt once; at prompt completion the family
+    forks — every member maps the shared full prompt blocks through its
+    own CoW block table and decodes on its own.  The request completes
+    when the LAST member retires; preemption, expiry and drain treat the
+    family as one unit.
+
+    ``reserve`` is the family's not-yet-allocated worst-case decode
+    footprint — the (n-1) fork tails admission COUNTED but did not
+    allocate; ``_admit_paged`` takes the live families' reserves off the
+    pool budget so a later admission round cannot hand those blocks to
+    someone else, and each fork-side allocation consumes one unit."""
+    __slots__ = ("request", "seqs", "completed", "forked", "reserve",
+                 "reserve_cap")
+
+    def __init__(self, request: Request):
+        self.request = request
+        self.seqs: List[_Seq] = []
+        self.completed = 0
+        self.forked = False
+        self.reserve = 0
+        self.reserve_cap = 0  # admission-time value; refunds never exceed it
 
 
 def unported_feature(r: Request) -> Optional[str]:
@@ -452,10 +768,6 @@ def unported_feature(r: Request) -> Optional[str]:
         return "schema (grammar-constrained decoding, serve/structured.py)"
     if r.logprobs is not None:
         return "logprobs (per-token logprobs)"
-    if r.sampled:
-        return "temperature > 0 (seeded sampling, serve/sampling.py)"
-    if r.n > 1:
-        return "n > 1 (parallel sampling forks)"
     if r.model is not None:
         return "model (multi-model residency, serve/registry.py)"
     return None
@@ -464,13 +776,13 @@ def unported_feature(r: Request) -> Optional[str]:
 class InferenceEngine:
     """One continuous-batching decode loop (one per serving replica).
 
-    Owns the model adapter, the slot table, the block pool and its
-    BlockManager, and a worker thread running admit → prefill chunk →
-    decode until stopped.  Completion is per request (batcher.Request
-    events).
+    Owns the model adapter, the slot table, the KV storage (block pool
+    and its BlockManager in paged mode, the contiguous cache in slot
+    mode), and a worker thread running admit → prefill → decode until
+    stopped.  Completion is per request (batcher.Request events).
     """
 
-    def __init__(self, adapter: TransformerAdapter,
+    def __init__(self, adapter,
                  batcher: Optional[DynamicBatcher] = None,
                  metrics: Optional[ServeMetrics] = None,
                  max_batch: Optional[int] = None,
@@ -478,7 +790,8 @@ class InferenceEngine:
                  kv_mode: Optional[str] = None,
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 prefix_cache: Optional[bool] = None):
+                 prefix_cache: Optional[bool] = None,
+                 spec_k: Optional[int] = None):
         self.adapter = adapter
         self.max_batch = max_batch if max_batch is not None else int(
             os.environ.get("HVD_SERVE_MAX_BATCH", "8"))
@@ -491,42 +804,96 @@ class InferenceEngine:
         self.replica_id = replica_id
         mode = (kv_mode or os.environ.get("HVD_SERVE_KV_MODE",
                                           "auto")).lower()
-        if mode == "slot":
-            raise ValueError("kv_mode='slot' is not ported yet; the port "
-                             "serves paged only")
-        if mode not in ("paged", "auto"):
+        paged_capable = all(
+            hasattr(adapter, m)
+            for m in ("init_paged_cache", "prefill_chunk", "decode_paged"))
+        if mode == "auto":
+            mode = "paged" if paged_capable else "slot"
+        if mode not in ("paged", "slot"):
             raise ValueError(f"kv_mode must be paged|slot|auto, got {mode}")
-        self.kv_mode = "paged"
-        self.attn_impl = adapter.attn_impl
-        self.kv_dtype = adapter.kv_dtype
-        self._mb = int(adapter.max_blocks_per_seq)
-        nb = (num_blocks if num_blocks is not None
-              else int(os.environ.get("HVD_SERVE_NUM_BLOCKS", "0")))
-        if nb <= 0:
-            # Default pool = the slot layout's footprint (max_batch ×
-            # max_len tokens): same budget, shared across sequences.
-            nb = self.max_batch * max(self._mb, 1)
-        pc = (prefix_cache if prefix_cache is not None
-              else os.environ.get("HVD_SERVE_PREFIX_CACHE", "1")
-              not in ("0", "false"))
-        bpb = int(adapter.paged_block_bytes())
-        self.blocks = BlockManager(nb, int(adapter.block_tokens),
-                                   prefix_cache=pc, bytes_per_block=bpb)
-        chunk = (prefill_chunk if prefill_chunk is not None
-                 else int(os.environ.get("HVD_SERVE_PREFILL_CHUNK", "64")))
-        # <= 0 disables chunking: whole prompts prefill in one iteration.
-        self._chunk_budget = chunk if chunk > 0 else None
-        self._cache = adapter.init_paged_cache(nb, self.max_batch)
-        self.pool_bytes = bpb * nb
+        if mode == "paged" and not paged_capable:
+            raise ValueError(
+                f"{type(adapter).__name__} has no paged interface "
+                f"(prefill_chunk/decode_paged); use kv_mode='slot'")
+        self.kv_mode = mode
         self.weight_bytes = adapter.weight_bytes()
-        self._slots: List[Optional[_Seq]] = [None] * self.max_batch
+        self.blocks: Optional[BlockManager] = None
+        if mode == "paged":
+            # How attention runs and how KV is stored, as the adapter
+            # reports them (an MLP has neither).
+            self.attn_impl = getattr(adapter, "attn_impl", "gather")
+            self.kv_dtype = getattr(adapter, "kv_dtype", "native")
+            self._mb = int(adapter.max_blocks_per_seq)
+            nb = (num_blocks if num_blocks is not None
+                  else int(os.environ.get("HVD_SERVE_NUM_BLOCKS", "0")))
+            if nb <= 0:
+                # Default pool = the slot layout's footprint (max_batch ×
+                # max_len tokens): same budget, shared across sequences.
+                nb = self.max_batch * max(self._mb, 1)
+            pc = (prefix_cache if prefix_cache is not None
+                  else os.environ.get("HVD_SERVE_PREFIX_CACHE", "1")
+                  not in ("0", "false"))
+            bpb_fn = getattr(adapter, "paged_block_bytes", None)
+            bpb = int(bpb_fn()) if bpb_fn is not None else None
+            self.blocks = BlockManager(nb, int(adapter.block_tokens),
+                                       prefix_cache=pc, bytes_per_block=bpb)
+            chunk = (prefill_chunk if prefill_chunk is not None
+                     else int(os.environ.get("HVD_SERVE_PREFILL_CHUNK",
+                                             "64")))
+            # <= 0 disables chunking: whole prompts prefill in one
+            # iteration.
+            self._chunk_budget = chunk if chunk > 0 else None
+            self._cache = adapter.init_paged_cache(nb, self.max_batch)
+            self.pool_bytes = (bpb or 0) * nb
+        else:
+            # Slot mode ignores both adapter knobs (dense attention over
+            # the compute-dtype slot cache): report what runs.
+            self.attn_impl = "dense"
+            self.kv_dtype = "native"
+            self._mb = 0
+            self._cache = adapter.init_cache(self.max_batch)
+            self.pool_bytes = 0
+        # The decode-algorithm layer: seeded sampling and n>1 forks need
+        # the logits / sampled adapter programs and the paged engine
+        # (fork tables are CoW block tables); speculative decoding also
+        # needs the draft + multi-token verify pair.  Spec is checked
+        # loudly here, sampling per request at admission (_fail_doomed).
+        self._sample_capable = (
+            mode == "paged"
+            and hasattr(adapter, "decode_paged_sampled")
+            and hasattr(adapter, "prefill_chunk_logits"))
+        sk = (spec_k if spec_k is not None
+              else int(os.environ.get("HVD_SERVE_SPEC_K", "0")))
+        if sk < 0:
+            raise ValueError(f"spec_k must be >= 0, got {sk}")
+        if sk > 0:
+            if mode != "paged":
+                raise ValueError(
+                    "speculative decoding requires kv_mode='paged' "
+                    "(the draft shares the paged pool)")
+            if not (hasattr(adapter, "verify_chunk")
+                    and hasattr(adapter, "draft_decode")
+                    and getattr(adapter, "spec_capable", False)):
+                raise ValueError(
+                    f"{type(adapter).__name__} has no usable draft for "
+                    f"speculative decoding (verify_chunk/draft_decode + "
+                    f"spec_capable — transformer adapters need "
+                    f"HVD_SERVE_DRAFT_LAYERS >= 1)")
+        self.spec_k = sk
+        # n>1 fork observability: forked sequences created (n-1 per
+        # family) and requests that forked at all.
+        self.seq_forks = 0
+        self.forked_requests = 0
+        self._slots: List[Optional[object]] = [None] * self.max_batch
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._admit_counter = 0
         self._step_anchor: Optional[float] = None
-        self.steps = 0           # decode steps (one adapter call each)
+        self.steps = 0           # decode steps (one target call each)
         self.prefill_steps = 0   # prefill chunk calls (one per iteration)
+        self.spec_steps = 0      # speculative iterations (one verify each)
+        self.draft_steps = 0     # draft_decode calls
 
     # -- introspection -------------------------------------------------------
 
@@ -539,12 +906,18 @@ class InferenceEngine:
         """Routing load: in-flight sequences + queued requests."""
         return self.active_count + self.batcher.depth()
 
-    def kv_stats(self) -> dict:
-        """Block-pool utilization / prefix-cache statistics, with the
-        attention impl, KV storage dtype and the pool/weight bytes."""
+    def kv_stats(self) -> Optional[dict]:
+        """Block-pool utilization / prefix-cache statistics (None in slot
+        mode), with the attention impl, KV storage dtype, the fork and
+        spec counters and the pool/weight bytes."""
+        if self.blocks is None:
+            return None
         stats = self.blocks.stats()
         stats["attn_impl"] = self.attn_impl
         stats["kv_dtype"] = self.kv_dtype
+        stats["seq_forks"] = self.seq_forks
+        stats["forked_requests"] = self.forked_requests
+        stats["spec_k"] = self.spec_k
         stats["pool_bytes"] = self.pool_bytes
         stats["weight_bytes"] = self.weight_bytes
         return stats
@@ -580,18 +953,30 @@ class InferenceEngine:
     def drain(self) -> List[Request]:
         """Stop the loop and return all in-flight requests WITHOUT
         completing them (dead-replica path: the scheduler resubmits them
-        elsewhere; greedy decoding reproduces the output exactly)."""
+        elsewhere; position-keyed decoding reproduces the output).  A
+        fork family is returned once, its samples cleared."""
         self.stop()
         now = time.monotonic()
         with self._lock:
             inflight = []
+            seen = set()
             for i, s in enumerate(self._slots):
                 if s is None:
                     continue
-                self.blocks.free_table(s.table)
+                if self.blocks is not None:
+                    self.blocks.free_table(s.table)
                 self._slots[i] = None
                 r = s.request
+                if id(r) in seen:
+                    continue  # another member of the same fork family
+                seen.add(id(r))
                 r.generated = []
+                if r.samples is not None:
+                    r.samples = [None] * r.n
+                group = getattr(s, "group", None)  # slot mode holds _Slot
+                if group is not None:
+                    group.completed = 0
+                    group.forked = False
                 r.requeues += 1
                 r.resubmitted_at = now
                 inflight.append(r)
@@ -604,23 +989,99 @@ class InferenceEngine:
             return [i for i, s in enumerate(self._slots) if s is None]
 
     @staticmethod
-    def _seq_finished(s: _Seq, token: int) -> bool:
-        r = s.request
+    def _finished(r: Request, token: int) -> bool:
+        """Slot-mode finish check on the request's own stream."""
         if r.eos_id is not None and token == r.eos_id:
             r.finish_reason = "stop"
             return True
-        if len(s.generated) >= r.max_new_tokens:
+        if len(r.generated) >= r.max_new_tokens:
             r.finish_reason = "length"
+            return True
+        return False
+
+    @staticmethod
+    def _seq_finished(s: _Seq, token: int) -> bool:
+        """Paged-mode finish check: a fork finishes on its OWN stream;
+        only an n == 1 request records its finish reason."""
+        r = s.request
+        solo = s.group is None
+        if r.eos_id is not None and token == r.eos_id:
+            if solo:
+                r.finish_reason = "stop"
+            return True
+        if len(s.generated) >= r.max_new_tokens:
+            if solo:
+                r.finish_reason = "length"
             return True
         return False
 
     def _retire_seq(self, i: int, s: _Seq) -> None:
         """Free one finished sequence's slot + block refs and complete its
-        request.  Caller holds ``self._lock``."""
+        request — an n>1 request completes when its LAST member retires
+        (each member's stream lands in ``request.samples[sample_index]``;
+        ``request.generated`` mirrors sample 0).  Caller holds
+        ``self._lock``."""
         self.blocks.free_table(s.table)
+        # Cleared so a family-wide path (preempt, expiry) walking
+        # ``group.seqs`` later can never free it a second time.
         s.table = []
         self._slots[i] = None
-        self._complete(s.request)
+        r = s.request
+        if s.group is None:
+            self._complete(r)
+            return
+        r.samples[s.sample_index] = list(s.generated)
+        s.group.completed += 1
+        if s.group.completed == r.n:
+            r.generated = list(r.samples[0])
+            self._complete(r)
+
+    def _fork_group(self, s: _Seq, logits: np.ndarray, now: float) -> None:
+        """The fork moment of an n>1 request (``engine.py:2203``): its
+        prompt K/V is in the pool — draw every member's first token from
+        the primary's final-position ``logits`` row (each with its own
+        (seed, sample) key) and activate the parked forks on the shared
+        prompt blocks (one reference each; the first divergent append
+        into the shared partial block forks a private copy through
+        ``BlockManager.ensure_writable``).  Caller holds ``self._lock``."""
+        r = s.request
+        group = s.group
+        P = len(r.prompt)
+        shared = self._blocks_for_tokens(P)
+        r.first_token_at = now
+        r.stage_add("prefill", now)
+        self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
+        # observe_ttft counted sample 0's first token; the other n-1
+        # members emitted theirs in the same instant.
+        self.metrics.count_tokens(r.n - 1)
+        self.seq_forks += r.n - 1
+        self.forked_requests += 1
+        group.forked = True
+        # Two passes: EVERY fork takes its block references before ANY
+        # member can retire — a primary finishing on its first token
+        # would otherwise free the shared prompt blocks while later forks
+        # are about to ref them (a ref on a free-listed block aliases it
+        # with the next allocation).
+        finished: List[_Seq] = []
+        for f in group.seqs:
+            if f is not s:
+                f.table = list(s.table[:shared])
+                for bid in f.table:
+                    self.blocks.ref(bid)
+                f.length = s.length
+                f.prompt_pos = P
+                f.parked = False
+            tok = (_sampling.sample_host(
+                logits, f.base_key, P, r.temperature, r.top_k, r.top_p)
+                if r.sampled else int(np.argmax(logits)))
+            f.generated.append(tok)
+            if self._seq_finished(f, tok):
+                finished.append(f)
+        for f in finished:
+            for slot, cur in enumerate(self._slots):
+                if cur is f:
+                    self._retire_seq(slot, f)
+                    break
 
     def _complete(self, r: Request) -> None:
         now = time.monotonic()
@@ -672,7 +1133,22 @@ class InferenceEngine:
             return self._fail(r, ValueError(
                 f"{r.request_id}: prompt+max_new_tokens {total} exceeds "
                 f"max_len {self.adapter.max_len}"), "error")
-        if self._request_cost_blocks(r) > self.blocks.capacity:
+        # Sampling / n>1 need the paged engine and the sampled adapter
+        # programs: fail loudly rather than serve a greedy single answer
+        # to a sampled n-best request.
+        if (r.sampled or r.n > 1) and not self._sample_capable:
+            return self._fail(r, ValueError(
+                f"{r.request_id}: sampling/n>1 needs a paged engine and "
+                f"an adapter with prefill_chunk_logits/"
+                f"decode_paged_sampled (kv_mode={self.kv_mode}, "
+                f"adapter {type(self.adapter).__name__})"), "error")
+        if r.n > self.max_batch:
+            return self._fail(r, ValueError(
+                f"{r.request_id}: n={r.n} exceeds the engine's "
+                f"max_batch {self.max_batch} decode slots"), "error")
+        # The admission cost formula itself (n>1 shape included): a
+        # mismatch with get_admission's hard_cap would requeue forever.
+        if self._mb and self._request_cost_blocks(r) > self.blocks.capacity:
             return self._fail(r, ValueError(
                 f"{r.request_id}: needs {self._request_cost_blocks(r)} KV "
                 f"blocks but the pool holds {self.blocks.capacity}"),
@@ -681,49 +1157,160 @@ class InferenceEngine:
 
     def _expire_inflight(self) -> int:
         """Fail in-flight sequences whose client deadline passed (or whose
-        client went away) and return their slots and blocks."""
+        client went away) and return their slots and blocks.  A fork
+        family expires as one unit: failed and counted once, every
+        member's blocks freed."""
         expired = 0
         now = time.monotonic()
         with self._lock:
+            failed = set()
             for i, s in enumerate(self._slots):
                 if s is None or not (s.request.expired(now)
                                      or s.request.cancelled):
                     continue
                 r = s.request
-                if r.expired(now):
-                    self._fail(r, DeadlineExceededError(
-                        f"{r.request_id} deadline expired mid-flight "
-                        f"({len(s.generated)} token(s) generated)"),
-                        "expired")
-                else:
-                    self._fail(r, RuntimeError(
-                        f"{r.request_id} client disconnected mid-flight"),
-                        r.cancel_reason or "client_gone")
-                self.blocks.free_table(s.table)
+                if id(r) not in failed:
+                    failed.add(id(r))
+                    # Slot-mode _Slot has no stream of its own; the
+                    # request's list is the authority there.
+                    gen = getattr(s, "generated", None)
+                    ntokens = len(gen if gen is not None else r.generated)
+                    if r.expired(now):
+                        self._fail(r, DeadlineExceededError(
+                            f"{r.request_id} deadline expired mid-flight "
+                            f"({ntokens} token(s) generated)"), "expired")
+                    else:
+                        self._fail(r, RuntimeError(
+                            f"{r.request_id} client disconnected "
+                            f"mid-flight"), r.cancel_reason or "client_gone")
+                table = getattr(s, "table", None)
+                if self.blocks is not None and table is not None:
+                    self.blocks.free_table(table)
                 self._slots[i] = None
                 expired += 1
         return expired
 
+    # -- slot-mode loop ------------------------------------------------------
+
+    def _admit(self, block_s: float) -> int:
+        free = self._free_slots()
+        if not free:
+            return 0
+        admitted = self.batcher.get_admission(len(free), block_s=block_s)
+        if not admitted:
+            return 0
+        self._observe_admission(admitted)
+        cursor = 0
+        for _, group in sorted(
+                bucket_requests(admitted, cap=self.adapter.max_len).items()):
+            # One prefill per shape bucket; requests that can never run
+            # fail loudly here.
+            runnable = [r for r in group if not self._fail_doomed(r)]
+            if not runnable:
+                continue
+            slots = free[cursor:cursor + len(runnable)]
+            cursor += len(runnable)
+            self._cache, first = self.adapter.prefill(
+                self._cache, [r.prompt for r in runnable], slots)
+            self.prefill_steps += 1
+            now = time.monotonic()
+            with self._lock:
+                for r, slot, tok in zip(runnable, slots, first):
+                    r.replica_id = self.replica_id
+                    r.first_token_at = now
+                    r.generated.append(int(tok))
+                    r.stage_add("prefill", now)
+                    self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
+                    if self._finished(r, int(tok)):
+                        self._complete(r)
+                    else:
+                        # Cache holds positions 0..P-1; the first decode
+                        # feeds the prefill's token at position P.
+                        self._slots[slot] = _Slot(r, len(r.prompt))
+        return cursor
+
+    def _decode_once(self) -> int:
+        with self._lock:
+            active = [(i, s) for i, s in enumerate(self._slots)
+                      if s is not None]
+        if not active:
+            self._step_anchor = None
+            return 0
+        tokens = np.zeros((self.max_batch,), np.int64)
+        positions = np.zeros((self.max_batch,), np.int64)
+        for i, s in active:
+            tokens[i] = s.request.generated[-1]
+            positions[i] = s.length  # next cache index = current length
+        t0 = time.monotonic()
+        self._cache, nxt = self.adapter.decode(self._cache, tokens,
+                                               positions)
+        now = time.monotonic()
+        dt_ms = (now - (self._step_anchor if self._step_anchor is not None
+                        else t0)) * 1e3
+        self._step_anchor = now
+        with self._lock:
+            for i, s in active:
+                if self._slots[i] is not s:
+                    continue  # drained concurrently
+                tok = int(nxt[i])
+                s.request.generated.append(tok)
+                s.length += 1
+                if self._finished(s.request, tok) \
+                        or s.length >= self.adapter.max_len:
+                    self._complete(s.request)
+                    self._slots[i] = None
+        self.steps += 1
+        self.metrics.observe_decode_step(dt_ms, len(active), len(active))
+        return len(active)
+
+    # -- paged-mode loop -----------------------------------------------------
+
     def _blocks_for_tokens(self, tokens: int) -> int:
+        if not self._mb:
+            return 0
         return self.blocks.blocks_for(tokens * self.adapter.kv_token_cost)
 
     def _request_cost_blocks(self, r: Request) -> int:
-        """Lifetime KV-block footprint of one request: prompt + max_new
-        positions (the admission cost)."""
-        return self._blocks_for_tokens(len(r.prompt) + r.max_new_tokens)
+        """Lifetime KV-block footprint of one request — the admission
+        cost.  n == 1: prompt + max_new positions.  n > 1: the FULL
+        prompt blocks are shared by every fork (counted once) and each of
+        the n forks privately owns its tail — the partial last prompt
+        block (CoW-forked on first divergent append) plus its decode
+        region."""
+        base = self._blocks_for_tokens(len(r.prompt) + r.max_new_tokens)
+        if r.n <= 1 or not self._mb:
+            return base
+        shared_full = (len(r.prompt) * self.adapter.kv_token_cost
+                       ) // self.blocks.block_tokens
+        return base + (r.n - 1) * (base - shared_full)
 
-    # -- the loop ------------------------------------------------------------
+    def _reserved_blocks(self) -> int:
+        """Outstanding fork-tail reservations across the live fork
+        families (each counted once)."""
+        seen, total = set(), 0
+        with self._lock:
+            for s in self._slots:
+                g = getattr(s, "group", None) if s is not None else None
+                if g is not None and id(g) not in seen:
+                    seen.add(id(g))
+                    total += g.reserve
+        return total
 
     def _admit_paged(self, block_s: float) -> int:
         free = self._free_slots()
         if not free:
             return 0
+        use_blocks = self._mb > 0
         # Admission reserves each sequence's whole lifetime (prompt +
-        # max_new_tokens), so decode-time growth cannot exhaust the pool
-        # and preemption stays a defensive path.
+        # max_new_tokens; n>1 fork tails reserved, not allocated), so
+        # decode-time growth cannot exhaust the pool and preemption
+        # stays a defensive path.
+        budget = (max(self.blocks.available() - self._reserved_blocks(), 0)
+                  if use_blocks else None)
         admitted = self.batcher.get_admission(
-            len(free), block_s=block_s, budget=self.blocks.available(),
-            cost=self._request_cost_blocks, hard_cap=self.blocks.capacity)
+            len(free), block_s=block_s, budget=budget,
+            cost=self._request_cost_blocks if use_blocks else None,
+            hard_cap=self.blocks.capacity if use_blocks else None)
         if not admitted:
             return 0
         self._observe_admission(admitted)
@@ -732,29 +1319,65 @@ class InferenceEngine:
         for idx, r in enumerate(admitted):
             if self._fail_doomed(r):
                 continue
+            if r.n > len(free) - cursor:
+                # An n>1 request takes its whole family's decode slots at
+                # admission; not enough left this round: put it and
+                # everything after it back in order.
+                self.batcher.requeue_front(admitted[idx:])
+                break
             cached_ids: List[int] = []
             cached_tokens = 0
             hashes: List[int] = []
-            if self.blocks.prefix_cache_enabled:
-                hashes = chain_hashes(r.prompt, bt)
-                cached_ids, cached_tokens = \
-                    self.blocks.lookup_prefix(r.prompt, hashes=hashes)
-            need = self._request_cost_blocks(r) - len(cached_ids)
-            try:
-                fresh = self.blocks.allocate(need) if need > 0 else []
-            except NoFreeBlocksError:
-                # The budget counted retained blocks an earlier request in
-                # THIS batch just claimed: requeue this and the rest.
-                self.blocks.free_table(cached_ids)
-                self.batcher.requeue_front(admitted[idx:])
-                break
+            fresh: List[int] = []
+            if use_blocks:
+                if self.blocks.prefix_cache_enabled:
+                    hashes = chain_hashes(r.prompt, bt)
+                    cached_ids, cached_tokens = \
+                        self.blocks.lookup_prefix(r.prompt, hashes=hashes)
+                need = self._blocks_for_tokens(
+                    len(r.prompt) + r.max_new_tokens) - len(cached_ids)
+                try:
+                    fresh = self.blocks.allocate(need) if need > 0 else []
+                except NoFreeBlocksError:
+                    # The budget counted retained blocks an earlier
+                    # request in THIS batch just claimed: requeue this
+                    # and the rest.
+                    self.blocks.free_table(cached_ids)
+                    self.batcher.requeue_front(admitted[idx:])
+                    break
             seq = _Seq(r, cached_tokens, cached_ids + fresh, hashes,
                        self._admit_counter)
             self._admit_counter += 1
+            if r.sampled:
+                seq.base_key = _sampling.seq_key(r.seed, 0)
+            group: Optional[_ForkGroup] = None
+            if r.n > 1:
+                # The fork family: the primary keeps its own token list
+                # (request.generated becomes the sample-0 mirror at
+                # completion); n-1 parked members take their slots now
+                # and activate at the fork moment (_fork_group).
+                group = _ForkGroup(r)
+                group.reserve = group.reserve_cap = (
+                    self._request_cost_blocks(r) - self._blocks_for_tokens(
+                        len(r.prompt) + r.max_new_tokens))
+                seq.group = group
+                seq.generated = []
+                group.seqs.append(seq)
             r.replica_id = self.replica_id
             with self._lock:
                 self._slots[free[cursor]] = seq
                 cursor += 1
+                for i in range(1, r.n):
+                    f = _Seq(r, 0, [], [], seq.admit_seq)
+                    f.group = group
+                    f.sample_index = i
+                    f.generated = []
+                    f.parked = True
+                    if r.sampled:
+                        f.base_key = _sampling.seq_key(r.seed, i)
+                    group.seqs.append(f)
+                    self._slots[free[cursor]] = f
+                    cursor += 1
         return cursor
 
     def _prefill_step(self) -> int:
@@ -763,7 +1386,8 @@ class InferenceEngine:
         call.  Returns prompt tokens processed."""
         with self._lock:
             pending = [(i, s) for i, s in enumerate(self._slots)
-                       if s is not None and not s.decoding]
+                       if s is not None and not s.parked
+                       and not s.decoding]
         if not pending:
             return 0
         pending.sort(key=lambda t: t[1].admit_seq)
@@ -780,8 +1404,18 @@ class InferenceEngine:
                   for _, s, take in sel]
         starts = [s.prompt_pos for _, s, _ in sel]
         tables = [list(s.table) for _, s, _ in sel]
-        self._cache, first = self.adapter.prefill_chunk(
-            self._cache, chunks, starts, tables)
+        # A batch with any sampled or n>1 row runs the logits variant:
+        # first tokens are drawn on the host (an n-way fork draws n
+        # tokens from ONE logit row).  Greedy-only batches keep the
+        # token-only step, bit for bit.
+        use_logits = self._sample_capable and any(
+            s.request.sampled or s.request.n > 1 for _, s, _ in sel)
+        if use_logits:
+            self._cache, first = self.adapter.prefill_chunk_logits(
+                self._cache, chunks, starts, tables)
+        else:
+            self._cache, first = self.adapter.prefill_chunk(
+                self._cache, chunks, starts, tables)
         self.prefill_steps += 1
         now = time.monotonic()
         total = 0
@@ -793,7 +1427,7 @@ class InferenceEngine:
                 s.prompt_pos += take
                 s.length += take
                 total += take
-                if s.hashes:
+                if self._mb and s.hashes:
                     # Publish the blocks this chunk completed for prefix
                     # reuse (watermarked: never re-walk from 0).
                     for b in range(s.published, s.prompt_pos // bt):
@@ -802,6 +1436,16 @@ class InferenceEngine:
                 if not s.decoding:
                     continue
                 r = s.request
+                if r.n > 1:
+                    # Fork moment: draw every member's first token from
+                    # this row's logits, activate the parked forks.
+                    self._fork_group(s, tok, now)
+                    continue
+                if use_logits:
+                    tok = (_sampling.sample_host(
+                        tok, s.base_key, len(r.prompt), r.temperature,
+                        r.top_k, r.top_p) if r.sampled
+                        else int(np.argmax(tok)))
                 tok = int(tok)
                 r.first_token_at = now
                 s.generated.append(tok)
@@ -814,54 +1458,80 @@ class InferenceEngine:
     def _preempt(self, slot: int, s: _Seq) -> None:
         """Victim path for pool exhaustion: release the sequence's blocks
         and requeue its request at the FRONT of this engine's queue — it
-        restarts from the prompt (greedy decoding reproduces the answer
-        exactly; its prompt blocks likely still sit in the prefix
-        cache)."""
+        restarts from the prompt (position-keyed decoding, greedy or
+        seeded, reproduces the answer; its prompt blocks likely still sit
+        in the prefix cache).  A fork family is preempted as ONE unit."""
+        members = s.group.seqs if s.group is not None else [s]
         with self._lock:
-            if self._slots[slot] is s:
-                self._slots[slot] = None
-        self.blocks.free_table(s.table)
-        s.table = []
-        s.request.generated = []
-        s.request.requeues += 1
-        s.request.resubmitted_at = time.monotonic()
-        self.metrics.count_request("preempted", tenant=s.request.tenant)
-        self.batcher.requeue_front([s.request])
+            if s.group is None:
+                if self._slots[slot] is s:
+                    self._slots[slot] = None
+            else:
+                for i, cur in enumerate(self._slots):
+                    if cur in members:
+                        self._slots[i] = None
+        for m in members:
+            self.blocks.free_table(m.table)
+            m.table = []
+        r = s.request
+        if s.group is not None:
+            s.group.completed = 0
+            s.group.forked = False
+            r.samples = [None] * r.n
+        r.generated = []
+        r.requeues += 1
+        r.resubmitted_at = time.monotonic()
+        self.metrics.count_request("preempted", tenant=r.tenant)
+        self.batcher.requeue_front([r])
         get_logger().warning(
             "%s: preempted %s (KV pool exhausted); requeued",
-            self.replica_id, s.request.request_id)
+            self.replica_id, r.request_id)
 
-    def _ensure_write_blocks(self, active):
-        """Guarantee each decoding sequence owns a writable block for
-        cache position ``length`` (growing its table, CoW-forking a shared
-        block); preempts youngest-first on pool exhaustion.  Returns the
-        sequences that still hold a slot."""
+    def _ensure_write_blocks(self, active, extra=None):
+        """Guarantee each decoding sequence owns writable blocks for cache
+        positions ``length .. length + extra[i]`` (growing its table,
+        CoW-forking shared blocks; ``extra`` is the speculative draft
+        span, missing means just ``length``); preempts youngest-first on
+        pool exhaustion.  Returns the sequences that still hold a slot."""
         ok = []
         bt = self.blocks.block_tokens
         for i, s in sorted(active, key=lambda t: t[1].admit_seq):
+            span = extra.get(i, 0) if extra else 0
             placed = False
             while not placed:
                 with self._lock:
                     if self._slots[i] is not s:
                         break  # preempted as an earlier sequence's victim
+                # Both arms can exhaust the pool (a CoW fork allocates
+                # too): either way the youngest sequence is preempted and
+                # the arm retried.
                 try:
-                    bidx = s.length // bt
-                    if bidx < len(s.table):
-                        old = s.table[bidx]
-                        bid, copied = self.blocks.ensure_writable(old)
-                        if copied:
-                            # Release the old reference only AFTER the
-                            # device copy succeeds.
-                            try:
-                                self._cache = self.adapter.copy_block(
-                                    self._cache, old, bid)
-                            except BaseException:
-                                self.blocks.free(bid)
-                                raise
-                            s.table[bidx] = bid
-                            self.blocks.free(old)
-                    else:
-                        s.table.extend(self.blocks.allocate(1))
+                    for bidx in range(s.length // bt,
+                                      (s.length + span) // bt + 1):
+                        allocated = False
+                        if bidx < len(s.table):
+                            old = s.table[bidx]
+                            bid, copied = self.blocks.ensure_writable(old)
+                            if copied:
+                                # Release the old reference only AFTER
+                                # the device copy succeeds.
+                                try:
+                                    self._cache = self.adapter.copy_block(
+                                        self._cache, old, bid)
+                                except BaseException:
+                                    self.blocks.free(bid)
+                                    raise
+                                s.table[bidx] = bid
+                                self.blocks.free(old)
+                                allocated = True
+                        else:
+                            s.table.extend(self.blocks.allocate(1))
+                            allocated = True
+                        # A fork-family allocation consumes one unit of
+                        # the tails admission reserved.
+                        if allocated and s.group is not None \
+                                and s.group.reserve > 0:
+                            s.group.reserve -= 1
                     placed = True
                     ok.append((i, s))
                 except NoFreeBlocksError:
@@ -871,32 +1541,59 @@ class InferenceEngine:
                     victim_slot, victim = max(
                         live, key=lambda t: t[1].admit_seq)
                     self._preempt(victim_slot, victim)
-                    if victim is s:
+                    if victim is s or (s.group is not None
+                                       and victim in s.group.seqs):
                         placed = True  # s itself evicted; skip this step
         return ok
+
+    def _decode_rows(self, rows):
+        """Fixed ``max_batch``-width step operands: active rows carry
+        their last token, next cache index and table; inactive rows
+        carry token 0, position 0 and ALL-HOLE tables (their writes
+        drop, their reads are 0)."""
+        tokens = np.zeros((self.max_batch,), np.int64)
+        positions = np.zeros((self.max_batch,), np.int64)
+        tables = np.full((self.max_batch, self._mb), self.blocks.capacity,
+                         np.int64)
+        for i, s in rows:
+            tokens[i] = s.generated[-1]
+            positions[i] = s.length  # next cache index = length
+            tables[i, :len(s.table)] = s.table
+        return tokens, positions, tables
 
     def _decode_once_paged(self) -> int:
         with self._lock:
             active = [(i, s) for i, s in enumerate(self._slots)
                       if s is not None and s.decoding]
-        if active:
+        if active and self._mb:
             active = self._ensure_write_blocks(active)
         if not active:
             self._step_anchor = None
             return 0
-        nb = self.blocks.capacity
-        # Fixed max_batch width: inactive rows carry token 0, position 0
-        # and ALL-HOLE tables (their writes drop, their reads are 0).
-        tokens = np.zeros((self.max_batch,), np.int64)
-        positions = np.zeros((self.max_batch,), np.int64)
-        tables = np.full((self.max_batch, self._mb), nb, np.int64)
-        for i, s in active:
-            tokens[i] = s.generated[-1]
-            positions[i] = s.length  # next cache index = length
-            tables[i, :len(s.table)] = s.table
+        tokens, positions, tables = self._decode_rows(active)
         t0 = time.monotonic()
-        self._cache, nxt = self.adapter.decode_paged(
-            self._cache, tokens, positions, tables)
+        if any(s.request.sampled for _, s in active):
+            # Any sampled row switches the whole step to the sampled
+            # program (greedy rows ride along at temperature 0 and get
+            # the same argmax); each row folds only its own key.
+            keys = _sampling.base_keys_array([None] * self.max_batch,
+                                             self.max_batch)
+            temps = np.zeros((self.max_batch,), np.float32)
+            top_ks = np.zeros((self.max_batch,), np.int64)
+            top_ps = np.ones((self.max_batch,), np.float32)
+            for i, s in active:
+                r = s.request
+                if r.sampled:
+                    keys[i] = s.base_key
+                    temps[i] = r.temperature
+                    top_ks[i] = r.top_k or 0
+                    top_ps[i] = r.top_p
+            self._cache, nxt = self.adapter.decode_paged_sampled(
+                self._cache, tokens, positions, tables, keys, temps,
+                top_ks, top_ps)
+        else:
+            self._cache, nxt = self.adapter.decode_paged(
+                self._cache, tokens, positions, tables)
         now = time.monotonic()
         # Inter-decode-step latency: prefill chunks between two decode
         # steps land in this statistic by design.
@@ -917,24 +1614,191 @@ class InferenceEngine:
         self.metrics.observe_decode_step(dt_ms, len(active), len(active))
         return len(active)
 
+    # -- speculative decoding (paged mode, spec_k > 0) ------------------------
+
+    def _spec_once(self) -> int:
+        """One speculative iteration (``engine.py:3855``; Leviathan et
+        al. 2023): the draft proposes up to k greedy tokens per decoding
+        sequence (k batched draft steps sharing the target's pool), then
+        the target verifies all k+1 positions in ONE chunk step
+        (``verify_chunk``).  Greedy requests accept while the draft
+        matches the target's argmax and emit the target's token at the
+        first mismatch — the tokens of greedy decoding; sampled requests
+        accept draft d with probability ``p[d]`` and resample the
+        residual, so the marginal is the filtered target distribution.
+        K/V past a rejected draft sits at positions >= the rolled-back
+        length (masked by position, then overwritten); table entries
+        extended for drafting are freed, so a rejection leaks no block
+        reference."""
+        with self._lock:
+            active = [(i, s) for i, s in enumerate(self._slots)
+                      if s is not None and s.decoding]
+        if not active:
+            self._step_anchor = None
+            return 0
+        # Per-row draft budget: the step always emits >= 1 non-draft
+        # token (correction or bonus), so drafting is capped at
+        # max_new-1 remaining and at the last cache position.
+        ks: Dict[int, int] = {}
+        for i, s in active:
+            ks[i] = max(min(self.spec_k,
+                            s.request.max_new_tokens - len(s.generated) - 1,
+                            self.adapter.max_len - 1 - s.length), 0)
+        pre_lens: Dict[int, int] = {}
+        if self._mb:
+            pre_lens = {i: len(s.table) for i, s in active}
+            active = self._ensure_write_blocks(active, extra=ks)
+            if not active:
+                self._step_anchor = None
+                return 0
+        t0 = time.monotonic()
+        drafts: Dict[int, List[int]] = {i: [] for i, _ in active}
+        cur = {i: s.generated[-1] for i, s in active}
+        pos = {i: s.length for i, s in active}
+        for j in range(max(ks[i] for i, _ in active)):
+            rows = [(i, s) for i, s in active if ks[i] > j]
+            tokens, positions, tables = self._decode_rows(rows)
+            for i, _ in rows:
+                tokens[i], positions[i] = cur[i], pos[i]
+            self._cache, proposed = self.adapter.draft_decode(
+                self._cache, tokens, positions, tables)
+            self.draft_steps += 1
+            for i, _ in rows:
+                d = int(proposed[i])
+                drafts[i].append(d)
+                cur[i] = d
+                pos[i] += 1
+        chunks = [[s.generated[-1]] + drafts[i] for i, s in active]
+        starts = [s.length for _, s in active]
+        tables_l = [list(s.table) for _, s in active]
+        self._cache, logits = self.adapter.verify_chunk(
+            self._cache, chunks, starts, tables_l)
+        now = time.monotonic()
+        dt_ms = (now - (self._step_anchor if self._step_anchor is not None
+                        else t0)) * 1e3
+        self._step_anchor = now
+        drafted = accepted = rejected = emitted_total = 0
+        # Acceptance outside the engine lock (host draws and full-vocab
+        # filtered_probs sorts); only this loop thread mutates sequence
+        # state, and the application below re-checks slot ownership.
+        plan: List[Tuple[int, _Seq, List[int], int]] = []
+        for row, (i, s) in enumerate(active):
+            r = s.request
+            k, lrow, ell = ks[i], logits[row], s.length
+            drafted += k
+            emit: List[int] = []
+            m = 0
+            rejected_here = False
+            for j in range(1, k + 1):
+                pl, d = lrow[j - 1], drafts[i][j - 1]
+                if not r.sampled:
+                    tgt = int(np.argmax(pl))
+                    if d == tgt:
+                        emit.append(d)
+                        m += 1
+                        continue
+                    emit.append(tgt)
+                    rejected_here = True
+                    break
+                p = _sampling.filtered_probs(pl, r.temperature, r.top_k,
+                                             r.top_p)
+                if _sampling.accept_draw(s.base_key, ell + j) < p[d]:
+                    emit.append(d)
+                    m += 1
+                    continue
+                emit.append(_sampling.residual_sample(p, d, s.base_key,
+                                                      ell + j))
+                rejected_here = True
+                break
+            if not rejected_here:
+                # Every draft accepted: the bonus token from the target's
+                # last-position logits, keyed as plain decoding keys
+                # that position.
+                pl = lrow[k]
+                emit.append(int(np.argmax(pl)) if not r.sampled
+                            else _sampling.sample_host(
+                                pl, s.base_key, ell + k + 1, r.temperature,
+                                r.top_k, r.top_p))
+            accepted += m
+            rejected += k - m
+            plan.append((i, s, emit, m))
+        with self._lock:
+            staged = set()
+            for i, s, emit, m in plan:
+                if self._slots[i] is not s:
+                    continue  # drained/preempted concurrently
+                r = s.request
+                ell = s.length
+                if id(r) not in staged:
+                    staged.add(id(r))
+                    r.stage_add("spec", now)
+                finished = False
+                for tok in emit:
+                    s.generated.append(tok)
+                    emitted_total += 1
+                    if self._seq_finished(s, tok):
+                        finished = True
+                        break
+                if finished:
+                    self._retire_seq(i, s)
+                    continue
+                # K/V is valid through position ell+m (the fed token and
+                # the accepted drafts); the correction/bonus token is
+                # pending exactly like a plain decode step's output.
+                s.length = ell + m + 1
+                if s.length >= self.adapter.max_len:
+                    self._retire_seq(i, s)
+                elif self._mb:
+                    # Rollback: table entries extended for drafting beyond
+                    # what the accepted prefix needs return to the pool.
+                    keep = max(pre_lens.get(i, len(s.table)),
+                               self._blocks_for_tokens(s.length))
+                    if len(s.table) > keep:
+                        freed = len(s.table) - keep
+                        self.blocks.free_table(s.table[keep:])
+                        del s.table[keep:]
+                        # Refund the fork-tail reservation (capped at its
+                        # admission-time value).
+                        if s.group is not None:
+                            s.group.reserve = min(
+                                s.group.reserve + freed,
+                                s.group.reserve_cap)
+        self.steps += 1
+        self.spec_steps += 1
+        self.metrics.observe_decode_step(dt_ms, len(active), emitted_total)
+        self.metrics.observe_spec(drafted, accepted, rejected)
+        return len(active)
+
+    # -- the loop ------------------------------------------------------------
+
     def _recover(self, e: BaseException) -> None:
         """Poisoned-batch recovery: fail the in-flight requests NOW with
-        the real error and keep serving.  Only the failed iteration's
-        block references are freed; the pool and the prefix registry
-        survive (shared blocks are never written, so a failed step cannot
-        have touched them)."""
+        the real error and keep serving.  Paged mode frees only the
+        failed iteration's block references (the pool and the prefix
+        registry survive: shared blocks are never written, so a failed
+        step cannot have touched them); slot mode re-initialises its
+        cache (its rows are suspect and not individually reclaimable)."""
         get_logger().exception(
             "%s: engine step failed: %s", self.replica_id, e)
         with self._lock:
+            failed = set()
             for i, s in enumerate(self._slots):
-                if s is not None:
+                if s is None:
+                    continue
+                if id(s.request) not in failed:
+                    # One fail/count per request, fork families included.
+                    failed.add(id(s.request))
                     self._fail(s.request, e, "error")
+                if self.blocks is not None:
                     self.blocks.free_table(s.table)
-                    self._slots[i] = None
+                self._slots[i] = None
+        if self.kv_mode == "slot":
+            self._cache = self.adapter.init_cache(self.max_batch)
         self._step_anchor = None
 
     def _run(self) -> None:
         idle_block_s = float(os.environ.get("HVD_SERVE_IDLE_POLL_S", "0.05"))
+        paged = self.kv_mode == "paged"
         while not self._stop.is_set():
             try:
                 self._expire_inflight()
@@ -942,11 +1806,17 @@ class InferenceEngine:
                 # Iteration-level scheduling: admission happens BETWEEN
                 # decode steps — non-blocking while sequences are active,
                 # blocking (bounded) when idle.
-                self._admit_paged(0.0 if busy else idle_block_s)
-                pre = self._prefill_step()
-                dec = self._decode_once_paged()
-                if pre or dec:
-                    self.metrics.observe_iteration(pre, dec)
+                block = 0.0 if busy else idle_block_s
+                if paged:
+                    self._admit_paged(block)
+                    pre = self._prefill_step()
+                    dec = (self._spec_once() if self.spec_k > 0
+                           else self._decode_once_paged())
+                    if pre or dec:
+                        self.metrics.observe_iteration(pre, dec)
+                else:
+                    self._admit(block)
+                    self._decode_once()
             except Exception as e:
                 # One poisoned batch must not take the replica down.
                 self._recover(e)
@@ -954,11 +1824,19 @@ class InferenceEngine:
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 16,
                  eos_id: Optional[int] = None,
                  timeout_s: float = 300.0,
+                 temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 top_p: float = 1.0,
+                 n: int = 1,
+                 seed: Optional[int] = None,
                  tenant: str = "default") -> List[int]:
-        """Submit one greedy request through the running loop and wait."""
+        """Submit one request through the running loop and wait (n > 1:
+        the returned list is sample 0; the full set is on the request's
+        ``samples`` — use a hand-built Request for that)."""
         if self._thread is None:
             self.start()
         r = Request(prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
-                    tenant=tenant)
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    n=n, seed=seed, tenant=tenant)
         self.batcher.submit(r)
         return r.result(timeout=timeout_s)

@@ -4,9 +4,9 @@ Port of ``horovod_tpu/serve/metrics.py`` reduced to the families the
 port's serving path feeds: TTFT and token-step histograms, the
 per-stage and per-tier request latency, token / decode-step / request
 outcome counters (per tenant too), batch occupancy, queue depth, the
-prefill/decode token split, and the paged-KV gauges (blocks, CoW
-copies, prefix-cache hit rate, bytes per token, attention impl and KV
-dtype).  The families keep the JAX package's names and labels, so one
+prefill/decode token split, the speculative-decoding counters, and the
+paged-KV gauges (blocks, CoW copies, n>1 fork counters, prefix-cache
+hit rate, bytes per token, attention impl and KV dtype).  The families keep the JAX package's names and labels, so one
 dashboard reads both.  The timeline bridge (``set_timeline``,
 ``maybe_emit_timeline``) comes with the port of ``timeline.py``.
 
@@ -82,6 +82,14 @@ class ServeMetrics:
         self.prefill_tokens_total = 0
         self.decode_tokens_total = 0
         self.iterations_total = 0
+        # Speculative decoding: draft/verify token accounting —
+        # acceptance_rate = accepted / drafted, and decode_steps_total
+        # counts TARGET-model invocations (one per verify step), so
+        # target calls per emitted token read straight off the snapshot.
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_rejected_total = 0
+        self.spec_steps_total = 0
         # Request outcomes: ok / shed (queue full) / expired (deadline) /
         # requeued (drained off a dead replica, re-routed) / preempted
         # (evicted for KV blocks, re-admitted locally) / error.
@@ -127,6 +135,21 @@ class ServeMetrics:
             self.prefill_tokens_total += prefill_tokens
             self.decode_tokens_total += decode_tokens
             self.iterations_total += 1
+
+    def count_tokens(self, n: int) -> None:
+        """Tokens emitted outside the TTFT/decode-step observers (the
+        n-1 extra first tokens an n>1 fork moment draws)."""
+        with self._lock:
+            self.tokens_total += n
+
+    def observe_spec(self, drafted: int, accepted: int,
+                     rejected: int) -> None:
+        """One speculative step's draft accounting (engine._spec_once)."""
+        with self._lock:
+            self.spec_drafted_total += drafted
+            self.spec_accepted_total += accepted
+            self.spec_rejected_total += rejected
+            self.spec_steps_total += 1
 
     def count_request(self, outcome: str,
                       tenant: Optional[str] = None) -> None:
@@ -183,7 +206,8 @@ class ServeMetrics:
             self._queue_depth_fns[replica_id] = fn
 
     def register_kv_stats(self, replica_id: str, fn) -> None:
-        """``fn`` returns the replica engine's ``kv_stats()`` dict."""
+        """``fn`` returns the replica engine's ``kv_stats()`` dict (None
+        in slot mode)."""
         with self._lock:
             self._kv_stats_fns[replica_id] = fn
 
@@ -247,6 +271,18 @@ class ServeMetrics:
                     "decode_tokens": self.decode_tokens_total,
                     "iterations": self.iterations_total,
                 },
+                "spec": {
+                    "drafted": self.spec_drafted_total,
+                    "accepted": self.spec_accepted_total,
+                    "rejected": self.spec_rejected_total,
+                    "steps": self.spec_steps_total,
+                    "acceptance_rate": round(
+                        self.spec_accepted_total
+                        / self.spec_drafted_total, 4)
+                    if self.spec_drafted_total else 0.0,
+                },
+                "seq_forks": sum(s.get("seq_forks", 0)
+                                 for s in kv.values()),
                 "kv_blocks": kv,
             }
 
@@ -351,6 +387,26 @@ class ServeMetrics:
                         f'state="{state}"}} {s.get(state, 0)}')
             gauge_per_replica("hvd_serve_kv_cow_copies_total", "counter",
                               lambda s: s.get("cow", 0))
+            # n>1 parallel sampling: sequences forked off a shared prompt
+            # through CoW block tables, and the requests that forked.
+            gauge_per_replica("hvd_serve_cow_forks_total", "counter",
+                              lambda s: s.get("seq_forks", 0))
+            gauge_per_replica("hvd_serve_forked_requests_total", "counter",
+                              lambda s: s.get("forked_requests", 0))
+            lines.append("# TYPE hvd_serve_spec_tokens_total counter")
+            for result, n in (("drafted", self.spec_drafted_total),
+                              ("accepted", self.spec_accepted_total),
+                              ("rejected", self.spec_rejected_total)):
+                lines.append(
+                    f'hvd_serve_spec_tokens_total{{result="{result}"}} '
+                    f'{n}')
+            lines.append("# TYPE hvd_serve_spec_steps_total counter")
+            lines.append(
+                f"hvd_serve_spec_steps_total {self.spec_steps_total}")
+            lines.append("# TYPE hvd_serve_spec_acceptance_rate gauge")
+            rate = (self.spec_accepted_total / self.spec_drafted_total
+                    if self.spec_drafted_total else 0.0)
+            lines.append(f"hvd_serve_spec_acceptance_rate {rate:g}")
             gauge_per_replica("hvd_serve_prefix_cache_hit_rate", "gauge",
                               lambda s: f'{s.get("prefix_hit_rate", 0.0):g}')
             gauge_per_replica(

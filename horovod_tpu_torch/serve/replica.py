@@ -7,12 +7,11 @@ pool; requests route to the least-loaded healthy replica (load =
 in-flight sequences + queued requests).  ``mark_dead`` removes a replica
 from routing and requeues its queued and in-flight work at the front of
 the survivors' queues (greedy decoding makes the eventual answer
-identical); ``mark_alive`` re-admits it.
+identical, and seeded sampling keys every draw by position);
+``mark_alive`` re-admits it.  After ``hvd.init()`` the replicas are the
+world's ``partition_process_sets``; without it, an explicit count.
 
-Not ported yet: the process-set branch of ``build_replicas`` (it needs
-the port of ``core.py``; the port always takes the no-runtime branch
-with an explicit replica count), the preemption watcher, and the
-faultline/tracing hooks.
+Not ported yet: the preemption watcher and the faultline/tracing hooks.
 """
 
 from __future__ import annotations
@@ -34,8 +33,8 @@ class NoHealthyReplicaError(Exception):
 
 
 class Replica:
-    """One serving replica: an engine and its batcher (``process_set`` is
-    None until process sets are ported)."""
+    """One serving replica: a process set (None without a runtime), an
+    engine, and its batcher."""
 
     def __init__(self, replica_id: str, process_set,
                  engine: InferenceEngine):
@@ -46,7 +45,11 @@ class Replica:
 
     @property
     def ranks(self) -> List[int]:
-        return []
+        if self.process_set is None:
+            return []
+        if self.process_set.ranks is None:
+            return list(range(self.process_set.size() or 0))
+        return list(self.process_set.ranks)
 
     def load(self) -> int:
         return self.engine.load()
@@ -60,10 +63,14 @@ class Replica:
                "attn_impl": self.engine.attn_impl,
                "kv_dtype": self.engine.kv_dtype}
         kv = self.engine.kv_stats()
-        out["kv_blocks"] = {k: kv[k] for k in
-                            ("total", "used", "free", "retained",
-                             "bytes_per_block", "pool_bytes",
-                             "weight_bytes")}
+        if kv is not None:
+            # The fork counters and spec config ride healthz next to the
+            # block stats (an MLP's pool reports no bytes per block).
+            out["kv_blocks"] = {k: kv[k] for k in
+                                ("total", "used", "free", "retained",
+                                 "bytes_per_block", "pool_bytes",
+                                 "weight_bytes", "seq_forks",
+                                 "forked_requests", "spec_k") if k in kv}
         return out
 
 
@@ -199,21 +206,35 @@ def build_replicas(adapter_factory: Callable[[], object],
                    max_batch: Optional[int] = None,
                    metrics: Optional[ServeMetrics] = None,
                    **engine_kwargs) -> ReplicaScheduler:
-    """Stand up ``num_replicas`` engines (``HVD_SERVE_REPLICAS``, default
-    1), calling ``adapter_factory`` once per replica — each replica owns
-    its adapter and KV block pool.  ``engine_kwargs`` pass through to each
-    ``InferenceEngine`` (num_blocks / prefill_chunk / prefix_cache).
+    """Partition the initialized world into ``num_replicas`` process sets
+    and stand up one engine per set, calling ``adapter_factory`` once per
+    replica — each replica owns its adapter and KV block pool.
+    ``engine_kwargs`` pass through to each ``InferenceEngine`` (kv_mode /
+    num_blocks / prefill_chunk / prefix_cache / spec_k).
 
-    This is the JAX package's no-runtime branch: replicas are not mapped
-    onto process sets until ``core.py`` is ported."""
-    n = num_replicas or int(os.environ.get("HVD_SERVE_REPLICAS", "1"))
+    After ``hvd.init()`` the count defaults to ``HVD_SERVE_REPLICAS`` or
+    ``max(num_slots() // 2, 1)`` and the sets come from
+    ``partition_process_sets``, whose registration is collective: every
+    rank calls this in the same order.  With no runtime (pure local
+    serving) the count defaults to ``HVD_SERVE_REPLICAS`` or 1 and no
+    process set is made."""
+    from .. import core as _core
+    if _core.is_initialized():
+        from ..process_sets import partition_process_sets
+        n = num_replicas if num_replicas is not None else int(
+            os.environ.get("HVD_SERVE_REPLICAS",
+                           str(max(_core.num_slots() // 2, 1))))
+        sets: List[Optional[object]] = list(partition_process_sets(n))
+    else:
+        n = num_replicas or int(os.environ.get("HVD_SERVE_REPLICAS", "1"))
+        sets = [None] * n
     metrics = metrics or ServeMetrics()
     replicas = []
-    for i in range(n):
+    for i, ps in enumerate(sets):
         rid = f"replica-{i}"
         engine = InferenceEngine(adapter_factory(),
                                  batcher=DynamicBatcher(),
                                  metrics=metrics, max_batch=max_batch,
                                  replica_id=rid, **engine_kwargs)
-        replicas.append(Replica(rid, None, engine))
+        replicas.append(Replica(rid, ps, engine))
     return ReplicaScheduler(replicas, metrics=metrics)

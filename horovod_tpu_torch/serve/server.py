@@ -7,11 +7,16 @@ that parks in ``Request.result()`` while the engine threads decode.
 
 Status mapping:
 
-* 200 — tokens generated (buffered JSON);
-* 400 — malformed body, or a field that needs a module the port has not
-  ported yet (``stream``, ``schema``, ``logprobs``, ``temperature > 0``,
-  ``n > 1``, ``model``; ``POST /score``) — the error names the missing
-  feature, the field is never silently ignored;
+* 200 — tokens generated (buffered JSON): ``tokens``, and for n > 1
+  ``n`` and ``completions`` (one token list per sample, sample 0 equal
+  to ``tokens``); the effective ``seed`` is echoed on every response,
+  so replaying it reproduces a sampled answer;
+* 400 — malformed body, a sampling field that ``validate_params``
+  refuses (``temperature``, ``top_k``, ``top_p``, ``n``, ``seed``), or
+  a field that needs a module the port has not ported yet
+  (``stream``, ``schema``, ``logprobs``, ``model``; ``POST /score``) —
+  the error names the missing feature, the field is never silently
+  ignored;
 * 503 + ``Retry-After`` — shed: every healthy queue is full, no healthy
   replica exists, or the server is draining;
 * 504 — the request's own deadline expired (queued or decoding).
@@ -243,7 +248,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if request.first_token_at is not None:
             ttft_ms = round(
                 (request.first_token_at - request.submitted_at) * 1e3, 3)
-        self._reply_json(200, {
+        body = {
             "tokens": tokens,
             "request_id": request.request_id,
             "replica": request.replica_id,
@@ -258,7 +263,11 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 "completion_tokens": len(tokens),
                 "total_tokens": len(request.prompt) + len(tokens),
             },
-        })
+        }
+        if request.n > 1:
+            body["n"] = request.n
+            body["completions"] = request.samples
+        self._reply_json(200, body)
 
 
 class ServeServer:
@@ -328,10 +337,20 @@ class ServeServer:
 # ---------------------------------------------------------------------------
 
 def _build_adapter_factory(args):
-    """Model factory for the CLI: GPT-2 in f32, as the JAX CLI builds it,
-    with random weights drawn from ``--seed`` (loading checkpoints is not
-    ported yet); the replicas share the one weight copy."""
+    """Model factory for the CLI, random weights drawn from ``--seed``
+    (loading checkpoints is not ported yet); the replicas share the one
+    weight copy.  ``mlp``: the engine-mechanics MLP over a
+    ``--vocab-size`` vocabulary, as the JAX CLI builds it; GPT-2 in
+    f32, as the JAX CLI builds it."""
     import torch
+    if args.model == "mlp":
+        from ..models import create_mlp
+        from .engine import MLPAdapter
+        vocab = args.vocab_size
+        mlp = create_mlp((64, vocab), in_features=vocab, device=args.device,
+                         seed=args.seed)
+        return lambda: MLPAdapter(mlp, vocab_size=vocab,
+                                  max_len=args.max_len)
     from ..models import create_gpt2
     from .engine import TransformerAdapter
     size = args.model.split("-", 1)[1] if "-" in args.model else "small"
@@ -351,8 +370,9 @@ def run_commandline(argv=None) -> int:
         prog="hvdserve",
         description="Continuous-batching GPT-2 serving on one CUDA card "
                     "(the PyTorch port of hvdserve)")
-    parser.add_argument("--model", default="gpt2-small",
-                        choices=("gpt2-small", "gpt2-medium", "gpt2-large"))
+    parser.add_argument("--model", default="mlp",
+                        choices=("mlp", "gpt2-small", "gpt2-medium",
+                                 "gpt2-large"))
     parser.add_argument("--replicas", type=int, default=None,
                         help="serving replicas (default HVD_SERVE_REPLICAS "
                              "or 1)")
@@ -362,6 +382,8 @@ def run_commandline(argv=None) -> int:
     parser.add_argument("--max-batch", type=int, default=None,
                         help="slots per replica (HVD_SERVE_MAX_BATCH)")
     parser.add_argument("--max-len", type=int, default=256)
+    parser.add_argument("--vocab-size", type=int, default=256,
+                        help="mlp model vocab")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
     parser.add_argument("--device", default="cuda",
@@ -373,6 +395,10 @@ def run_commandline(argv=None) -> int:
     # from dtype noise; TF32 products would keep about 3 decimal digits.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from .. import core as _core
+    if not _core.is_initialized():
+        # The replicas are process sets of the world (build_replicas).
+        _core.init(device=args.device)
     from .replica import build_replicas
     scheduler = build_replicas(_build_adapter_factory(args),
                                num_replicas=args.replicas,

@@ -16,7 +16,9 @@ of C > 1, ``csrc/paged_attention_prefill_sm90.cu``, 3xTF32 on the
 tensor cores) at every head dim and at BT 8, 16 and 64, bit for bit
 alone and in a batch (and, for chunks, at every chunk bucket).  The
 engine's kernel path gives the gather path's tokens and batched ==
-single on the card.
+single on the card, sampled decoding included (the device sampler is
+held to the filtered distribution by chi-square), and greedy
+speculative decoding on the kernels gives greedy's tokens.
 """
 
 import threading
@@ -27,7 +29,8 @@ import torch
 
 from horovod_tpu_torch.models import Transformer, TransformerConfig
 from horovod_tpu_torch.models.transformer import init_gpt2_
-from horovod_tpu_torch.serve import InferenceEngine, TransformerAdapter
+from horovod_tpu_torch.serve import (InferenceEngine, ServeMetrics,
+                                     TransformerAdapter)
 from horovod_tpu_torch.serve import paged_attention as tpa
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -403,6 +406,186 @@ def test_kernel_engine_matches_gather_engine_and_batched_equals_single(
     finally:
         k.stop()
         g.stop()
+
+
+from horovod_tpu_torch.serve import Request  # noqa: E402
+from horovod_tpu_torch.serve import sampling as tsm  # noqa: E402
+
+
+@pytest.mark.gpu
+def test_cuda_sampler_follows_the_filtered_distribution(cuda_device):
+    """The device draw on the card, fed by ``pack_params`` as the engine
+    feeds it: the noise hashed on the card is the CPU's (to f64
+    rounding of the logs), and 20000 draws from fixed keys over a
+    filtered 64-token distribution pass a chi-square against
+    ``filtered_probs`` (deterministic once the keys are fixed)."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(64) * 1.5).astype(np.float32)
+    temp, top_k, top_p = 0.8, 40, 0.95
+    N = 20000
+    keys = np.stack([tsm.seq_key(2024, i) for i in range(N)])
+    packed = torch.from_numpy(tsm.pack_params(
+        keys, np.full(N, 9), np.full(N, temp), np.full(N, top_k),
+        np.full(N, top_p))).to(cuda_device)
+    words = packed[:, :2].long()
+    torch.testing.assert_close(tsm.gumbel_noise(words, 64).cpu(),
+                               tsm.gumbel_noise(words.cpu(), 64),
+                               rtol=1e-12, atol=1e-12)
+    out = tsm.sample_batched(
+        torch.from_numpy(x).to(cuda_device)[None].expand(N, 64), packed)
+    assert out.device.type == "cuda"
+    counts = np.bincount(out.cpu().numpy(), minlength=64)
+    p = tsm.filtered_probs(x, temp, top_k, top_p)
+    expected = p * N
+    live = expected > 0
+    chi2 = float(((counts[live] - expected[live]) ** 2
+                  / expected[live]).sum())
+    df = int(live.sum()) - 1
+    assert counts[~live].sum() == 0
+    assert chi2 < df + 4 * (2 * df) ** 0.5 + 11, (chi2, df)
+
+
+@pytest.mark.gpu
+def test_sampled_decode_on_the_kernel_equals_the_gather_step(cuda_device):
+    """One sampled decode step through the paged kernels gives the gather
+    step's tokens for the same keys and pool, and a row's token does not
+    depend on the other rows; a sampled request on a kernel engine
+    launches the kernels and replays with its seed."""
+    model = init_gpt2_(Transformer(_TINY, device=cuda_device),
+                       torch.Generator(device=cuda_device).manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(10.0)
+    ads = {impl: TransformerAdapter(_TINY, model, block_tokens=8,
+                                    attn_impl=impl, device=cuda_device)
+           for impl in ("kernel", "gather")}
+    B, MB = 4, ads["kernel"].max_blocks_per_seq
+    rng = np.random.RandomState(5)
+    lens = np.array([9, 17, 3, 30])
+    tables = np.full((B, MB), 4 * MB, np.int64)
+    for b in range(B):
+        tables[b, :lens[b] // 8 + 1] = b * MB + np.arange(lens[b] // 8 + 1)
+    keys = np.stack([tsm.seq_key(7, b) for b in range(B)])
+    args = (rng.randint(0, 61, B), lens, tables, keys,
+            np.full(B, 0.9, np.float32), np.full(B, 20), np.full(B, 0.9))
+    out = {}
+    for impl, ad in ads.items():
+        pool = ad.init_paged_cache(4 * MB, B)
+        g = torch.Generator(device=cuda_device).manual_seed(1)
+        for name in ("k", "v"):   # the same random K/V in both pools
+            pool[name].copy_(torch.randn(pool[name].shape, generator=g,
+                                         device=cuda_device))
+        before = dict(tpa.LAUNCHES)
+        _, toks = ad.decode_paged_sampled(pool, *args)
+        if impl == "kernel":
+            assert tpa.LAUNCHES["paged_attention_decode"] == \
+                before["paged_attention_decode"] + _TINY.num_layers
+        out[impl] = toks
+        # Row 1 alone (the others inactive) draws the same token.
+        lone = [a.copy() for a in args]
+        for a in (lone[0], lone[1]):
+            a[[0, 2, 3]] = 0
+        lone[2][[0, 2, 3]] = 4 * MB
+        pool2 = ad.init_paged_cache(4 * MB, B)
+        pool2["k"].copy_(pool["k"])
+        pool2["v"].copy_(pool["v"])
+        _, single = ad.decode_paged_sampled(pool2, *lone)
+        assert single[1] == toks[1]
+    assert out["kernel"].tolist() == out["gather"].tolist()
+    eng = InferenceEngine(ads["kernel"], max_batch=4, prefill_chunk=5,
+                          replica_id="kernel").start()
+    try:
+        before = dict(tpa.LAUNCHES)
+        r = Request(np.arange(11).tolist(), max_new_tokens=6,
+                    temperature=0.8, top_k=20, seed=3, n=2)
+        eng.batcher.submit(r)
+        first = r.result(timeout=120)
+        assert all(tpa.LAUNCHES[n] > before[n] for n in before)
+        assert all(len(s) == 6 for s in r.samples)
+        assert eng.generate(np.arange(11).tolist(), max_new_tokens=6,
+                            temperature=0.8, top_k=20, seed=3) == first
+        assert eng.kv_stats()["seq_forks"] == 1
+    finally:
+        eng.stop()
+
+
+@pytest.mark.gpu
+def test_greedy_spec_on_the_kernels_equals_greedy(cuda_device):
+    """Speculative decoding on the card (a 1-layer draft, k = 4): the
+    verify chunk runs the prefill route from mid-block starts, the draft
+    the decode route, and the greedy tokens equal plain greedy's."""
+    model = init_gpt2_(Transformer(_TINY, device=cuda_device),
+                       torch.Generator(device=cuda_device).manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(10.0)
+    ad = TransformerAdapter(_TINY, model, block_tokens=8, device=cuda_device,
+                            draft_layers=1)
+    prompts = [np.random.RandomState(n).randint(0, 61, (n,)).tolist()
+               for n in (7, 8, 9, 16)]
+    plain = InferenceEngine(ad, max_batch=4, prefill_chunk=5,
+                            replica_id="plain").start()
+    try:
+        want = [plain.generate(p, max_new_tokens=10) for p in prompts]
+    finally:
+        plain.stop()
+    spec = InferenceEngine(ad, max_batch=4, prefill_chunk=5, spec_k=4,
+                           replica_id="spec").start()
+    try:
+        before = dict(tpa.LAUNCHES)
+        assert [spec.generate(p, max_new_tokens=10) for p in prompts] == want
+        assert tpa.LAUNCHES["paged_attention_prefill"] - \
+            before["paged_attention_prefill"] >= spec.spec_steps
+        assert spec.kv_stats()["used"] == 0
+    finally:
+        spec.stop()
+
+
+@pytest.mark.gpu
+def test_aligned_draft_spec_on_the_kernels_accepts_and_equals_greedy(
+        cuda_device):
+    """The draft agrees with its target when block 1 (above the 1-layer
+    draft) has zero output projections: greedy spec on the card then
+    accepts drafts (accepted positions, the bonus token, later decode
+    steps over K/V that verify wrote) and still emits plain greedy's
+    tokens, leaking no block reference."""
+    model = init_gpt2_(Transformer(_TINY, device=cuda_device),
+                       torch.Generator(device=cuda_device).manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(10.0)
+        blk = model.blocks[1]
+        for p in (blk.attn.proj.kernel, blk.attn.proj.bias, blk.fc2.kernel,
+                  blk.fc2.bias):
+            p.zero_()
+    ad = TransformerAdapter(_TINY, model, block_tokens=8, device=cuda_device,
+                            draft_layers=1)
+    prompts = [np.random.RandomState(n).randint(0, 61, (n,)).tolist()
+               for n in (7, 8, 9, 16)]
+    plain = InferenceEngine(ad, max_batch=4, prefill_chunk=5,
+                            replica_id="plain").start()
+    try:
+        want = [plain.generate(p, max_new_tokens=12) for p in prompts]
+    finally:
+        plain.stop()
+    spec = InferenceEngine(ad, max_batch=4, prefill_chunk=5, spec_k=4,
+                           metrics=ServeMetrics(), replica_id="spec").start()
+    try:
+        before = dict(tpa.LAUNCHES)
+        reqs = [Request(p, max_new_tokens=12) for p in prompts]
+        for r in reqs:
+            spec.batcher.submit(r)
+        assert [r.result(timeout=120) for r in reqs] == want
+        assert spec.metrics.snapshot()["spec"]["accepted"] > 0
+        assert tpa.LAUNCHES["paged_attention_prefill"] - \
+            before["paged_attention_prefill"] == 2 * (spec.prefill_steps
+                                                      + spec.spec_steps)
+        assert tpa.LAUNCHES["paged_attention_decode"] - \
+            before["paged_attention_decode"] == \
+            2 * (spec.steps - spec.spec_steps) + spec.draft_steps
+        assert spec.kv_stats()["used"] == 0
+    finally:
+        spec.stop()
 
 
 # ---------------------------------------------------------------------------

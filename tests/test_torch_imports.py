@@ -59,7 +59,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "ops", "ops.collective_ops", "ops.fusion", "ops.eager",
                  "functions", "sparse", "version", "optimizer",
                  "parallel.flash", "models.transformer",
-                 "examples.bert_pretraining"):
+                 "examples.bert_pretraining", "serve.sampling",
+                 "serve.replica", "serve.server", "models.mlp",
+                 "models.convert"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"

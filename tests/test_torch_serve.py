@@ -10,7 +10,8 @@ straddle block boundaries (k·BT, k·BT±1), for native and int8 KV
 blocks.  Inside the port: batched == single, pool-exhaustion preemption
 and poisoned-batch recovery still answer exactly, and the HTTP server
 answers ``/generate``, ``/healthz`` and ``/metrics`` and refuses, with
-400, the request fields whose modules are not ported yet.
+400, the request fields whose modules are not ported yet and the
+sampling fields ``validate_params`` refuses.
 """
 
 import json
@@ -302,26 +303,36 @@ def test_server_generate_healthz_metrics(server, weights):
         assert family in text, family
 
 
-@pytest.mark.parametrize("body,headers,path,missing", [
-    ({"stream": True}, None, "/generate", "stream"),
-    ({}, {"Accept": "text/event-stream"}, "/generate", "stream"),
-    ({"schema": {"type": "integer"}}, None, "/generate", "schema"),
-    ({"logprobs": 2}, None, "/generate", "logprobs"),
-    ({"temperature": 0.7, "seed": 1}, None, "/generate", "temperature"),
-    ({"n": 2, "temperature": 0.7}, None, "/generate", "temperature"),
-    ({"n": 2}, None, "/generate", "n > 1"),
-    ({"model": "other"}, None, "/generate", "model"),
-    ({}, None, "/score", "/score"),
+_UNPORTED = "not supported"
+
+
+@pytest.mark.parametrize("body,headers,path,missing,why", [
+    ({"stream": True}, None, "/generate", "stream", _UNPORTED),
+    ({}, {"Accept": "text/event-stream"}, "/generate", "stream", _UNPORTED),
+    ({"schema": {"type": "integer"}}, None, "/generate", "schema",
+     _UNPORTED),
+    ({"logprobs": 2}, None, "/generate", "logprobs", _UNPORTED),
+    ({"temperature": -0.7, "seed": 1}, None, "/generate", "temperature",
+     ">= 0"),
+    ({"n": 2.5, "temperature": 0.7}, None, "/generate", "n",
+     "must be an integer"),
+    ({"n": 0}, None, "/generate", "n", ">= 1"),
+    ({"model": "other"}, None, "/generate", "model", _UNPORTED),
+    ({}, None, "/score", "/score", _UNPORTED),
 ], ids=["stream", "accept-sse", "schema", "logprobs", "temperature",
         "n-sampled", "n", "model", "score"])
-def test_unported_fields_get_400(server, body, headers, path, missing):
+def test_unported_fields_get_400(server, body, headers, path, missing, why):
+    """Fields whose modules are not ported answer 400 naming the
+    feature; the sampling fields are served now, so their cases send a
+    value ``validate_params`` refuses and get the 400 naming the
+    field."""
     payload = {"tokens": [1, 2, 3], "max_new_tokens": 2, **body}
     code, text = _http(server, path, payload,
                        {"Content-Type": "application/json",
                         **(headers or {})})
     assert code == 400, text
     err = json.loads(text)["error"]
-    assert missing in err and "not supported" in err
+    assert missing in err and why in err
 
 
 def test_mark_dead_fails_over_and_mark_alive_readmits(weights):
