@@ -23,11 +23,14 @@ Phases, each of which exits non-zero on failure:
    (SDPA over the gathered K/V) with CUDA events;
 3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
    their plain versions, in every mask mode, f32 and bf16 (the bf16 route
-   of each is its wgmma kernel), with a row that sees no key,
+   of each is its wgmma kernel; the f32 route of dQ and dK/dV is 3xTF32
+   on the tensor cores, held at the fixed f32 tolerance), with a row
+   that sees no key,
    at the tiny test shapes and the training path's shapes (BERT-large
    bench [32, 128, 16, 64], GPT-2 small [4, 1024, 12, 64] causal); time
    each kernel, its plain version and SDPA's forward / backward at those
-   shapes;
+   shapes, the f32 backward pair's bound reckoned as three TF32 passes
+   (the f32 FMA pipe's printed beside it);
 4. drive the serving path: the port's HTTP server, in process, serving
    gpt2-small at full width and depth with random weights from a fixed
    seed, f32, ``attn_impl`` auto; check identical prompts give
@@ -63,7 +66,9 @@ Phases, each of which exits non-zero on failure:
    times per micro-batch; report samples/s, step time, peak memory and
    the device's busy share of a traced step.  Then hold one f32 and one
    bf16 step of a 2-layer BERT-large-width model through the kernels
-   against the dense attention path, and run 3 steps of GPT-2 small
+   against the dense attention path (the f32 step must launch the 3xTF32
+   backward pair once per layer: those counts are the f32 instances'
+   launches), and run 3 steps of GPT-2 small
    (bf16) with causal flash attention at 1024 tokens;
 6. drive the ResNet-50 training path: ``examples/synthetic_benchmark.main``
    at the JAX configuration (ResNet-50, 224x224x3, 1000 classes, 128
@@ -553,12 +558,21 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
             lambda: fl.attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                    **kw), lib_bwd),
     }
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     work = flash_work(shape, q.element_size(), mode)
     record = {}
     for kname, (kern, plain, lib_ms) in runs.items():
         nbytes, flops = work[kname]
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        # bf16 runs on the tensor cores at the bf16 rate.  In f32 the
+        # forward runs on the f32 FMA pipe; the backward pair runs on the
+        # tensor cores in split-precision TF32, three passes a product:
+        # the card's least time for f32-accurate work.
+        if dtype == torch.bfloat16:
+            t_ops = flops / BF16_FLOPS_PER_S
+        elif kname == "flash_fwd":
+            t_ops = flops / F32_FLOPS_PER_S
+        else:
+            t_ops = 3 * flops / TF32_FLOPS_PER_S
         rec = {"ms": time_ms(torch, kern, 20, flush),
                "plain_ms": time_ms(torch, plain, 5, flush),
                "library_ms": lib_ms,
@@ -566,11 +580,17 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops}
         record[kname] = rec
+        f32_pipe = ""
+        if dtype != torch.bfloat16 and kname != "flash_fwd":
+            pipe_ms = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
+            f32_pipe = (f"; on the f32 FMA pipe the bound would be "
+                        f"{pipe_ms:.4f} ms, share {pipe_ms / rec['ms']:.3f}")
         log(f"  timing {kname} {name} (cold L2): kernel {rec['ms']:.4f} ms, "
             f"plain {rec['plain_ms']:.4f} ms, sdpa "
             f"{'fwd' if kname == 'flash_fwd' else 'bwd'} {lib_ms:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
-            f"{flops} flop), roofline share {rec['bound_ms'] / rec['ms']:.3f}")
+            f"{flops} flop), roofline share {rec['bound_ms'] / rec['ms']:.3f}"
+            f"{f32_pipe}")
     return record
 
 
@@ -592,6 +612,7 @@ def flash_phase(torch, device, rehearsal):
                   ("gpt2-small", gpt2, bf16, fl.MASK_CAUSAL),
                   ("gpt2-small", gpt2, f32, fl.MASK_CAUSAL)]
     max_err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    max_err_f32 = dict(max_err)   # the f32 instances alone
     timed = {}
     # Largest err/tol of the output ("fwd") and the gradients ("grad"), by
     # dtype; "fixed": bf16 over FLASH_TOL alone, without the bound.
@@ -602,6 +623,8 @@ def flash_phase(torch, device, rehearsal):
                                               mode, device)
         for kname, e in errs.items():
             max_err[kname] = max(max_err[kname], e)
+            if dt == f32:
+                max_err_f32[kname] = max(max_err_f32[kname], e)
         dname = str(dt).split(".")[-1]
         for part, r, r_fixed in (("fwd", *ratios[:2]), ("grad", *ratios[2:])):
             worst[f"{part} {dname}"] = max(worst[f"{part} {dname}"], r)
@@ -623,17 +646,17 @@ def flash_phase(torch, device, rehearsal):
                              f"versions: {name} {dt} mask={mode}")
         if not rehearsal and shape in (bert, gpt2):
             # bf16 (the training path's type) under the bare name; the
-            # f32 SIMT routes, which run only in correctness checks, too.
+            # f32 routes (f32 models, the f32 step check) too.
             timed[name if dt == bf16 else f"{name} f32"] = (shape, dt, mode,
                                                            inputs)
     for part in ("fwd", "grad"):
         log(f"  largest {part} err/tol: f32 {worst[part + ' float32']:.3f}, "
             f"bf16 {worst[part + ' bfloat16']:.3f} (over the fixed "
             f"tolerance alone {worst[part + ' bfloat16 fixed']:.3f})")
+    record = {"max_abs_err": max_err, "max_abs_err_f32": max_err_f32}
     if rehearsal:
-        return {"max_abs_err": max_err}
+        return record
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
-    record = {"max_abs_err": max_err}
     for name, (shape, dt, mode, inputs) in timed.items():
         record[name] = flash_timing(
             torch, fl, f"{name.split()[0]} {list(shape)} "
@@ -1321,6 +1344,14 @@ def _flash_share(torch, prof, busy_ms):
           f"{busy_ms:.1f} ms device time")
 
 
+def bf16_launches(launches, want):
+    """Whether a bf16 model's flash counts are ``want`` launches of each
+    kernel, every one on its wgmma route, and none on the f32 backward
+    route (``_tf32x3``)."""
+    return all(n == (0 if name.endswith("_tf32x3") else want)
+               for name, n in launches.items())
+
+
 def bert_main_path(torch, fl, rehearsal):
     """``bert_pretraining.main`` at the bench configuration; returns the
     flash launch counts of its run.  Then a trainer built as ``main``
@@ -1351,10 +1382,11 @@ def bert_main_path(torch, fl, rehearsal):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         failures.append(f"losses not finite and falling: {losses}")
     if not rehearsal:
-        want = 24 * steps   # bf16: every launch takes its wgmma kernel
-        if any(n != want for n in launches.values()):
+        want = 24 * steps
+        if not bf16_launches(launches, want):
             failures.append(f"flash launches {launches}, expected {want} "
-                            f"each (24 layers x {steps} micro-batches)")
+                            f"each (24 layers x {steps} micro-batches), "
+                            f"none on the f32 route")
     model, _, micro_batch = bp.build(bp.parse_args(argv))
     micro_batch()
     micro_batch()  # the boundary: p.grad holds the reduced gradients
@@ -1412,12 +1444,15 @@ BF16_STEP_BOUND = 2**-5
 def flash_vs_dense_step(torch, device, rehearsal, dtype):
     """One step of a 2-layer model at BERT-large width through the flash
     kernels, against the same model with dense attention (the plain
-    formula).  f32: loss and every gradient at 2e-3 / 2e-4.  bf16 (the
-    main path's products, so the backward pair's wgmma route): the loss
-    and each parameter's gradient norm-wise within BF16_STEP_BOUND."""
+    formula).  f32 (the backward pair's split-precision TF32 route): loss
+    and every gradient at 2e-3 / 2e-4.  bf16 (the main path's products,
+    so the backward pair's wgmma route): the loss and each parameter's
+    gradient norm-wise within BF16_STEP_BOUND.  Returns the flash launch
+    counts of the flash model's step, counted from 0."""
     import dataclasses
     from horovod_tpu_torch.models import BERT_LARGE, Transformer, lm_loss
     from horovod_tpu_torch.models.transformer import init_gpt2_
+    from horovod_tpu_torch.parallel import flash as fl
     cfg = dataclasses.replace(BERT_LARGE, num_layers=2, max_len=128,
                               dtype=dtype, attention_impl="flash")
     B, S, K = 8, 128, 20
@@ -1439,10 +1474,12 @@ def flash_vs_dense_step(torch, device, rehearsal, dtype):
     dense.load_state_dict(flash.state_dict())
     out = []
     for m in (flash, dense):
+        for name in fl.LAUNCHES:  # the counts cover exactly this step
+            fl.LAUNCHES[name] = 0
         loss = lm_loss(m(tokens, predict_positions=pos), labels)
         grads = torch.autograd.grad(loss, list(m.parameters()))
-        out.append((loss.detach(), grads))
-    (lf, gf), (ld, gd) = out
+        out.append((loss.detach(), grads, dict(fl.LAUNCHES)))
+    (lf, gf, launches), (ld, gd, _) = out
     head = (f"  {str(dtype).split('.')[-1]} 2-layer BERT-large width, B={B} "
             f"S={S}: loss flash {float(lf):.6f} dense {float(ld):.6f}, ")
     if dtype == torch.float32:
@@ -1450,7 +1487,13 @@ def flash_vs_dense_step(torch, device, rehearsal, dtype):
         ok = bool(torch.allclose(lf, ld, rtol=2e-3, atol=2e-4)) and all(
             bool(torch.allclose(a, b, rtol=2e-3, atol=2e-4))
             for a, b in zip(gf, gd))
-        log(head + f"max grad abs err {err:.3e} "
+        if not rehearsal:  # one launch of each per layer, on its route
+            ok = ok and all(
+                launches[f"flash_bwd_{k}_{route}"] == n
+                for k in ("dq", "dkv")
+                for route, n in (("tf32x3", cfg.num_layers), ("wgmma", 0)))
+        bwd = {k: n for k, n in launches.items() if k.startswith("flash_bwd")}
+        log(head + f"max grad abs err {err:.3e}, launches {bwd} "
             f"({'ok' if ok else 'MISMATCH'} at 2e-3/2e-4)")
     else:
         names = [n for n, _ in flash.named_parameters()]
@@ -1464,6 +1507,7 @@ def flash_vs_dense_step(torch, device, rehearsal, dtype):
             + f" ({'ok' if ok else 'MISMATCH'} at {BF16_STEP_BOUND})")
     if not ok:
         raise SystemExit("flash step disagrees with the dense step")
+    return launches
 
 
 def gpt2_flash_steps(torch, fl, device, rehearsal):
@@ -1494,8 +1538,8 @@ def gpt2_flash_steps(torch, fl, device, rehearsal):
     log(f"  gpt2-small causal flash, B={B} S={S}: losses "
         f"{[round(x, 4) for x in losses]}, launches {launches}")
     bad = not all(np.isfinite(losses)) or not losses[-1] < losses[0]
-    if not rehearsal and any(n != 3 * model.cfg.num_layers
-                             for n in launches.values()):
+    if not rehearsal and not bf16_launches(launches,
+                                           3 * model.cfg.num_layers):
         bad = True
     if bad:
         raise SystemExit("GPT-2 flash steps failed")
@@ -1506,12 +1550,13 @@ def training_phase(torch, device, rehearsal):
     from horovod_tpu_torch.parallel import flash as fl
     try:
         launches, _ = bert_main_path(torch, fl, rehearsal)
-        for dtype in (torch.float32, torch.bfloat16):
-            flash_vs_dense_step(torch, device, rehearsal, dtype)
+        f32_launches = flash_vs_dense_step(torch, device, rehearsal,
+                                           torch.float32)
+        flash_vs_dense_step(torch, device, rehearsal, torch.bfloat16)
         gpt2_flash_steps(torch, fl, device, rehearsal)
     finally:
         hvd.shutdown()  # the process group the trainer's init formed
-    return launches
+    return launches, f32_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1984,7 +2029,7 @@ def main(argv=None) -> int:
                                                       rehearsal, args.seed)
 
     log("phase 5: training path (BERT-large, DistributedOptimizer, NCCL)")
-    flash_launches = training_phase(torch, device, rehearsal)
+    flash_launches, f32_launches = training_phase(torch, device, rehearsal)
 
     log("phase 6: ResNet-50 training path (sync batch norm, "
         "DistributedOptimizer, NCCL)")
@@ -2036,6 +2081,22 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": "BERT-large bench [32, 128, 16, 64] bf16, no mask, "
                      "cold L2"})
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = frec["gpt2-small f32"][name]
+        # The f32 instance: launches from phase 5's f32 step, the only
+        # path that runs it.
+        kernels.append({
+            "name": name + "_f32", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/"
+                      "flash_attention_bwd_tf32_sm90.cu",
+            "replaces": replaces[name],
+            "launches": f32_launches[name + "_tf32x3"],
+            "max_abs_err": frec["max_abs_err_f32"][name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "GPT-2 small [4, 1024, 12, 64] f32, causal, cold L2; "
+                     "launches: the f32 step of phase 5"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,28 +11,27 @@
 //   * hvd_flash_bwd_dkv <- `_bwd_dkv_kernel` (:195, `_run_bwd_kernels`
 //                          :339): dV = sum_q p^T . dO,
 //                          dK = sum_q ds^T . (q * scale).
-// Each entry point runs this file's SIMT kernels for f32 operands and a
-// tensor-core kernel (wgmma fed by TMA) for bf16 ones: the forward's in
-// flash_attention_fwd_sm90.cu, the backward pair's in
-// flash_attention_bwd_sm90.cu.
+// The forward runs this file's SIMT kernel for f32 operands and a
+// tensor-core kernel (wgmma fed by TMA) for bf16 ones, in
+// flash_attention_fwd_sm90.cu.  The backward pair runs on the tensor cores
+// for both: bf16 operands on wgmma (flash_attention_bwd_sm90.cu), f32 ones
+// on mma.sync TF32 in split precision (flash_attention_bwd_tf32_sm90.cu,
+// three TF32 passes a product, which hold the JAX f32 tolerance where one
+// would not).
 // Layout: q, k, v, dO and the outputs are [B, S, H, D] with the head dim
 // contiguous and any (16-byte multiple) strides for B, S and H, so q/k/v
 // sliced out of the fused qkv projection are read where they lie (the JAX
 // wrapper transposes to [B*H, S, D] instead).  lse and delta are f32
 // [B, H, S].  Inputs are all f32 or all bf16 (`kind`); this file's
-// kernels take f32 and run every product and the softmax in f32.
+// kernel takes f32 and runs every product and the softmax in f32.
 // Masks: NONE, CAUSAL (q >= k), STRICT (q > k) on positions in the
 // sequence.
 //
 // Design.  The TPU grid (B*H, q blocks, k blocks) runs its last axis in
-// order on one core and carries the softmax state (or the dQ / dK / dV
-// sums) in VMEM between grid steps.  Here one thread block of 256 threads
-// owns one (b, h, tile of 64 rows) and loops over the other axis' tiles
-// of 64 itself, holding that state in registers:
-//   * forward and dQ: a block per query tile, looping over key tiles up to
-//     the last one the mask lets contribute;
-//   * dK/dV: a block per key tile, looping over the query tiles the mask
-//     lets see it (for CAUSAL, those at or past the key tile).
+// order on one core and carries the softmax state in VMEM between grid
+// steps.  Here one thread block of 256 threads owns one (b, h, tile of 64
+// query rows) and loops over the key tiles up to the last one the mask
+// lets contribute, holding that state in registers.
 // Each tile is staged in shared memory with 16-byte loads and converted
 // to f32.  Thread (ty, tx) of the 16 x 16 grid computes the 4 x 4 scores
 // of rows ty + 16i and columns tx + 16j (row stride D + 1 floats, so the
@@ -40,21 +39,20 @@
 // the 16 lanes of a row with shuffles, and the accumulators of rows
 // ty + 16i, columns tx + 16c stay in registers.  No atomics: every output
 // element is summed by one thread in a fixed order, so two runs give the
-// same bits.  A row that sees no key (STRICT row 0) gives out 0, zero
-// gradients and lse = NEG_INF/2 + log(1e-30): the running max starts at
-// the NEG_INF/2 floor, so the value does not depend on whether the row's
-// tile was computed or skipped.
+// same bits.  A row that sees no key (STRICT row 0) gives out 0 and
+// lse = NEG_INF/2 + log(1e-30): the running max starts at the NEG_INF/2
+// floor, so the value does not depend on whether the row's tile was
+// computed or skipped.
 //
 // Bound.  The forward does 4*S*S*D flops per (b, h) against 4*S*D
-// elements moved (the backward 6 and 8 times S*S*D; a causal mask halves
-// the flops).  At BERT-large's 128 tokens the card's least time is set by
-// the bytes (the forward's 33.8 MB at 3.35 TB/s, ~10 us), at GPT-2's 1024
-// causal tokens the bytes and the bf16 tensor-core rate nearly tie.  These
-// kernels compute in scalar f32 from shared memory, off the tensor cores
-// (whose bf16 rate is ~15x the f32 rate), so their own limit is the f32
-// FMA pipe and the shared-memory reads feeding it.  The f32 instances stay
-// here because TF32 products would break the JAX f32 tolerances; bf16
-// operands go to the tensor-core kernels.
+// elements moved (a causal mask halves the flops).  At BERT-large's 128
+// tokens the card's least time is set by the bytes (the forward's 33.8 MB
+// at 3.35 TB/s, ~10 us), at GPT-2's 1024 causal tokens the bytes and the
+// bf16 tensor-core rate nearly tie.  This kernel computes in scalar f32
+// from shared memory, off the tensor cores (whose bf16 rate is ~15x the
+// f32 rate), so its own limit is the f32 FMA pipe and the shared-memory
+// reads feeding it; three TF32 passes on the tensor cores, as the f32
+// backward pair runs, are its next step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -237,244 +235,9 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   }
 }
 
-// dq [B, S, H, D].  Grid (S / TILE, H, B).
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(
-    const float* __restrict__ q,
-    const float* __restrict__ k,
-    const float* __restrict__ v,
-    const float* __restrict__ dO,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* dq, Str sq, Str sk, Str sv, Str sd, Str sdq, int S,
-    int H, float scale, int mode) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float sm[];
-  float* qs = sm;               // [TILE][DP], pre-scaled
-  float* dos = qs + TILE * DP;  // [TILE][DP]
-  float* ks = dos + TILE * DP;  // [TILE][DP]
-  float* vs = ks + TILE * DP;   // [TILE][DP]
-  float* dss = vs + TILE * DP;  // [TILE][PS]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const size_t row_base = (static_cast<size_t>(b) * H + h) * S;
-
-  stage<D>(qs, q, sq, b, h, q0, S, scale);
-  stage<D>(dos, dO, sd, b, h, q0, S, 1.f);
-  float lr[TR], dr[TR], acc[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = q0 + ty + 16 * i;
-    lr[i] = r < S ? lse[row_base + r] : 0.f;
-    dr[i] = r < S ? delta[row_base + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  const int k_end = key_end(mode, min(q0 + TILE, S) - 1, S);
-
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();
-    stage<D>(ks, k, sk, b, h, k0, S, 1.f);
-    stage<D>(vs, v, sv, b, h, k0, S, 1.f);
-    __syncthreads();
-    float s[TR][TR], dp[TR][TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TR; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[TR], ov[TR], kv[TR], vv[TR];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        qv[i] = qs[(ty + 16 * i) * DP + d];
-        ov[i] = dos[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        kv[j] = ks[(tx + 16 * j) * DP + d];
-        vv[j] = vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TR; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int qp = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool on = qp < S && kp < S && keep(mode, qp, kp);
-        const float p = on ? expf(s[i][j] - lr[i]) : 0.f;
-        dss[(ty + 16 * i) * PS + tx + 16 * j] = p * (dp[i][j] - dr[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < TILE; ++c) {
-      float dv[TR], kv[DC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) dv[i] = dss[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) kv[j] = ks[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(dv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    float* o = dq + at(sdq, b, r, h);
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      o[tx + 16 * c] = acc[i][c] * scale;
-  }
-}
-
-// dk, dv [B, S, H, D].  Grid (S / TILE, H, B): one block per key tile.
-template <int D>
-__global__ void __launch_bounds__(NT) bwd_dkv_kernel(
-    const float* __restrict__ q,
-    const float* __restrict__ k,
-    const float* __restrict__ v,
-    const float* __restrict__ dO,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* dk, float* dv, Str sq, Str sk, Str sv,
-    Str sd, Str sdk, Str sdv, int S, int H, float scale, int mode) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 16;
-  extern __shared__ float sm[];
-  float* ks = sm;                // [TILE][DP]
-  float* vs = ks + TILE * DP;    // [TILE][DP]
-  float* qs = vs + TILE * DP;    // [TILE][DP], pre-scaled
-  float* dos = qs + TILE * DP;   // [TILE][DP]
-  float* pt = dos + TILE * DP;   // [TILE keys][PS] p^T
-  float* dst = pt + TILE * PS;   // [TILE keys][PS] ds^T
-  float* ls = dst + TILE * PS;   // [TILE] lse of the query tile
-  float* ds_ = ls + TILE;        // [TILE] delta of the query tile
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const size_t row_base = (static_cast<size_t>(b) * H + h) * S;
-
-  stage<D>(ks, k, sk, b, h, k0, S, 1.f);
-  stage<D>(vs, v, sv, b, h, k0, S, 1.f);
-  float gk[TR][DC], gv[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += TILE) {
-    // The query tiles whose keys reach this key tile (block_contributes).
-    if (k0 >= key_end(mode, min(q0 + TILE, S) - 1, S)) continue;
-    __syncthreads();
-    stage<D>(qs, q, sq, b, h, q0, S, scale);
-    stage<D>(dos, dO, sd, b, h, q0, S, 1.f);
-    if (threadIdx.x < TILE) {
-      const int r = q0 + threadIdx.x;
-      ls[threadIdx.x] = r < S ? lse[row_base + r] : 0.f;
-      ds_[threadIdx.x] = r < S ? delta[row_base + r] : 0.f;
-    }
-    __syncthreads();
-    // Thread (ty, tx): keys ty + 16i, queries tx + 16j.
-    float s[TR][TR], dp[TR][TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TR; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[TR], vv[TR], qv[TR], ov[TR];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        kv[i] = ks[(ty + 16 * i) * DP + d];
-        vv[i] = vs[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        qv[j] = qs[(tx + 16 * j) * DP + d];
-        ov[j] = dos[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TR; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int kp = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < TR; ++j) {
-        const int c = tx + 16 * j;
-        const int qp = q0 + c;
-        const bool on = qp < S && kp < S && keep(mode, qp, kp);
-        const float p = on ? expf(s[i][j] - ls[c]) : 0.f;
-        pt[(ty + 16 * i) * PS + c] = p;
-        dst[(ty + 16 * i) * PS + c] = p * (dp[i][j] - ds_[c]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < TILE; ++r) {
-      float pv[TR], sv_[TR], ov[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        pv[i] = pt[(ty + 16 * i) * PS + r];
-        sv_[i] = dst[(ty + 16 * i) * PS + r];
-      }
-#pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        ov[j] = dos[r * DP + tx + 16 * j];
-        qv[j] = qs[r * DP + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          gv[i][j] = fmaf(pv[i], ov[j], gv[i][j]);
-          gk[i][j] = fmaf(sv_[i], qv[j], gk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= S) continue;
-    float* ok = dk + at(sdk, b, r, h);
-    float* ov = dv + at(sdv, b, r, h);
-    // q was pre-scaled, so gk already carries the scale.
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      ok[tx + 16 * c] = gk[i][c];
-      ov[tx + 16 * c] = gv[i][c];
-    }
-  }
-}
-
 constexpr size_t fwd_smem(int d) {
   return (3 * static_cast<size_t>(TILE) * (d + 1) + TILE * PS) * sizeof(float);
 }
-constexpr size_t dq_smem(int d) {
-  return (4 * static_cast<size_t>(TILE) * (d + 1) + TILE * PS) * sizeof(float);
-}
-constexpr size_t dkv_smem(int d) {
-  return (4 * static_cast<size_t>(TILE) * (d + 1) + 2 * TILE * PS + 2 * TILE)
-         * sizeof(float);
-}
-
 // Raise a kernel's dynamic shared-memory limit past the default 48 KB,
 // once per device (bit d of `done`) rather than on every launch.
 template <typename Kern>
@@ -515,39 +278,6 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v,
-                   const void* dO, const float* lse, const float* delta,
-                   void* dq, const long long* st, const Launch& a) {
-  const size_t smem = dq_smem(D);
-  static std::atomic<unsigned> smem_set{0};
-  cudaError_t e = allow_smem(bwd_dq_kernel<D>, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  bwd_dq_kernel<D><<<a.grid(), NT, smem, a.stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
-      static_cast<float*>(dq), str(st, 0), str(st, 1), str(st, 2), str(st, 3),
-      str(st, 4), a.S, a.H, a.scale, a.mode);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
-                    const void* dO, const float* lse, const float* delta,
-                    void* dk, void* dv, const long long* st, const Launch& a) {
-  const size_t smem = dkv_smem(D);
-  static std::atomic<unsigned> smem_set{0};
-  cudaError_t e = allow_smem(bwd_dkv_kernel<D>, smem, smem_set);
-  if (e != cudaSuccess) return e;
-  bwd_dkv_kernel<D><<<a.grid(), NT, smem, a.stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
-      static_cast<float*>(dk), static_cast<float*>(dv), str(st, 0), str(st, 1),
-      str(st, 2), str(st, 3), str(st, 4), str(st, 5), a.S, a.H, a.scale,
-      a.mode);
-  return cudaGetLastError();
-}
-
 // Dispatch on the head dim to F<D>(args...); returns from the caller.
 #define HVD_FLASH_DISPATCH(F, D, ...)                               \
   do {                                                              \
@@ -567,8 +297,9 @@ bool bad_args(int B, int S, int H, int mode) {
 
 }  // namespace
 
-// The bf16 kernels on the tensor cores (flash_attention_fwd_sm90.cu,
-// flash_attention_bwd_sm90.cu).
+// The kernels on the tensor cores: bf16 (flash_attention_fwd_sm90.cu,
+// flash_attention_bwd_sm90.cu) and the f32 backward pair
+// (flash_attention_bwd_tf32_sm90.cu).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out,
                    float* lse, const long long* strides, int B, int S, int H,
                    int D, float scale, int mode, cudaStream_t stream);
@@ -577,6 +308,15 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       void* dq, const long long* strides, int B, int S, int H,
                       int D, float scale, int mode, cudaStream_t stream);
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                       const void* dO, const float* lse, const float* delta,
+                       void* dk, void* dv, const long long* strides, int B,
+                       int S, int H, int D, float scale, int mode,
+                       cudaStream_t stream);
+int flash_bwd_dq_tf32(const void* q, const void* k, const void* v,
+                      const void* dO, const float* lse, const float* delta,
+                      void* dq, const long long* strides, int B, int S, int H,
+                      int D, float scale, int mode, cudaStream_t stream);
+int flash_bwd_dkv_tf32(const void* q, const void* k, const void* v,
                        const void* dO, const float* lse, const float* delta,
                        void* dk, void* dv, const long long* strides, int B,
                        int S, int H, int D, float scale, int mode,
@@ -614,15 +354,15 @@ extern "C" int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 void* stream) {
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
-  const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == K_BF16)
     return flash_bwd_dq_sm90(q, k, v, dO, static_cast<const float*>(lse),
                              static_cast<const float*>(delta), dq, strides, B,
-                             S, H, D, scale, mask_mode, a.stream);
+                             S, H, D, scale, mask_mode, st);
   if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
-  HVD_FLASH_DISPATCH(bwd_dq, D, q, k, v, dO,
-                     static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dq, strides, a);
+  return flash_bwd_dq_tf32(q, k, v, dO, static_cast<const float*>(lse),
+                           static_cast<const float*>(delta), dq, strides, B,
+                           S, H, D, scale, mask_mode, st);
 }
 
 extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -633,13 +373,13 @@ extern "C" int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int kind, void* stream) {
   if (bad_args(B, S, H, mask_mode)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaSuccess);
-  const Launch a{B, S, H, scale, mask_mode, static_cast<cudaStream_t>(stream)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == K_BF16)
     return flash_bwd_dkv_sm90(q, k, v, dO, static_cast<const float*>(lse),
                               static_cast<const float*>(delta), dk, dv,
-                              strides, B, S, H, D, scale, mask_mode, a.stream);
+                              strides, B, S, H, D, scale, mask_mode, st);
   if (kind != K_F32) return static_cast<int>(cudaErrorInvalidValue);
-  HVD_FLASH_DISPATCH(bwd_dkv, D, q, k, v, dO,
-                     static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dk, dv, strides, a);
+  return flash_bwd_dkv_tf32(q, k, v, dO, static_cast<const float*>(lse),
+                            static_cast<const float*>(delta), dk, dv, strides,
+                            B, S, H, D, scale, mask_mode, st);
 }

@@ -9,13 +9,14 @@
 //   * dkv_kernel <- `_bwd_dkv_kernel` (:195, `_run_bwd_kernels` :339):
 //                   dV = sum_q p^T . dO, dK = scale * sum_q ds^T . q.
 // They are reached through hvd_flash_bwd_dq / hvd_flash_bwd_dkv
-// (flash_attention.cu) when every operand is bf16; the f32 instances stay
-// the SIMT kernels there, whose f32 products hold the JAX f32 gradient
-// tolerance (TF32 would not).
+// (flash_attention.cu) when every operand is bf16; f32 operands run
+// flash_attention_bwd_tf32_sm90.cu, `mma.sync` TF32 in split precision,
+// whose three passes a product hold the JAX f32 gradient tolerance (one
+// TF32 pass would not).
 // The PTX, TMA and layout helpers are in sm90.cuh, shared with the
 // forward (flash_attention_fwd_sm90.cu).
 //
-// Contract (the SIMT kernels' own): q, k, v, dO and the outputs are
+// Contract (the f32 kernels' too): q, k, v, dO and the outputs are
 // [B, S, H, D] with the head dim contiguous and 16-byte-multiple strides
 // for B, S and H (q/k/v sliced out of the fused qkv projection are read in
 // place); lse and delta are f32 [B, H, S]; D is 16, 32, 64 or 128; any S;
@@ -52,8 +53,8 @@
 // computed in registers, rounded to bf16 and fed straight back as A, with
 // the second operand read from shared memory with the transpose bit.  The
 // scale is applied to S in f32 (inside exp2) and to dQ / dK once at the
-// end, never to a bf16 tile.  The one rounding this adds to the f32 SIMT
-// kernels: P and dS enter the second products as bf16.
+// end, never to a bf16 tile.  The one rounding this adds to the plain
+// versions: P and dS enter the second products as bf16.
 //
 // Copies.  TMA with an mbarrier per buffer: one 4-D tensor map
 // (D, H, S, B) per strided operand, encoded on the host per launch
@@ -69,7 +70,7 @@
 // be a multiple of 4.
 //
 // Mask work: tiles wholly outside the mask are never visited (key_end and
-// block_contributes, as in the SIMT kernels), and the mask is applied
+// block_contributes, as in the forward), and the mask is applied
 // element by element only on tiles the diagonal crosses or the sequence
 // end cuts.
 

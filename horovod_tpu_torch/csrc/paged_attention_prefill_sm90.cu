@@ -63,7 +63,8 @@
 //     registers: the k index of P.V is permuted (lane t holds keys 2t and
 //     2t+1 of each 8), and V's fragment is read in the same order, so no
 //     shuffle is needed.  The hi/lo split rounds with two integer
-//     operations, as cvt.rna.tf32.f32 would.
+//     operations, as cvt.rna.tf32.f32 would (mma_sync.cuh, shared with
+//     the f32 flash backward pair).
 //   * Tiles are gathered through the table by 16-byte `cp.async.cg`
 //     copies into one shared-memory stage per group (rows padded by 16
 //     bytes, so fragment reads hit distinct banks), both tiles of a round
@@ -87,6 +88,8 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -136,72 +139,6 @@ template <> struct Kv<KV_FP8> {
 
 inline int num_splits(int mb, int split_blocks) {
   return mb > split_blocks ? (mb + split_blocks - 1) / split_blocks : 1;
-}
-
-// 16 bytes from global to shared memory; zero-filled (nothing read) when
-// !ok.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
-               "memory");
-}
-
-// x rounded to TF32 as f32 bits: to nearest on the 13 low mantissa bits,
-// ties away from zero, as cvt.rna.tf32.f32 rounds (finite x).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi) (the
-// subtraction is exact).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a * b, one m16n8k8 TF32 product with f32 accumulation.
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A B fragment (two f32 values) split once: an exact (narrow-pool) value
-// is its own hi and has no lo.
-struct BFrag {
-  uint32_t h0, h1, l0, l1;
-};
-template <bool kExactB>
-__device__ __forceinline__ BFrag split_b(float b0, float b1) {
-  BFrag f;
-  if (kExactB) {
-    f.h0 = __float_as_uint(b0);
-    f.h1 = __float_as_uint(b1);
-  } else {
-    split_tf32(b0, f.h0, f.l0);
-    split_tf32(b1, f.h1, f.l1);
-  }
-  return f;
-}
-
-// d += a * b in split precision: lo*hi, hi*lo (not for an exact b), then
-// hi*hi.
-template <bool kExactB>
-__device__ __forceinline__ void mma3(float* d, const uint32_t* ahi,
-                                     const uint32_t* alo, const BFrag& b) {
-  mma(d, alo, b.h0, b.h1);
-  if (!kExactB) mma(d, ahi, b.l0, b.l1);
-  mma(d, ahi, b.h0, b.h1);
 }
 
 __device__ __forceinline__ bool keep(int mode, int qpos, int kpos) {

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels,
-// flash_attention_fwd_sm90.cu (the bf16 forward) and
-// flash_attention_bwd_sm90.cu (the bf16 backward pair): the [B, S, H, D]
+// flash_attention_fwd_sm90.cu (the bf16 forward),
+// flash_attention_bwd_sm90.cu (the bf16 backward pair) and, for the
+// addressing, masks and launch geometry, flash_attention_bwd_tf32_sm90.cu
+// (the f32 backward pair): the [B, S, H, D]
 // addressing and mask rules, PTX wrappers for mbarriers, TMA tile copies
 // and wgmma, the 128-byte-swizzled shared-memory descriptors, the
 // accumulator register layout, and on the host the 4-D tensor maps.

@@ -14,8 +14,13 @@ Each has two routes, chosen by the operands' dtype alone
 tensor-core kernels (wgmma fed by TMA) of
 ``csrc/flash_attention_fwd_sm90.cu`` (P enters P·V as bf16) and
 ``csrc/flash_attention_bwd_sm90.cu`` (P and dS enter the second
-products as bf16), anything else the f32 SIMT kernels of
-``csrc/flash_attention.cu``.
+products as bf16).  Anything else runs in f32: the forward on the SIMT
+kernel of ``csrc/flash_attention.cu``, the backward pair on the tensor
+cores in split-precision TF32 (``csrc/flash_attention_bwd_tf32_sm90.cu``,
+``mma.sync``): each f32 operand splits into a TF32 hi and lo part and
+each product sums lo·hi + hi·lo + hi·hi in f32, about 3·2⁻²² of
+Σ|a||b| from the f32 product, where one TF32 pass (2⁻¹¹) would break
+the JAX f32 gradient tolerance.
 
 The public functions keep the JAX signatures and the [B, S, H, D]
 layout: :func:`flash_attention` and :func:`flash_attention_lse` (which
@@ -61,10 +66,12 @@ MASK_NONE, MASK_CAUSAL, MASK_STRICT = 0, 1, 2
 #: wrapper call that launches its kernel, never by the plain versions.
 #: ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch
 #: of their kernel; the ``_wgmma`` names count those that took the bf16
-#: tensor-core route as well.
+#: tensor-core route as well, the ``_tf32x3`` names those of the f32
+#: backward pair.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_wgmma": 0, "flash_bwd_dq_wgmma": 0,
-            "flash_bwd_dkv_wgmma": 0}
+            "flash_bwd_dkv_wgmma": 0, "flash_bwd_dq_tf32x3": 0,
+            "flash_bwd_dkv_tf32x3": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -280,10 +287,11 @@ def fwd_route(q, k, v) -> str:
 def bwd_route(q, k, v, do) -> str:
     """The backward pair's route for these operands: ``"wgmma"`` (the
     bf16 tensor-core kernels) when every operand is bf16, else
-    ``"simt"`` (the f32 kernels).  The C entry points pick the same
-    kernels from the element type the wrapper passes them."""
+    ``"tf32x3"`` (the f32 kernels, split-precision TF32 on the tensor
+    cores).  The C entry points pick the same kernels from the element
+    type the wrapper passes them."""
     return "wgmma" if kernel_dtype(q, k, v, do) == torch.bfloat16 \
-        else "simt"
+        else "tf32x3"
 
 
 def _kernel_operands(*ts):
@@ -326,8 +334,8 @@ def _validate(q, k, v):
 
 def _count(name, route):
     LAUNCHES[name] += 1
-    if route == "wgmma":
-        LAUNCHES[name + "_wgmma"] += 1
+    if route != "simt":  # the f32 forward has no count of its own
+        LAUNCHES[f"{name}_{route}"] += 1
 
 
 def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):

@@ -226,20 +226,20 @@ def test_backward_route_is_wgmma_only_when_every_operand_is_bf16():
     for i in range(4):
         ops = [b] * 4
         ops[i] = f
-        assert tfl.bwd_route(*ops) == "simt"
-    assert tfl.bwd_route(f, f, f, f) == "simt"
+        assert tfl.bwd_route(*ops) == "tf32x3"
+    assert tfl.bwd_route(f, f, f, f) == "tf32x3"
     with pytest.raises(ValueError, match="dtype"):
         tfl.bwd_route(b, b, b, b.half())
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "tf32x3")])
 def test_transformer_backward_takes_the_route_of_its_dtype(monkeypatch,
                                                            dtype, route):
     """The model's attention (q/k/v views of the fused qkv projection,
     ``models/transformer.py``) hands the backward pair operands of the
     compute dtype: a bf16 model (BERT's and GPT-2's) takes the wgmma
-    route, an f32 one the SIMT route."""
+    route, an f32 one the split-precision TF32 route."""
     from horovod_tpu_torch.models import Transformer, TransformerConfig
     from horovod_tpu_torch.models.transformer import init_gpt2_
     cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
@@ -353,3 +353,97 @@ def test_forward_rounding_bound_is_sound(mode, seed):
     if mode == tfl.MASK_STRICT:
         assert float(bound[:, 0].abs().max()) == 0.0
         assert float(got[:, 0].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The f32 backward pair's arithmetic: split-precision TF32 (3xTF32)
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """``x`` (f32) rounded to TF32 as the kernels round it
+    (``csrc/mma_sync.cuh`` ``tf32``): ``(bits + 0x1000) & 0xffffe000``,
+    to nearest on the 13 low mantissa bits, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(eq, a, b):
+    """``einsum(eq, a, b)`` as the kernels multiply on the tensor cores:
+    each f32 operand split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``
+    and the product summed as lo·hi + hi·lo + hi·hi in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _bwd_tf32x3(q, k, v, do, lse, delta, mode, scale):
+    """dQ, dK, dV with every product in 3xTF32, the rest in f32, as
+    ``csrc/flash_attention_bwd_tf32_sm90.cu`` computes them: the scale
+    applied to the scores inside exp and to dQ / dK at the end."""
+    s = _mm3("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp(s * scale - lse[..., None])
+    keep = tfl._keep(q.shape[1], mode, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    ds = p * (_mm3("bqhd,bkhd->bhqk", do, v) - delta[..., None])
+    return (_mm3("bhqk,bkhd->bqhd", ds, k) * scale,
+            _mm3("bhqk,bqhd->bkhd", ds, q) * scale,
+            _mm3("bhqk,bqhd->bkhd", p, do))
+
+
+@pytest.mark.parametrize("S", [48, 80])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("mode", [jfl.MASK_NONE, jfl.MASK_CAUSAL,
+                                  jfl.MASK_STRICT])
+def test_tf32x3_backward_pair_matches_jax_run_bwd_kernels(mode, D, S):
+    """The f32 route's arithmetic (every product in 3xTF32) against JAX's
+    two backward kernels (``_run_bwd_kernels``, interpret mode, blocks of
+    16) at the f32 gradient tolerance, from the lse of JAX's forward, at
+    S = 48 and S = 80 (past one 64-row tile of the kernels); STRICT's row
+    0 sees no key and gets exactly zero."""
+    B, H = 2, 2
+    q, k, v, do = _inputs(70 + 3 * mode + D + S, (B, S, H, D), 4)
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv, jdo = (_bhsd(x, jnp.float32) for x in (q, k, v, do))
+    jout, res = jfl._flash_fwd(jq, jk, jv, mode, scale, 16, 16, True)
+    delta = jnp.sum(jdo * jout, axis=-1)
+    jgrads = jfl._run_bwd_kernels(jq, jk, jv, jdo, res[4], delta, mode,
+                                  scale, 16, 16, True)
+    got = _bwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v, do)),
+                      _bshd(res[4], B, H), _bshd(delta, B, H), mode, scale)
+    for g, want, name in zip(got, jgrads, ("dq", "dk", "dv")):
+        _close(g, _bshd(want, B, H), GRAD, name)
+    if mode == jfl.MASK_STRICT:
+        assert float(got[0][:, 0].abs().max()) == 0.0
+
+
+#: The error estimate of one 3xTF32 product (PERF.md §6): the dropped
+#: lo·lo and the rounding of the two lo parts, each at most 2⁻²² of
+#: |a|·|b| per term.
+TF32X3_PART = 3 * 2.0 ** -22
+
+
+@pytest.mark.parametrize("eq,shapes", [
+    ("bqhd,bkhd->bhqk", ((2, 80, 2, 64), (2, 80, 2, 64))),   # S, dP
+    ("bhqk,bkhd->bqhd", ((2, 2, 80, 80), (2, 80, 2, 64))),   # dQ
+    ("bhqk,bqhd->bkhd", ((2, 2, 80, 80), (2, 80, 2, 64)))])  # dK, dV
+def test_tf32x3_product_error_stays_under_its_estimate(eq, shapes):
+    """Each 3xTF32 product differs from the exact (f64) product by at
+    most ``TF32X3_PART`` of Σ|a|·|b| plus what the f32 sums round
+    (``(k + 2)·2⁻²⁴`` of Σ|a|·|b| for a sum of k terms, split in three
+    and added), and the split shows: it moves the result from the plain
+    f32 product.  One TF32 pass (hi·hi) errs far beyond the estimate,
+    which is why the kernels take three."""
+    rng = np.random.RandomState(len(eq) + shapes[0][-1])
+    a, b = (torch.from_numpy((rng.randn(*sh) * 0.5).astype(np.float32))
+            for sh in shapes)
+    k = shapes[1][1]   # the contracted length (S)
+    exact = torch.einsum(eq, a.double(), b.double())
+    mass = torch.einsum(eq, a.double().abs(), b.double().abs())
+    got = _mm3(eq, a, b).double()
+    bound = (TF32X3_PART + (k + 2) * 2.0 ** -24) * mass
+    assert bool(((got - exact).abs() <= bound).all())
+    assert float((got - torch.einsum(eq, a, b).double()).abs().max()) > 0
+    one = torch.einsum(eq, _tf32(a), _tf32(b)).double()
+    assert float(((one - exact).abs() / mass).max()) > 8 * TF32X3_PART

@@ -648,7 +648,9 @@ def _check_fwd(q, k, v, mode, scale, dtype):
 
 def _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype):
     """Both backward kernels against their plain versions, and twice
-    with the same bits; returns the gradients."""
+    with the same bits, each run on its dtype's route (bf16: wgmma, f32:
+    split-precision TF32); returns the gradients."""
+    n0 = dict(tfl.LAUNCHES)
     got = tfl.flash_bwd(q, k, v, do, lse, delta, mode, scale)
     kw = dict(mask_mode=mode, scale=scale)
     want = (tfl.attention_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
@@ -662,6 +664,12 @@ def _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype):
         assert g.dtype == dtype
         _assert_close(g, w, grt, gat, x, msg=f"d{name} mode {mode}")
         assert torch.equal(g, a), f"d{name} not bit-identical"
+    on, off = ("wgmma", "tf32x3") if dtype == torch.bfloat16 \
+        else ("tf32x3", "wgmma")
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfl.LAUNCHES[kernel] == n0[kernel] + 2
+        assert tfl.LAUNCHES[f"{kernel}_{on}"] == n0[f"{kernel}_{on}"] + 2
+        assert tfl.LAUNCHES[f"{kernel}_{off}"] == n0[f"{kernel}_{off}"]
     return got
 
 
@@ -694,6 +702,10 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
             n0["flash_bwd_dq_wgmma"] + wg
         assert tfl.LAUNCHES["flash_bwd_dkv_wgmma"] == \
             n0["flash_bwd_dkv_wgmma"] + wg
+        assert tfl.LAUNCHES["flash_bwd_dq_tf32x3"] == \
+            n0["flash_bwd_dq_tf32x3"] + 2 - wg
+        assert tfl.LAUNCHES["flash_bwd_dkv_tf32x3"] == \
+            n0["flash_bwd_dkv_tf32x3"] + 2 - wg
         if mode == tfl.MASK_STRICT:   # row 0 sees no key
             assert float(got[0][:, 0].float().abs().max()) == 0.0
 
@@ -732,6 +744,27 @@ def test_flash_kernels_read_strided_qkv_and_mixed_dtypes(cuda_device):
         qb.grad.float()).all()
 
 
+def _check_fused_qkv_backward(dev, S, dtype):
+    """q/k/v as strided views of one fused [B, S, 3, H, D] projection
+    through the backward pair of ``dtype``'s route, in every mask mode,
+    against the plain versions with bit-identical repeats."""
+    rng = np.random.RandomState(S)
+    B, H, D = 2, 4, 64
+    qkv = torch.from_numpy((rng.randn(B, S, 3, H, D) * 0.5).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    do = torch.from_numpy((rng.randn(B, S, H, D) * 0.5).astype(
+        np.float32)).to(dev, dtype)
+    scale = 1.0 / np.sqrt(D)
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        dq, _, _ = _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype)
+        if mode == tfl.MASK_STRICT:
+            assert float(dq[:, 0].float().abs().max()) == 0.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [8, 80, 96, 256])
 def test_bf16_backward_reads_fused_qkv_views(cuda_device, S):
@@ -739,27 +772,49 @@ def test_bf16_backward_reads_fused_qkv_views(cuda_device, S):
     [B, S, 3, H, D] projection, through the wgmma backward pair, in every
     mask mode (S past a multiple of the 64-row tile, and S = 8 below
     one), against the plain versions with bit-identical repeats."""
-    rng = np.random.RandomState(S)
-    B, H, D = 2, 4, 64
-    qkv = torch.from_numpy((rng.randn(B, S, 3, H, D) * 0.5).astype(
-        np.float32)).to(cuda_device, torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    assert not q.is_contiguous()
-    do = torch.from_numpy((rng.randn(B, S, H, D) * 0.5).astype(
-        np.float32)).to(cuda_device, torch.bfloat16)
-    scale = 1.0 / np.sqrt(D)
-    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
-        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    _check_fused_qkv_backward(cuda_device, S, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 80, 96])
+def test_f32_backward_reads_fused_qkv_views(cuda_device, S):
+    """An f32 model's layout: f32 q/k/v as strided views of one fused
+    projection, through the split-precision TF32 backward pair, in every
+    mask mode (S = 8 below one 64-row tile, 80 and 96 past one), at the
+    fixed f32 gradient tolerance with bit-identical repeats."""
+    _check_fused_qkv_backward(cuda_device, S, torch.float32)
+
+
+@pytest.mark.gpu
+def test_lse_out_dtype_f32_backward_takes_the_tf32x3_pair(cuda_device):
+    """``flash_attention_lse(out_dtype=f32)`` over bf16 inputs (ring
+    attention's per-hop partial): the f32 output's cotangent sends the
+    backward to the split-precision TF32 pair, whose bf16 gradients
+    match the plain path's on the CPU."""
+    rng = np.random.RandomState(12)
+    B, S, H, D = 2, 96, 3, 64
+    ins = [torch.from_numpy((rng.randn(B, S, H, D) * 0.5).astype(
+        np.float32)).bfloat16() for _ in range(3)]
+    w = torch.from_numpy(rng.randn(B, H, S).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        q, k, v = (t.to(dev).requires_grad_() for t in ins)
         n0 = dict(tfl.LAUNCHES)
-        dq, _, _ = _check_bwd(q, k, v, do, lse, delta, mode, scale,
-                              torch.bfloat16)
-        assert tfl.LAUNCHES["flash_bwd_dq_wgmma"] == \
-            n0["flash_bwd_dq_wgmma"] + 2
-        assert tfl.LAUNCHES["flash_bwd_dkv_wgmma"] == \
-            n0["flash_bwd_dkv_wgmma"] + 2
-        if mode == tfl.MASK_STRICT:
-            assert float(dq[:, 0].float().abs().max()) == 0.0
+        o, lse = tfl.flash_attention_lse(q, k, v, mask_mode=tfl.MASK_CAUSAL,
+                                         out_dtype=torch.float32)
+        (o * o.cos()).sum().add((lse * w.to(dev)).sum()).backward()
+        n = {key: tfl.LAUNCHES[key] - n0[key] for key in n0}
+        if dev.type == "cuda":
+            assert n["flash_bwd_dq_tf32x3"] == n["flash_bwd_dkv_tf32x3"] == 1
+            assert n["flash_bwd_dq_wgmma"] == n["flash_bwd_dkv_wgmma"] == 0
+        else:
+            assert not any(n.values())
+        grads.append([t.grad for t in (q, k, v)])
+    torch.cuda.synchronize()
+    (rt, at), _ = _TOL[torch.bfloat16]
+    for g, w_, name in zip(*grads, "qkv"):
+        assert g.dtype == torch.bfloat16
+        _assert_close(g.cpu(), w_, rt, at, msg=f"d{name}")
 
 
 @pytest.mark.gpu
@@ -873,7 +928,8 @@ def _optimizer_step_through_nccl(hvd, cuda_device):
 def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
     """With ``remat`` the backward recomputes each block: the forward
     kernel launches twice per layer and micro-batch, the backward
-    kernels once; the gradients equal the run without remat."""
+    kernels (on their f32 route) once; the gradients equal the run
+    without remat."""
     import dataclasses
     from horovod_tpu_torch.models import lm_loss
     cfg = dataclasses.replace(_TINY, causal=False, attention_impl="flash")
@@ -895,7 +951,9 @@ def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
                        "flash_bwd_dq": L, "flash_bwd_dkv": L,
                        "flash_fwd_wgmma": 0,      # an f32 model
                        "flash_bwd_dq_wgmma": 0,
-                       "flash_bwd_dkv_wgmma": 0}, got
+                       "flash_bwd_dkv_wgmma": 0,
+                       "flash_bwd_dq_tf32x3": L,
+                       "flash_bwd_dkv_tf32x3": L}, got
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
