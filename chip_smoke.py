@@ -23,14 +23,14 @@ Phases, each of which exits non-zero on failure:
    (SDPA over the gathered K/V) with CUDA events;
 3. hold the three FlashAttention-2 kernels (forward, dQ, dK/dV) against
    their plain versions, in every mask mode, f32 and bf16 (the bf16 route
-   of each is its wgmma kernel; the f32 route of dQ and dK/dV is 3xTF32
-   on the tensor cores, held at the fixed f32 tolerance), with a row
-   that sees no key,
+   of each is its wgmma kernel; the f32 route of each is 3xTF32 on the
+   tensor cores, held at the fixed f32 tolerance), with a row that sees
+   no key and a repeat of each forward that must give the same bits,
    at the tiny test shapes and the training path's shapes (BERT-large
    bench [32, 128, 16, 64], GPT-2 small [4, 1024, 12, 64] causal); time
    each kernel, its plain version and SDPA's forward / backward at those
-   shapes, the f32 backward pair's bound reckoned as three TF32 passes
-   (the f32 FMA pipe's printed beside it);
+   shapes, the f32 kernels' bounds reckoned as three TF32 passes (the
+   f32 FMA pipe's printed beside them);
 4. drive the serving path: the port's HTTP server, in process, serving
    gpt2-small at full width and depth with random weights from a fixed
    seed, f32, ``attn_impl`` auto; check identical prompts give
@@ -67,8 +67,8 @@ Phases, each of which exits non-zero on failure:
    the device's busy share of a traced step.  Then hold one f32 and one
    bf16 step of a 2-layer BERT-large-width model through the kernels
    against the dense attention path (the f32 step must launch the 3xTF32
-   backward pair once per layer: those counts are the f32 instances'
-   launches), and run 3 steps of GPT-2 small
+   forward and backward pair once per layer: those counts are the f32
+   instances' launches), and run 3 steps of GPT-2 small
    (bf16) with causal flash attention at 1024 tokens;
 6. drive the ResNet-50 training path: ``examples/synthetic_benchmark.main``
    at the JAX configuration (ResNet-50, 224x224x3, 1000 classes, 128
@@ -156,7 +156,7 @@ def spill_report(build_log: str) -> dict:
         elif "Compiling entry function" in line:
             kernel = line.split("'")[1]
             # _ZN..._<name>ILi0ELi2ELi32EEEv... -> <name><0,2,32>
-            m = re.search(r"([a-z_]+_kernel)I((?:Li\d+E)+)E", kernel)
+            m = re.search(r"([a-z0-9_]+_kernel)I((?:Li\d+E)+)E", kernel)
             if m:
                 kernel = m.group(1) + "<" + ",".join(
                     re.findall(r"Li(\d+)E", m.group(2))) + ">"
@@ -480,6 +480,7 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
     scale = 1.0 / np.sqrt(shape[-1])
     (frt, fat), (grt, gat) = FLASH_TOL[str(dtype).split(".")[-1]]
     out, lse = fl.flash_fwd(q, k, v, mode, scale)
+    again = fl.flash_fwd(q, k, v, mode, scale)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dq = fl.flash_bwd_dq(q, k, v, do, lse, delta, mode, scale)
     dk, dv = fl.flash_bwd_dkv(q, k, v, do, lse, delta, mode, scale)
@@ -519,7 +520,8 @@ def flash_case(torch, fl, rng, shape, dtype, mode, device):
             "flash_bwd_dkv": max(err(dk, r_dk), err(dv, r_dv))}
     ok = (fwd <= 1.0
           and ratio(lse, r_lse, *FLASH_TOL["float32"][0]) <= 1.0
-          and worst <= 1.0)
+          and worst <= 1.0
+          and torch.equal(out, again[0]) and torch.equal(lse, again[1]))
     if mode == fl.MASK_STRICT:  # row 0 sees no key
         ok = ok and float(out[:, 0].float().abs().max()) == 0.0 \
             and bool(torch.all(lse[:, :, 0] == fl.NEG_INF / 2)) \
@@ -563,14 +565,11 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
     for kname, (kern, plain, lib_ms) in runs.items():
         nbytes, flops = work[kname]
         t_bytes = nbytes / HBM_BYTES_PER_S
-        # bf16 runs on the tensor cores at the bf16 rate.  In f32 the
-        # forward runs on the f32 FMA pipe; the backward pair runs on the
-        # tensor cores in split-precision TF32, three passes a product:
-        # the card's least time for f32-accurate work.
+        # bf16 runs on the tensor cores at the bf16 rate.  f32 runs on
+        # the tensor cores in split-precision TF32, three passes a
+        # product: the card's least time for f32-accurate work.
         if dtype == torch.bfloat16:
             t_ops = flops / BF16_FLOPS_PER_S
-        elif kname == "flash_fwd":
-            t_ops = flops / F32_FLOPS_PER_S
         else:
             t_ops = 3 * flops / TF32_FLOPS_PER_S
         rec = {"ms": time_ms(torch, kern, 20, flush),
@@ -581,7 +580,7 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
                "bytes": nbytes, "flops": flops}
         record[kname] = rec
         f32_pipe = ""
-        if dtype != torch.bfloat16 and kname != "flash_fwd":
+        if dtype != torch.bfloat16:
             pipe_ms = max(t_bytes, flops / F32_FLOPS_PER_S) * 1e3
             f32_pipe = (f"; on the f32 FMA pipe the bound would be "
                         f"{pipe_ms:.4f} ms, share {pipe_ms / rec['ms']:.3f}")
@@ -1346,8 +1345,8 @@ def _flash_share(torch, prof, busy_ms):
 
 def bf16_launches(launches, want):
     """Whether a bf16 model's flash counts are ``want`` launches of each
-    kernel, every one on its wgmma route, and none on the f32 backward
-    route (``_tf32x3``)."""
+    kernel, every one on its wgmma route, and none on the f32 route
+    (``_tf32x3``, forward and backward)."""
     return all(n == (0 if name.endswith("_tf32x3") else want)
                for name, n in launches.items())
 
@@ -1444,9 +1443,9 @@ BF16_STEP_BOUND = 2**-5
 def flash_vs_dense_step(torch, device, rehearsal, dtype):
     """One step of a 2-layer model at BERT-large width through the flash
     kernels, against the same model with dense attention (the plain
-    formula).  f32 (the backward pair's split-precision TF32 route): loss
-    and every gradient at 2e-3 / 2e-4.  bf16 (the main path's products,
-    so the backward pair's wgmma route): the loss and each parameter's
+    formula).  f32 (the kernels' split-precision TF32 route): loss and
+    every gradient at 2e-3 / 2e-4.  bf16 (the main path's products, so
+    the kernels' wgmma route): the loss and each parameter's
     gradient norm-wise within BF16_STEP_BOUND.  Returns the flash launch
     counts of the flash model's step, counted from 0."""
     import dataclasses
@@ -1489,11 +1488,10 @@ def flash_vs_dense_step(torch, device, rehearsal, dtype):
             for a, b in zip(gf, gd))
         if not rehearsal:  # one launch of each per layer, on its route
             ok = ok and all(
-                launches[f"flash_bwd_{k}_{route}"] == n
-                for k in ("dq", "dkv")
+                launches[f"flash_{k}_{route}"] == n
+                for k in ("fwd", "bwd_dq", "bwd_dkv")
                 for route, n in (("tf32x3", cfg.num_layers), ("wgmma", 0)))
-        bwd = {k: n for k, n in launches.items() if k.startswith("flash_bwd")}
-        log(head + f"max grad abs err {err:.3e}, launches {bwd} "
+        log(head + f"max grad abs err {err:.3e}, launches {launches} "
             f"({'ok' if ok else 'MISMATCH'} at 2e-3/2e-4)")
     else:
         names = [n for n, _ in flash.named_parameters()]
@@ -2081,14 +2079,15 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": "BERT-large bench [32, 128, 16, 64] bf16, no mask, "
                      "cold L2"})
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         r = frec["gpt2-small f32"][name]
         # The f32 instance: launches from phase 5's f32 step, the only
         # path that runs it.
         kernels.append({
             "name": name + "_f32", "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/"
-                      "flash_attention_bwd_tf32_sm90.cu",
+            "source": "horovod_tpu_torch/csrc/" + (
+                "flash_attention_fwd_tf32_sm90.cu" if name == "flash_fwd"
+                else "flash_attention_bwd_tf32_sm90.cu"),
             "replaces": replaces[name],
             "launches": f32_launches[name + "_tf32x3"],
             "max_abs_err": frec["max_abs_err_f32"][name],

@@ -25,9 +25,10 @@ from typing import Optional, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("paged_attention_prefill_sm90.cu", "paged_attention_decode_sm90.cu",
            "flash_attention.cu", "flash_attention_fwd_sm90.cu",
-           "flash_attention_bwd_sm90.cu", "flash_attention_bwd_tf32_sm90.cu")
+           "flash_attention_fwd_tf32_sm90.cu", "flash_attention_bwd_sm90.cu",
+           "flash_attention_bwd_tf32_sm90.cu")
 # Included by the sm90 sources; part of the hash.
-HEADERS = ("sm90.cuh", "mma_sync.cuh")
+HEADERS = ("sm90.cuh", "mma_sync.cuh", "flash_tf32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhvd_torch_kernels.so"

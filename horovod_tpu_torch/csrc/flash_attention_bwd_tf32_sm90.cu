@@ -72,129 +72,12 @@
 // grid puts the tile index slowest: every (b, h)'s longest tile starts
 // before any shorter one, and the short ones fill the end.
 // The scale is applied in f32: inside exp2, and to dQ / dK once at the end.
+// The tile copies and products are flash_tf32.cuh's, shared with the f32
+// forward (flash_attention_fwd_tf32_sm90.cu).
 
-#include "mma_sync.cuh"
-#include "sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
-
-template <int D>
-struct Tf32Tile {
-  static constexpr int RS = D + 4;   // floats of a padded row
-  static constexpr int NKD = D / 8;  // k-steps along D; n-tiles of the sums
-};
-
-// Rows [row0, row0 + R) of one (b, h) slice into dst[R][D + 4] by 16-byte
-// cp.async; rows at or past S become zeros.  Thread t copies the piece
-// t % (D / 4) of rows t / (D / 4) + j * (NT / (D / 4)), so its address
-// moves by a fixed step from one copy to the next.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          const Str& st, int b, int h,
-                                          int row0, int S) {
-  constexpr int CPR = D / 4;     // 16-byte pieces of a row
-  constexpr int RPT = NT / CPR;  // rows one trip of the block covers
-  static_assert(R % RPT == 0, "whole trips");
-  const int r = threadIdx.x / CPR, c = (threadIdx.x % CPR) * 4;
-  const float* g = src + at(st, b, row0 + r, h) + c;
-  const long long step = RPT * st.s;
-  float* d = dst + r * Tf32Tile<D>::RS + c;
-#pragma unroll
-  for (int j = 0; j < R / RPT; ++j) {
-    const bool ok = row0 + r + j * RPT < S;
-    cp_async16(d + j * RPT * Tf32Tile<D>::RS, ok ? g + j * step : src, ok);
-  }
-}
-
-// acc[m][n] = A_m . B_n^T over the head dim for MT m-tiles of 16 rows from
-// `a_rows` and N n-tiles of 8 rows from `b_rows`: S = Q.K^T, dP = dO.V^T
-// and their transposes.  Each B fragment is split once for all MT m-tiles.
-template <int D, int MT, int N>
-__device__ __forceinline__ void rows_dot_rows(float (&acc)[MT][N][4],
-                                              const float* a_rows,
-                                              const float* b_rows, int g,
-                                              int t4) {
-  constexpr int RS = Tf32Tile<D>::RS;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < N; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-#pragma unroll 2
-  for (int kk = 0; kk < Tf32Tile<D>::NKD; ++kk) {
-    uint32_t hi[MT][4], lo[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const float* x = a_rows + (m * 16 + g) * RS + kk * 8 + t4;
-      split_a(x[0], x[8 * RS], x[4], x[8 * RS + 4], hi[m], lo[m]);
-    }
-    BFrag bf[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float* br = b_rows + (n * 8 + g) * RS + kk * 8 + t4;
-      bf[n] = split_b<false>(br[0], br[4]);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) mma3_tiles<N>(acc[m], hi[m], lo[m], bf);
-  }
-}
-
-// out[m] += X_m . B, X an accumulator [MT * 16][N * 8] (P or dS, its k
-// index permuted: lane t4 holds columns 2*t4 and 2*t4 + 1 of each 8), B
-// the N * 8 rows of `b_rows` over the head dim, read in the same order.
-template <int D, int MT, int N>
-__device__ __forceinline__ void acc_dot_rows(
-    float (&out)[MT][Tf32Tile<D>::NKD][4], const float (&x)[MT][N][4],
-    const float* b_rows, int g, int t4) {
-  constexpr int RS = Tf32Tile<D>::RS, NKD = Tf32Tile<D>::NKD;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    uint32_t hi[MT][4], lo[MT][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-      split_a(x[m][j][0], x[m][j][2], x[m][j][1], x[m][j][3], hi[m], lo[m]);
-    const float* br = b_rows + (j * 8 + 2 * t4) * RS + g;
-    BFrag bf[NKD];
-#pragma unroll
-    for (int d = 0; d < NKD; ++d)
-      bf[d] = split_b<false>(br[d * 8], br[RS + d * 8]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) mma3_tiles<NKD>(out[m], hi[m], lo[m], bf);
-  }
-}
-
-template <int D, int MT>
-__device__ __forceinline__ void zero(float (&acc)[MT][D / 8][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int d = 0; d < D / 8; ++d)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][d][i] = 0.f;
-}
-
-// MT m-tiles of 16 rows from row r0 of a [.. x D] accumulator, times
-// `mul`, rows below S only: lane (g, t4) holds rows r0 + 16 m + g (+ 8).
-template <int D, int MT>
-__device__ __forceinline__ void store_rows(float* out, const Str& st, int b,
-                                           int h, int r0, int S,
-                                           const float (&acc)[MT][D / 8][4],
-                                           float mul) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + m * 16 + lane / 4 + 8 * half;
-      if (r >= S) continue;
-      float* o = out + at(st, b, r, h) + 2 * (lane % 4);
-#pragma unroll
-      for (int d = 0; d < D / 8; ++d)
-        *reinterpret_cast<float2*>(o + d * 8) = make_float2(
-            acc[m][d][2 * half] * mul, acc[m][d][2 * half + 1] * mul);
-    }
-}
 
 // ---------------------------------------------------------------------------
 // dQ: a block per tile of 64 query rows, keys streamed in tiles of 64.
@@ -401,7 +284,6 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1) dkv_tf32x3_kernel(
   const int kr_lo = warp * 16 + g;  // this lane's key rows: kr_lo, + 8
   const float* k_w = ks + warp * 16 * RS;
   const float* v_w = vs + warp * 16 * RS;
-  const float sl2 = scale * LOG2E;
   float gk[1][Tf32Tile<D>::NKD][4], gv[1][Tf32Tile<D>::NKD][4];
   zero<D, 1>(gk);
   zero<D, 1>(gv);
@@ -447,13 +329,6 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1) dkv_tf32x3_kernel(
 // ---------------------------------------------------------------------------
 // Host side: launches
 // ---------------------------------------------------------------------------
-
-// Grid (H, B, ceil(S/64)) with the tile index slowest: blocks start in
-// linear order, x fastest, so under a causal mask the longest tile of
-// every (b, h) starts before any shorter one.
-dim3 tile_major(int B, int S, int H) {
-  return dim3(H, B, (S + ROWS - 1) / ROWS);
-}
 
 template <int D>
 cudaError_t dq_launch(const void* q, const void* k, const void* v,

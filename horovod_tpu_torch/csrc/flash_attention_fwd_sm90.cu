@@ -6,11 +6,11 @@
 // out = softmax(mask(scale * q.k^T)) . v and lse = m + log l per query
 // row, an online softmax over key tiles with the running max floored at
 // NEG_INF/2 and the sum at 1e-30.  It is reached through hvd_flash_fwd
-// (flash_attention.cu) when q, k and v are all bf16; the f32 instances stay
-// the SIMT kernel there, whose f32 products hold the JAX f32 forward
-// tolerance (TF32 would not).
+// (flash_attention.cu) when q, k and v are all bf16; the f32 instances
+// take flash_attention_fwd_tf32_sm90.cu, whose split-precision TF32
+// products hold the JAX f32 forward tolerance (one TF32 pass would not).
 //
-// Contract (the SIMT kernel's own): q, k, v and out are [B, S, H, D] with
+// Contract (the f32 forward's too): q, k, v and out are [B, S, H, D] with
 // the head dim contiguous and 16-byte-multiple strides for B, S and H
 // (q/k/v sliced out of the fused qkv projection are read in place); lse
 // is f32 [B, H, S]; D is 16, 32, 64 or 128; any S; masks NONE, CAUSAL
@@ -26,8 +26,8 @@
 // lse.  At BERT-large [32, 128, 16, 64] the bytes bound it: 33.8 MB at
 // 3.35 TB/s is 10.1 us, against 2.15 GFLOP at 989 TFLOP/s, 2.2 us.  At
 // GPT-2's 1024 causal tokens [4, 1024, 12, 64] the two are close: 25.4 MB
-// is 7.6 us and 6.45 GFLOP is 6.5 us on the bf16 tensor cores (96 us on
-// the f32 FMA pipe, where the SIMT kernel of flash_attention.cu runs).
+// is 7.6 us and 6.45 GFLOP is 6.5 us on the bf16 tensor cores (39 us as
+// the three TF32 passes of the f32 forward, 96 us on the f32 FMA pipe).
 // So the products go to the tensor cores and every operand is read from
 // device memory once per tile, asynchronously, with no f32 staging.
 //
@@ -49,8 +49,9 @@
 //     (MN-major), as dS.K is in dq_kernel.  The row sum l is taken from
 //     the f32 P before that rounding (each thread keeps a partial sum over
 //     its columns; the quad adds them once, at the end), so lse keeps the
-//     f32 tolerance.  The one rounding this adds to the f32 SIMT kernel:
-//     P enters P.V as bf16 (flash.attention_fwd_rounding_bound).
+//     f32 tolerance.  The one rounding this adds to the plain version's
+//     f32 arithmetic: P enters P.V as bf16
+//     (flash.attention_fwd_rounding_bound).
 //   * Epilogue: out = acc / max(l, 1e-30) rounded to bf16, staged through
 //     the (then idle) K ring with a padded row stride and written with
 //     16-byte stores, columns below D only; lse = m + log l in natural log.

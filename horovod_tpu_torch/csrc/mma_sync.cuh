@@ -1,8 +1,10 @@
 // Building blocks of the kernels that multiply on the tensor cores through
 // `mma.sync` in split-precision TF32: paged_attention_prefill_sm90.cu (B4's
-// prefill route) and flash_attention_bwd_tf32_sm90.cu (the f32 flash
-// backward pair).  Both round and multiply with these same helpers, so an
-// f32 product carries the same error in every kernel that makes one.
+// prefill route), flash_attention_fwd_tf32_sm90.cu and
+// flash_attention_bwd_tf32_sm90.cu (the f32 flash forward and backward
+// pair, through flash_tf32.cuh).  All round and multiply with these same
+// helpers, so an f32 product carries the same error in every kernel that
+// makes one.
 //
 // Numerics.  One TF32 product rounds each operand to 11 significant bits
 // (2^-11), which breaks the JAX package's f32 tolerances.  So every f32

@@ -9,18 +9,17 @@ there become hand-written CUDA kernels for Hopper:
 * ``_bwd_dq_kernel`` (``:158``) → ``hvd_flash_bwd_dq``;
 * ``_bwd_dkv_kernel`` (``:195``) → ``hvd_flash_bwd_dkv``.
 
-Each has two routes, chosen by the operands' dtype alone
-(:func:`fwd_route`, :func:`bwd_route`): bf16 operands run the
-tensor-core kernels (wgmma fed by TMA) of
-``csrc/flash_attention_fwd_sm90.cu`` (P enters P·V as bf16) and
-``csrc/flash_attention_bwd_sm90.cu`` (P and dS enter the second
-products as bf16).  Anything else runs in f32: the forward on the SIMT
-kernel of ``csrc/flash_attention.cu``, the backward pair on the tensor
-cores in split-precision TF32 (``csrc/flash_attention_bwd_tf32_sm90.cu``,
-``mma.sync``): each f32 operand splits into a TF32 hi and lo part and
-each product sums lo·hi + hi·lo + hi·hi in f32, about 3·2⁻²² of
-Σ|a||b| from the f32 product, where one TF32 pass (2⁻¹¹) would break
-the JAX f32 gradient tolerance.
+Each has two routes, both on the tensor cores, chosen by the operands'
+dtype alone (:func:`fwd_route`, :func:`bwd_route`): bf16 operands run
+the ``wgmma`` kernels fed by TMA of ``csrc/flash_attention_fwd_sm90.cu``
+(P enters P·V as bf16) and ``csrc/flash_attention_bwd_sm90.cu`` (P and
+dS enter the second products as bf16).  Anything else runs in f32, on
+``mma.sync`` in split-precision TF32 (``"tf32x3"``): the forward in
+``csrc/flash_attention_fwd_tf32_sm90.cu``, the backward pair in
+``csrc/flash_attention_bwd_tf32_sm90.cu``.  Each f32 operand splits
+into a TF32 hi and lo part and each product sums lo·hi + hi·lo + hi·hi
+in f32, about 3·2⁻²² of Σ|a||b| from the f32 product, where one TF32
+pass (2⁻¹¹) would break the JAX f32 tolerances.
 
 The public functions keep the JAX signatures and the [B, S, H, D]
 layout: :func:`flash_attention` and :func:`flash_attention_lse` (which
@@ -66,12 +65,11 @@ MASK_NONE, MASK_CAUSAL, MASK_STRICT = 0, 1, 2
 #: wrapper call that launches its kernel, never by the plain versions.
 #: ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch
 #: of their kernel; the ``_wgmma`` names count those that took the bf16
-#: tensor-core route as well, the ``_tf32x3`` names those of the f32
-#: backward pair.
+#: route as well, the ``_tf32x3`` names those of the f32 route.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_wgmma": 0, "flash_bwd_dq_wgmma": 0,
-            "flash_bwd_dkv_wgmma": 0, "flash_bwd_dq_tf32x3": 0,
-            "flash_bwd_dkv_tf32x3": 0}
+            "flash_bwd_dkv_wgmma": 0, "flash_fwd_tf32x3": 0,
+            "flash_bwd_dq_tf32x3": 0, "flash_bwd_dkv_tf32x3": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -278,10 +276,10 @@ def kernel_dtype(*ts) -> torch.dtype:
 
 def fwd_route(q, k, v) -> str:
     """The forward's route for these operands: ``"wgmma"`` (the bf16
-    tensor-core kernel) when q, k and v are all bf16, else ``"simt"``
-    (the f32 kernel).  The C entry point picks the same kernel from the
-    element type the wrapper passes it."""
-    return "wgmma" if kernel_dtype(q, k, v) == torch.bfloat16 else "simt"
+    kernel) when q, k and v are all bf16, else ``"tf32x3"`` (the f32
+    kernel, split-precision TF32 on the tensor cores).  The C entry point
+    picks the same kernel from the element type the wrapper passes it."""
+    return "wgmma" if kernel_dtype(q, k, v) == torch.bfloat16 else "tf32x3"
 
 
 def bwd_route(q, k, v, do) -> str:
@@ -334,8 +332,7 @@ def _validate(q, k, v):
 
 def _count(name, route):
     LAUNCHES[name] += 1
-    if route != "simt":  # the f32 forward has no count of its own
-        LAUNCHES[f"{name}_{route}"] += 1
+    LAUNCHES[f"{name}_{route}"] += 1
 
 
 def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):

@@ -265,8 +265,8 @@ def test_forward_route_is_wgmma_only_when_every_operand_is_bf16():
     for i in range(3):
         ops = [b] * 3
         ops[i] = f
-        assert tfl.fwd_route(*ops) == "simt"
-    assert tfl.fwd_route(f, f, f) == "simt"
+        assert tfl.fwd_route(*ops) == "tf32x3"
+    assert tfl.fwd_route(f, f, f) == "tf32x3"
     with pytest.raises(ValueError, match="dtype"):
         tfl.fwd_route(b, b, b.half())
 
@@ -283,12 +283,12 @@ def _spy_forward_routes(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "tf32x3")])
 def test_transformer_forward_takes_the_route_of_its_dtype(monkeypatch,
                                                           dtype, route):
     """The model's attention hands the forward q/k/v of the compute dtype:
     a bf16 model (BERT's and GPT-2's) takes the wgmma route, an f32 one
-    the SIMT route."""
+    the split-precision TF32 route."""
     from horovod_tpu_torch.models import Transformer, TransformerConfig
     from horovod_tpu_torch.models.transformer import init_gpt2_
     cfg = TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
@@ -301,14 +301,16 @@ def test_transformer_forward_takes_the_route_of_its_dtype(monkeypatch,
     assert seen == [route] * cfg.num_layers
 
 
-def test_lse_out_dtype_f32_keeps_bf16_inputs_on_the_simt_route(monkeypatch):
+def test_lse_out_dtype_f32_keeps_bf16_inputs_on_the_tf32x3_route(
+        monkeypatch):
     """``out_dtype=f32`` casts q before the forward, as JAX does, so bf16
-    inputs go to the f32 kernel and the partial keeps f32 products."""
+    inputs go to the f32 kernel and the partial keeps f32-accurate
+    products."""
     seen = _spy_forward_routes(monkeypatch)
     q, k, v = _t(_inputs(7), torch.bfloat16)
     tfl.flash_attention_lse(q, k, v, out_dtype=torch.float32)
     tfl.flash_attention_lse(q, k, v)
-    assert seen == ["simt", "wgmma"]
+    assert seen == ["tf32x3", "wgmma"]
 
 
 def _fwd_with_bf16_p(q, k, v, mode, scale):
@@ -356,7 +358,7 @@ def test_forward_rounding_bound_is_sound(mode, seed):
 
 
 # ---------------------------------------------------------------------------
-# The f32 backward pair's arithmetic: split-precision TF32 (3xTF32)
+# The f32 kernels' arithmetic: split-precision TF32 (3xTF32)
 # ---------------------------------------------------------------------------
 
 def _tf32(x):
@@ -416,6 +418,63 @@ def test_tf32x3_backward_pair_matches_jax_run_bwd_kernels(mode, D, S):
         _close(g, _bshd(want, B, H), GRAD, name)
     if mode == jfl.MASK_STRICT:
         assert float(got[0][:, 0].abs().max()) == 0.0
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _fwd_tf32x3(q, k, v, mode, scale, tile=64):
+    """out [B, S, H, D] and lse [B, H, S] with both products in 3xTF32
+    and the softmax in f32, online over key tiles of ``tile``, as
+    ``csrc/flash_attention_fwd_tf32_sm90.cu`` computes them: the running
+    max floored at ``NEG_INF / 2`` from the start and compared as
+    s·scale, the scale applied inside exp2, P = exp2(s·scale·log2 e −
+    m·log2 e), l floored at 1e-30 and out = O·(1 / l)."""
+    B, S, H, D = q.shape
+    keep = tfl._keep(S, mode, q.device)
+    m = torch.full((B, H, S), tfl.NEG_INF / 2)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    sl2 = np.float32(scale) * LOG2E
+    for k0 in range(0, S, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = _mm3("bqhd,bkhd->bhqk", q, kt)
+        if keep is not None:
+            s = torch.where(keep[:, k0:k0 + tile], s,
+                            torch.full_like(s, -float("inf")))
+        m_new = torch.maximum(m, s.amax(dim=-1) * np.float32(scale))
+        corr = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2(s * sl2 - (m_new * LOG2E)[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _mm3("bhqk,bkhd->bhqd", p, vt)
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    out = acc * (1.0 / l)[..., None]
+    return out.transpose(1, 2), m + torch.log(l)
+
+
+@pytest.mark.parametrize("S", [48, 80, 144])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("mode", [jfl.MASK_NONE, jfl.MASK_CAUSAL,
+                                  jfl.MASK_STRICT])
+def test_tf32x3_forward_matches_jax_flash_fwd(mode, D, S):
+    """The f32 forward's arithmetic (both products in 3xTF32, the online
+    softmax in f32 over 64-key tiles) against JAX's forward kernel
+    (``_flash_fwd``, interpret mode, blocks of 16) at the f32 forward
+    tolerance, for out and lse, past one and two 64-row tiles; STRICT's
+    row 0 sees no key: out exactly 0 and lse exactly ``NEG_INF / 2``."""
+    B, H = 2, 2
+    q, k, v = _inputs(90 + 3 * mode + D + S, (B, S, H, D))
+    scale = 1.0 / np.sqrt(D)
+    jout, res = jfl._flash_fwd(*(_bhsd(x, jnp.float32) for x in (q, k, v)),
+                               mode, scale, 16, 16, True)
+    out, lse = _fwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v)), mode,
+                           scale)
+    _close(out, _bshd(jout, B, H), FWD, "out")
+    _close(lse, _bshd(res[4], B, H), FWD, "lse")
+    if mode == jfl.MASK_STRICT:
+        assert float(out[:, 0].abs().max()) == 0.0
+        assert torch.all(lse[:, :, 0] == np.float32(tfl.NEG_INF / 2))
 
 
 #: The error estimate of one 3xTF32 product (PERF.md §6): the dropped

@@ -589,9 +589,11 @@ def test_aligned_draft_spec_on_the_kernels_accepts_and_equals_greedy(
 
 
 # ---------------------------------------------------------------------------
-# FlashAttention-2 kernels (csrc/flash_attention.cu; the bf16 forward in
-# csrc/flash_attention_fwd_sm90.cu, the bf16 backward pair in
-# csrc/flash_attention_bwd_sm90.cu) against their plain versions: f32
+# FlashAttention-2 kernels (entry points in csrc/flash_attention.cu; bf16
+# on wgmma in csrc/flash_attention_fwd_sm90.cu and
+# csrc/flash_attention_bwd_sm90.cu, f32 on 3xTF32 mma.sync in
+# csrc/flash_attention_fwd_tf32_sm90.cu and
+# csrc/flash_attention_bwd_tf32_sm90.cu) against their plain versions: f32
 # forward 2e-4 / 2e-5 and gradients 2e-3 / 2e-4 (the JAX package's flash
 # tolerances, tests/test_flash.py).  In bf16 both sides sum in f32 and
 # round the output once: 2 bf16 ulps (rtol 2**-6) and an atol of 1e-3
@@ -640,6 +642,8 @@ def _check_fwd(q, k, v, mode, scale, dtype):
     wg = 2 if dtype == torch.bfloat16 else 0
     assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"] + 2
     assert tfl.LAUNCHES["flash_fwd_wgmma"] == n0["flash_fwd_wgmma"] + wg
+    assert tfl.LAUNCHES["flash_fwd_tf32x3"] == \
+        n0["flash_fwd_tf32x3"] + 2 - wg
     if mode == tfl.MASK_STRICT:   # row 0 sees no key
         assert float(out[:, 0].float().abs().max()) == 0.0
         assert torch.all(lse[:, :, 0] == -1e30 / 2)
@@ -694,7 +698,8 @@ def test_flash_kernels_match_plain_versions(cuda_device, dtype, shape):
         n0 = dict(tfl.LAUNCHES)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
         got = _check_bwd(q, k, v, do, lse, delta, mode, scale, dtype)
-        assert tfl.LAUNCHES["flash_fwd"] == n0["flash_fwd"]
+        for name in ("flash_fwd", "flash_fwd_wgmma", "flash_fwd_tf32x3"):
+            assert tfl.LAUNCHES[name] == n0[name]
         assert tfl.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 2
         assert tfl.LAUNCHES["flash_bwd_dkv"] == n0["flash_bwd_dkv"] + 2
         wg = 2 if dtype == torch.bfloat16 else 0
@@ -852,6 +857,42 @@ def test_bf16_forward_reads_fused_qkv_views(cuda_device, S):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 80, 96])
+def test_f32_forward_reads_fused_qkv_views(cuda_device, S):
+    """An f32 model's layout: f32 q/k/v as strided views of one fused
+    [B, S, 3, H, D] projection, through the split-precision TF32 forward,
+    in every mask mode (S = 8 below one 64-row tile, 80 and 96 past one),
+    at the fixed f32 forward tolerance with bit-identical repeats."""
+    rng = np.random.RandomState(200 + S)
+    B, H, D = 2, 4, 64
+    qkv = torch.from_numpy((rng.randn(B, S, 3, H, D) * 0.5).astype(
+        np.float32)).to(cuda_device)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        _check_fwd(q, k, v, mode, 1.0 / np.sqrt(D), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_f32_forward_matches_plain_version_past_one_tile(cuda_device, D):
+    """The f32 forward (128 query rows a block at D <= 64, 64 at D = 128)
+    holds the plain version in every mask mode at S past one 128-row
+    tile."""
+    rng = np.random.RandomState(300 + D)
+    q, k, v, _ = _flash_inputs(rng, (2, 200, 3, D), torch.float32,
+                               cuda_device)
+    scale = 1.0 / np.sqrt(D)
+    for mode in (tfl.MASK_NONE, tfl.MASK_CAUSAL, tfl.MASK_STRICT):
+        want = tfl.attention_fwd_reference(q, k, v, mask_mode=mode,
+                                           scale=scale)
+        out, lse = tfl.flash_fwd(q, k, v, mode, scale)
+        torch.cuda.synchronize()
+        _assert_close(out, want[0], 2e-4, 2e-5, msg=f"mode {mode}")
+        torch.testing.assert_close(lse, want[1], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
 def test_bf16_forward_reads_head_major_views(cuda_device):
     """[B, H, S, D] tensors viewed as [B, S, H, D] (the head stride above
     the sequence stride) go to the wgmma forward as they lie."""
@@ -928,7 +969,7 @@ def _optimizer_step_through_nccl(hvd, cuda_device):
 def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
     """With ``remat`` the backward recomputes each block: the forward
     kernel launches twice per layer and micro-batch, the backward
-    kernels (on their f32 route) once; the gradients equal the run
+    kernels once, all on their f32 route; the gradients equal the run
     without remat."""
     import dataclasses
     from horovod_tpu_torch.models import lm_loss
@@ -952,6 +993,7 @@ def test_remat_runs_the_forward_kernel_twice_per_block(cuda_device):
                        "flash_fwd_wgmma": 0,      # an f32 model
                        "flash_bwd_dq_wgmma": 0,
                        "flash_bwd_dkv_wgmma": 0,
+                       "flash_fwd_tf32x3": L * (2 if remat else 1),
                        "flash_bwd_dq_tf32x3": L,
                        "flash_bwd_dkv_tf32x3": L}, got
     for a, b in zip(*grads):
