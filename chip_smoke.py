@@ -26,8 +26,9 @@ Phases, each of which exits non-zero on failure:
    of each is its wgmma kernel; the f32 route of each is 3xTF32 on the
    tensor cores, held at the fixed f32 tolerance), with a row that sees
    no key and a repeat of each forward that must give the same bits,
-   at the tiny test shapes and the training path's shapes (BERT-large
-   bench [32, 128, 16, 64], GPT-2 small [4, 1024, 12, 64] causal); time
+   at the tiny test shapes and the training paths' shapes (BERT-large
+   bench [32, 128, 16, 64], GPT-2 small [4, 1024, 12, 64] causal, and
+   bf16 GPT-2 medium [4, 128, 16, 64] causal, phase 8's); time
    each kernel, its plain version and SDPA's forward / backward at those
    shapes, the f32 kernels' bounds reckoned as three TF32 passes (the
    f32 FMA pipe's printed beside them);
@@ -94,9 +95,31 @@ Phases, each of which exits non-zero on failure:
    CPU, that it lies on the card and that the backend is NCCL; time one
    call of allgather, alltoall and reducescatter at 4 KiB and 64 MiB of
    f32 and a device-to-device copy of the same bytes with CUDA events;
-8. print the card's name and power limit, one JSON line of phase 7's
-   times, one JSON line describing every ported kernel, and as the last
-   line ``{"ok": true, "device": ...}``.
+8. drive GPT-2-medium training with Adasum:
+   ``examples/gpt2_adasum.main`` at full width and depth (24 layers,
+   d_model 1024, 16 heads, vocab 50257, remat, causal flash attention,
+   bf16 products), 4 sequences of 128 tokens, 10 steps (2 warm-up, as
+   the example times) of ``local_value_and_grad`` +
+   ``adasum_delta_step(SGD(0.05))`` over NCCL in a world of one; check
+   the losses are finite and fall and each flash kernel launched on its
+   wgmma route 2 × 24 times a step (forward, run again by remat) or 24
+   times (dQ, dK/dV); report samples/s, step time, peak memory and the
+   busy share of 2 traced steps.  Then Adasum in the world of one
+   (``allreduce``, grouped, ``DistributedOptimizer(op=Adasum)``: the
+   input back, on the card, over NCCL); Adasum's combine on the card
+   (``pair_combine`` and the tree of 4 correlated "ranks", f32 with f32
+   and f64 islands and bf16) at wte [50257, 1024] and a block's [1024,
+   4096] against a float64 model on the CPU, where a plain Sum and a
+   combine without the factor 2 must fail the same check; one
+   ``pair_combine`` at wte's
+   shape timed with CUDA events beside a device copy of one operand
+   and its bytes bound;
+9. print the card's name and power limit, one JSON line of phase 7's
+   times, one of phase 8's numbers, one JSON line describing every
+   ported kernel (a bf16 flash kernel has one entry for phase 5's
+   BERT-large path and one, ``*_gpt2_medium``, for phase 8's, each with
+   that path's launches, counted from 0, and the error and times at its
+   shape), and as the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.  ``--device cpu`` rehearses the same phases at a tiny
@@ -595,7 +618,8 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
 
 def flash_phase(torch, device, rehearsal):
     """Phase 3.  Returns the max abs error of each kernel over every
-    case and the timings at the BERT-large bench shape."""
+    case and the timings at the training paths' shapes: BERT-large's
+    and GPT-2-small's, bf16 and f32, and GPT-2-medium's (phase 8), bf16."""
     from horovod_tpu_torch.parallel import flash as fl
     rng = np.random.RandomState(7)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -605,11 +629,13 @@ def flash_phase(torch, device, rehearsal):
                            (1, 80, 2, 128))
              for dt in (f32, bf16) for m in modes]
     bert, gpt2 = (32, 128, 16, 64), (4, 1024, 12, 64)
+    gpt2m = (4, 128, 16, 64)   # phase 8's GPT-2-medium path
     if not rehearsal:
         cases += [("bert-large", bert, bf16, fl.MASK_NONE),
                   ("bert-large", bert, f32, fl.MASK_NONE),
                   ("gpt2-small", gpt2, bf16, fl.MASK_CAUSAL),
-                  ("gpt2-small", gpt2, f32, fl.MASK_CAUSAL)]
+                  ("gpt2-small", gpt2, f32, fl.MASK_CAUSAL),
+                  ("gpt2-medium", gpt2m, bf16, fl.MASK_CAUSAL)]
     max_err = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     max_err_f32 = dict(max_err)   # the f32 instances alone
     timed = {}
@@ -643,11 +669,11 @@ def flash_phase(torch, device, rehearsal):
         if not ok:
             raise SystemExit(f"flash kernels disagree with their plain "
                              f"versions: {name} {dt} mask={mode}")
-        if not rehearsal and shape in (bert, gpt2):
+        if not rehearsal and shape in (bert, gpt2, gpt2m):
             # bf16 (the training path's type) under the bare name; the
             # f32 routes (f32 models, the f32 step check) too.
             timed[name if dt == bf16 else f"{name} f32"] = (shape, dt, mode,
-                                                           inputs)
+                                                           inputs, errs)
     for part in ("fwd", "grad"):
         log(f"  largest {part} err/tol: f32 {worst[part + ' float32']:.3f}, "
             f"bf16 {worst[part + ' bfloat16']:.3f} (over the fixed "
@@ -656,11 +682,13 @@ def flash_phase(torch, device, rehearsal):
     if rehearsal:
         return record
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
-    for name, (shape, dt, mode, inputs) in timed.items():
+    for name, (shape, dt, mode, inputs, errs) in timed.items():
         record[name] = flash_timing(
             torch, fl, f"{name.split()[0]} {list(shape)} "
             f"{str(dt).split('.')[-1]} mask={mode}", shape, dt, mode, inputs,
             flush)
+        for kname, e in errs.items():   # the error at the timed shape
+            record[name][kname]["max_abs_err"] = e
     del flush
     return record
 
@@ -1977,6 +2005,304 @@ def collectives_phase(torch, device, rehearsal):
         hvd.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: Adasum and GPT-2-medium training
+# ---------------------------------------------------------------------------
+
+# GPT-2-medium's two largest parameter shapes: the token embedding and a
+# block's fc1 kernel.
+ADASUM_SHAPES = {"wte [50257, 1024]": (50257, 1024),
+                 "fc1 [1024, 4096]": (1024, 4096)}
+ADASUM_REHEARSAL_SHAPES = {"[97, 32]": (97, 32), "[32, 128]": (32, 128)}
+
+
+def adasum_model(torch, stack, round_to=None, half=True):
+    """The float64 model of Adasum's tree over a [n, ...] stack (the
+    reference's pair combine, adasum.h:396-409, zero-padded to a power of
+    two), on the CPU; ``round_to`` rounds each level's result to that
+    dtype, as the port and JAX cast each combine back to the input's.
+    ``half=False`` drops the factor 2 of ``dot / (2·||a||²)``: a wrong
+    combine, for the check's control."""
+    level = [t.double() for t in stack]
+    while len(level) & (len(level) - 1):
+        level.append(torch.zeros_like(level[0]))
+    d = 2 if half else 1
+    while len(level) > 1:
+        nxt = []
+        for a, b in zip(level[0::2], level[1::2]):
+            dot, na, nb = (a * b).sum(), (a * a).sum(), (b * b).sum()
+            out = (1 - dot / (d * na) if na > 0 else 1.0) * a \
+                + (1 - dot / (d * nb) if nb > 0 else 1.0) * b
+            nxt.append(out if round_to is None
+                       else out.to(round_to).double())
+        level = nxt
+    return level[0]
+
+
+def adasum_ranks(torch, shape, gen):
+    """4 correlated "ranks" [4, *shape], so that every coefficient lies
+    far from 1: r1 = 0.8·r0 + 0.6·n1 (the pair's coefficients ~0.6),
+    r2 = -0.6·r0 + 0.8·n2 and r3 = r2 + 0.05·n3, nearly parallel to r2
+    (~0.5); the tree's top pair then gets ~1.25 and ~1.3.  A plain Sum,
+    or a combine without the factor 2, misses the result by tens of
+    percent."""
+    n = torch.randn((4,) + shape, generator=gen)
+    n[1].mul_(0.6).add_(n[0], alpha=0.8)
+    n[2].mul_(0.8).add_(n[0], alpha=-0.6)
+    n[3].mul_(0.05).add_(n[2])
+    return n
+
+
+def adasum_checks(torch, device, shapes):
+    """Adasum's combine on ``device`` against the float64 model on the
+    CPU, for a stack of 4 correlated "ranks" (``adasum_ranks``) at each
+    shape: ``pair_combine`` of the first two and
+    ``_tree_reduce_gathered`` of all four, in f32 with f32 islands, in
+    f32 with ``HVD_ADASUM_ACC_DTYPE=f64``, and in bf16 with f32 islands.
+    f32: rtol 1e-4 (JAX's tests/test_adasum.py:73) and an atol of 1e-6
+    times the model's largest magnitude (an element that cancels to ~0
+    keeps f32's absolute rounding).  bf16: the model rounds each level
+    to bf16 as the port does, and the two may then differ by one bf16
+    step (2**-8) of the largest magnitude where an island's last bit
+    moves a rounding.  Each line gives the largest error over its
+    tolerance (err/tol, 1 at the limit) of the port and of two controls
+    held to the same check, a plain Sum and the model without the
+    factor 2: a control that passes fails the case, since the check
+    could not tell it from Adasum.  Returns the failures and one line
+    per case."""
+    import os
+    from horovod_tpu_torch.ops import adasum as ada
+    failures, lines = [], []
+    gen = torch.Generator().manual_seed(8)
+    old = os.environ.get("HVD_ADASUM_ACC_DTYPE")
+
+    def over_tol(got, want, rtol, atol):
+        return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+    try:
+        for label, shape in shapes.items():
+            host = adasum_ranks(torch, shape, gen)
+            models = {}
+            for dtype, acc in ((torch.float32, "f32"),
+                               (torch.float32, "f64"),
+                               (torch.bfloat16, "f32")):
+                os.environ["HVD_ADASUM_ACC_DTYPE"] = acc
+                x = host.to(dtype)
+                round_to = dtype if dtype == torch.bfloat16 else None
+                if dtype not in models:
+                    models[dtype] = {
+                        k: (adasum_model(torch, s, round_to),
+                            s.double().sum(0),
+                            adasum_model(torch, s, round_to, half=False))
+                        for k, s in (("pair", x[:2]), ("tree", x))}
+                dev = x.to(device)
+                for what, key, got in (
+                        ("pair_combine", "pair",
+                         ada.pair_combine(dev[0], dev[1])),
+                        ("tree of 4", "tree", ada._tree_reduce_gathered(dev))):
+                    want, plain_sum, no_half = models[dtype][key]
+                    top = float(want.abs().max())
+                    rtol, atol = ((1e-4, 1e-6 * top) if round_to is None
+                                  else (2**-8, 2**-8 * top))
+                    got = got.double().cpu()
+                    err = float((got - want).abs().max())
+                    r, r_sum, r_half = (over_tol(t, want, rtol, atol)
+                                        for t in (got, plain_sum, no_half))
+                    ok = (got.dtype == torch.float64 and r <= 1.0
+                          and r_sum > 1.0 and r_half > 1.0)
+                    name = (f"{what} {label} {str(dtype).split('.')[-1]} "
+                            f"islands {acc}")
+                    lines.append(
+                        f"{name}: max abs err {err:.3e}, err/tol {r:.3f} "
+                        f"({'ok' if ok else 'MISMATCH'} at {rtol:.3g} / "
+                        f"{atol:.3g}); controls err/tol: Sum {r_sum:.1f}, "
+                        f"no factor 2 {r_half:.1f}")
+                    if not ok:
+                        failures.append(name)
+                del dev
+    finally:
+        if old is None:
+            os.environ.pop("HVD_ADASUM_ACC_DTYPE", None)
+        else:
+            os.environ["HVD_ADASUM_ACC_DTYPE"] = old
+    return failures, lines
+
+
+def adasum_main_path(torch, fl, rehearsal):
+    """``gpt2_adasum.main``: GPT-2-medium at full width and depth (remat,
+    causal flash attention, bf16 products), 4 sequences of 128 tokens, 10
+    steps of ``local_value_and_grad`` + ``adasum_delta_step(SGD(0.05))``
+    over NCCL in a world of one (the first 2 steps warm up, as the
+    example times); the CPU rehearsal runs the example's TINY.  Returns
+    the flash launch counts of the run and the numbers it printed."""
+    from horovod_tpu_torch.examples import gpt2_adasum as ga
+    steps, traced, size = (6, 0, "tiny") if rehearsal else (10, 2, "medium")
+    argv = ["--size", size, "--steps", str(steps), "--batch-per-slot", "4",
+            "--seq-len", "128", "--attention", "flash"]
+    if rehearsal:
+        argv += ["--device", "cpu"]
+    log(f"  gpt2_adasum.main({argv})")
+    if not rehearsal:
+        torch.cuda.reset_peak_memory_stats()
+    for name in fl.LAUNCHES:  # the counts cover exactly the main path's run
+        fl.LAUNCHES[name] = 0
+    failures = []
+    try:
+        losses, samples_s = ga.main(argv)
+    except AssertionError as e:  # the example's own check: the loss falls
+        raise SystemExit(f"GPT-2 Adasum training failed: {e}")
+    launches = dict(fl.LAUNCHES)
+    peak = 0 if rehearsal else torch.cuda.max_memory_allocated()
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    log(f"  flash launches {launches} over {steps} steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"losses not finite and falling: {losses}")
+    numbers = {}
+    if not rehearsal:
+        # remat: each block's forward runs again in the backward pass.
+        layers = 24
+        want = {"flash_fwd": 2 * layers * steps,
+                "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+        want.update({f"{k}_wgmma": n for k, n in list(want.items())})
+        want.update({f"{k}_tf32x3": 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv")})
+        log(f"  expected: forward 2 x 24 layers x {steps} steps = "
+            f"{want['flash_fwd']}, dQ and dK/dV 24 x {steps} = "
+            f"{want['flash_bwd_dq']} each, all on the wgmma route")
+        if launches != want:
+            failures.append(f"flash launches {launches}, expected {want}")
+        step_ms = 4 / samples_s * 1e3   # world size 1
+        tag = card_tag()
+        log(f"  samples/s {samples_s:.2f}; step {step_ms:.2f} ms (4 x 128 "
+            f"tokens); peak device memory {peak / 2**20:.1f} MiB [{tag}]")
+        _, _, step = ga.build(ga.parse_args(argv))
+        step()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(traced):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms = _busy_ms(torch, prof)
+        dev_ms = busy_ms / traced
+        log(f"  traced {traced} steps: wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms / wall_ms:.3f} of wall; device time per step "
+            f"{dev_ms:.2f} ms (traced) of {step_ms:.2f} ms untraced: busy "
+            f"{dev_ms / step_ms:.3f} of an untraced step [{tag}]")
+        _top_ops(torch, prof)
+        _flash_share(torch, prof, busy_ms)
+        # Where the host clock goes: 3 steps with the device drained
+        # before and after each step and each delta step.
+        import horovod_tpu_torch as hvd
+        real, spent = hvd.adasum_delta_step, []
+
+        def timed_delta(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            real(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t)
+
+        hvd.adasum_delta_step = timed_delta
+        try:
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+        finally:
+            hvd.adasum_delta_step = real
+        wall_ms, delta_ms = (1e3 * sum(x) / 3 for x in (walls, spent))
+        log(f"  drained steps: {wall_ms:.2f} ms a step, of which "
+            f"adasum_delta_step {delta_ms:.2f} ms and the forward and "
+            f"backward pass (local_value_and_grad) and the loss average "
+            f"{wall_ms - delta_ms:.2f} ms [{tag}]")
+        del step
+        numbers = {"samples_per_s": samples_s, "step_ms": step_ms,
+                   "peak_mib": peak / 2**20, "device_ms_per_step": dev_ms,
+                   "busy_share": dev_ms / step_ms,
+                   "drained_step_ms": wall_ms, "delta_step_ms": delta_ms,
+                   "losses": losses}
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("GPT-2 Adasum training path failed")
+    return launches, numbers
+
+
+def adasum_phase(torch, device, rehearsal):
+    """Phase 8: the main path (``adasum_main_path``); then Adasum over
+    the world's one rank (NCCL on the card: ``allreduce``,
+    ``grouped_allreduce`` and ``DistributedOptimizer(op=Adasum)`` give
+    their input, on the card); ``adasum_checks`` at GPT-2-medium's
+    largest leaf shapes; and, on the card, one ``pair_combine`` at wte's
+    shape timed with CUDA events beside a device copy of one operand and
+    the bytes bound (a and b read twice, the output written once).
+    Returns the flash launch counts of the main path and the numbers."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import adasum as ada
+    from horovod_tpu_torch.parallel import flash as fl
+    try:
+        launches, numbers = adasum_main_path(torch, fl, rehearsal)
+        failures = []
+        backend = hvd.ops.dist.get_backend()
+        if backend != ("gloo" if rehearsal else "nccl"):
+            failures.append(f"backend {backend}")
+        x = torch.randn(1000, 7, device=device)
+        outs = [hvd.allreduce(x, op=hvd.Adasum),
+                hvd.allreduce(x, op=hvd.Adasum, postscale_factor=2.0) / 2]
+        outs += hvd.grouped_allreduce([x, x[:3]], op=hvd.Adasum)
+        w = torch.nn.Parameter(torch.zeros(7, device=device))
+        opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
+                                       op=hvd.Adasum)
+        w.grad = x[0].clone()
+        opt.step()
+        outs.append(-w.detach())
+        for got, want in zip(outs, (x, x, x, x[:3], x[0])):
+            if got.device != x.device or not torch.equal(got, want):
+                failures.append(f"Adasum in a world of one changed its "
+                                f"input (on {got.device})")
+        log(f"  Adasum in a world of one over {backend}: allreduce, "
+            f"postscale, grouped, DistributedOptimizer "
+            f"{'ok' if not failures else 'MISMATCH'}")
+        bad, lines = adasum_checks(
+            torch, device,
+            ADASUM_REHEARSAL_SHAPES if rehearsal else ADASUM_SHAPES)
+        for line in lines:
+            log("  " + line)
+        failures += bad
+        if not rehearsal:
+            a, b = torch.randn((2,) + ADASUM_SHAPES["wte [50257, 1024]"],
+                               device=device)
+            flush = torch.empty(64 << 20, device=device)
+            dst = torch.empty_like(a)
+            ms = time_ms(torch, lambda: ada.pair_combine(a, b), 10, flush)
+            copy_ms = time_ms(torch, lambda: dst.copy_(a), 10, flush)
+            nbytes = 5 * a.numel() * a.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"  pair_combine wte [50257, 1024] f32: {ms:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB: a and b read "
+                f"twice, the output written once), share "
+                f"{bound_ms / ms:.3f}; device copy of a {copy_ms:.4f} ms "
+                f"({2 * a.numel() * a.element_size() / copy_ms / 1e6:.0f} "
+                f"GB/s) [{card_tag()}]")
+            numbers["pair_combine"] = {"ms": ms, "bound_ms": bound_ms,
+                                       "copy_ms": copy_ms}
+            del a, b, flush, dst
+        for f in failures:
+            log(f"  FAIL: {f}")
+        if failures:
+            raise SystemExit("Adasum phase failed")
+    finally:
+        hvd.shutdown()  # the process group the trainer's init formed
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -2037,12 +2363,19 @@ def main(argv=None) -> int:
         "reducescatter, in-place, async, objects, sparse, process sets)")
     collectives = collectives_phase(torch, device, rehearsal)
 
+    log("phase 8: Adasum and GPT-2-medium training (local_value_and_grad, "
+        "adasum_delta_step, NCCL)")
+    t8 = time.monotonic()
+    adasum_launches, adasum_numbers = adasum_phase(torch, device, rehearsal)
+    log(f"  phase 8 took {time.monotonic() - t8:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
         return 0
     print(card_tag())
     print(json.dumps({"collectives": collectives}))
+    print(json.dumps({"adasum": dict(adasum_numbers, card=card_tag())}))
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -2072,6 +2405,7 @@ def main(argv=None) -> int:
                 "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
                 else "flash_attention_bwd_sm90.cu"),
             "replaces": where,
+            # Launches from BERT-large's bf16 training path (phase 5).
             "launches": flash_launches[name + "_wgmma"],
             "max_abs_err": frec["max_abs_err"][name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2079,6 +2413,23 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": "BERT-large bench [32, 128, 16, 64] bf16, no mask, "
                      "cold L2"})
+    for name, where in replaces.items():
+        r = frec["gpt2-medium"][name]
+        # The same wgmma kernels on GPT-2-medium's path (phase 8): its
+        # launches, and the error and times at its shape.
+        kernels.append({
+            "name": name + "_gpt2_medium", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/" + (
+                "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
+                else "flash_attention_bwd_sm90.cu"),
+            "replaces": where,
+            "launches": adasum_launches[name + "_wgmma"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "GPT-2 medium [4, 128, 16, 64] bf16, causal, cold L2; "
+                     "launches: phase 8's Adasum training"})
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         r = frec["gpt2-small f32"][name]
         # The f32 instance: launches from phase 5's f32 step, the only

@@ -25,13 +25,18 @@ Ported so far:
 * synchronized batch norm (``SyncBatchNorm``, ``sync_batch_stats``) and
   the ResNet family (``models/resnet.py``), trained by
   ``python -m horovod_tpu_torch.examples.synthetic_benchmark``; the
-  flagship model's entry points are in ``entry.py``.
+  flagship model's entry points are in ``entry.py``;
+* Adasum (``ops/adasum.py``, ``op=hvd.Adasum`` through ``allreduce`` and
+  the optimizer) and the rest of the gradient layer
+  (``PartialDistributedOptimizer``, ``adasum_delta_step``,
+  ``local_value_and_grad``, ``value_and_grad``, ``grad``) with the
+  training callbacks (``hvd.callbacks``), trained on GPT-2-medium by
+  ``python -m horovod_tpu_torch.examples.gpt2_adasum``.
 
-Not exported yet (ROADMAP A2/A3): ``join``, ``mesh``, ``mesh_axis``,
-``start_timeline`` / ``stop_timeline`` and the optimizer extras
-(``PartialDistributedOptimizer``, ``value_and_grad``, ``grad``,
-``local_value_and_grad``, ``adasum_delta_step``,
-``distributed_gradient_transformation``).
+Not exported yet (ROADMAP A1/A2): ``join``, ``mesh``, ``mesh_axis`` and
+``start_timeline`` / ``stop_timeline``.
+``distributed_gradient_transformation`` is optax's form of the
+optimizer and has no torch counterpart.
 
 Entry points run on ``cuda`` unless the caller asks for
 ``device="cpu"``.
@@ -63,7 +68,10 @@ from .ops import (  # noqa: F401
 
 from .compression import Compression  # noqa: F401
 
-from .optimizer import DistributedOptimizer  # noqa: F401
+from .optimizer import (  # noqa: F401
+    DistributedOptimizer, PartialDistributedOptimizer, adasum_delta_step,
+    value_and_grad, grad, local_value_and_grad,
+)
 
 from .functions import (  # noqa: F401
     broadcast_variables, broadcast_parameters, broadcast_optimizer_state,
@@ -83,3 +91,5 @@ from .exceptions import (  # noqa: F401
     HorovodInternalError, HostsUpdatedInterrupt, CollectiveRejectedError,
     RendezvousUnreachableError,
 )
+
+from . import callbacks  # noqa: F401

@@ -61,10 +61,11 @@ def _normalize_op(op, average):
 def _reduce(t: torch.Tensor, rop: ReduceOp, prescale: float,
             postscale: float, m: Members, owned: bool = False
             ) -> torch.Tensor:
-    """prescale → reduce over the members → postscale.  The reduction
-    runs in place, on ``t`` itself only when the caller ``owned`` it.  A
-    rank outside the set gets ``t`` back, unscaled.  A bool tensor sums
-    (and averages) as int32, as ``lax.psum`` counts it."""
+    """prescale → reduce over the members → postscale (Adasum too, in
+    JAX's order).  The reduction runs in place, on ``t`` itself only
+    when the caller ``owned`` it.  A rank outside the set gets ``t``
+    back, unscaled.  A bool tensor sums (and averages) as int32, as
+    ``lax.psum`` counts it."""
     if t.dtype == torch.bool and rop in (ReduceOp.SUM, ReduceOp.AVERAGE):
         t, owned = t.to(torch.int32), True
     if not m.included:
@@ -121,8 +122,14 @@ def _fused_allreduce(tensors: Sequence[torch.Tensor], op,
     one flat buffer, compress it once (a cast is elementwise, so this
     equals compressing each tensor), reduce, decompress, and hand back
     views of the result in the tensors' shapes.  All tensors share one
-    dtype (the planner only buckets same-dtype entries)."""
+    dtype (the planner only buckets same-dtype entries).  Adasum is
+    refused: one flat buffer would get one coefficient pair for the
+    whole bucket (the JAX package fuses only Average and Sum)."""
     rop = ReduceOp(op)
+    if rop == ReduceOp.ADASUM:
+        raise ValueError("_fused_allreduce reduces with Average or Sum; "
+                         "Adasum needs a coefficient pair per tensor "
+                         "(grouped_allreduce)")
     m = members_of(process_set)
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError("_fused_allreduce needs tensors of one dtype")

@@ -12,6 +12,8 @@ Port of ``ReduceOp`` and its aliases (``horovod_tpu/ops/collective_ops.py
 * ``reduce_in_place``: AVERAGE is a SUM followed by a division by the
   member count (floor division for integers), on gloo and NCCL alike.
   Gloo has no AVG, and one formula keeps the CPU and the card identical.
+  ADASUM goes to ``ops/adasum.py`` (``:163-209``: the caller prescales
+  before it and postscales after it).
 """
 
 from __future__ import annotations
@@ -114,11 +116,11 @@ def _checked(what: str, t: torch.Tensor, call) -> None:
 def reduce_in_place(buf: torch.Tensor, op: ReduceOp, m: Members
                     ) -> torch.Tensor:
     """Reduce ``buf`` in place over the members and return the reduced
-    tensor (a new one for AVERAGE)."""
+    tensor (a new one for AVERAGE and ADASUM; ``ops/adasum.py``)."""
     op = ReduceOp(op)
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP A5)")
+        from . import adasum
+        return adasum.adasum_allreduce(buf, m)
     _checked("allreduce", buf,
              lambda: dist.all_reduce(buf, op=_DIST_OPS[op], group=m.group))
     return _divide(buf, m.size) if op == ReduceOp.AVERAGE else buf

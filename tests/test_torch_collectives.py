@@ -75,12 +75,7 @@ WORKER = textwrap.dedent('''
     hvd.broadcast_variables(state, root_rank=0)
     res["bcast_state_a"], res["bcast_state_b"] = state["a"], state["b"][0]
     hvd.barrier()
-    try:
-        hvd.allreduce(x, op=hvd.Adasum)
-        res["raises_adasum"] = torch.tensor(0)
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e), e
-        res["raises_adasum"] = torch.tensor(1)
+    res["adasum"] = hvd.allreduce(x, op=hvd.Adasum)
     # A subset runs once registered; a rank outside it gets its input.
     try:
         hvd.allreduce(x, process_set=ProcessSet([1]))
@@ -241,11 +236,19 @@ def test_broadcast_and_broadcast_variables(world, jax2):
 
 
 def test_unported_ops_raise_naming_the_roadmap(world):
-    """Adasum still refuses; a subset no longer does: over (0,), rank 0
+    """Adasum no longer refuses: two ranks combine as the float64 model
+    of the pair (acoeff·a + bcoeff·b, JAX's tolerance rtol 1e-4), with
+    the same bits on both.  A subset no longer refuses: over (0,), rank 0
     averages its prescaled input alone and rank 1 keeps its input.  A
     subset must be registered first."""
+    a, b = _x().astype(np.float64)
+    dot = (a * b).sum()
+    want = (1 - dot / (2 * (a * a).sum())) * a \
+        + (1 - dot / (2 * (b * b).sum())) * b
+    np.testing.assert_allclose(world[0]["adasum"], want, rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_array_equal(world[1]["adasum"], world[0]["adasum"])
     for r in (0, 1):
-        assert int(world[r]["raises_adasum"]) == 1
         assert int(world[r]["raises_unregistered"]) == 1
     np.testing.assert_array_equal(world[0]["subset"], 2 * _x()[0])
     np.testing.assert_array_equal(world[1]["subset"], _x()[1])

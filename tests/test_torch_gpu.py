@@ -1214,3 +1214,90 @@ def test_a_cuda_tensor_in_a_gloo_world_raises(cuda_device):
                 call()
     finally:
         hvd.shutdown()
+
+
+# -- Adasum and the gradient layer (chip_smoke.py phase 8's checks) -----------
+
+@pytest.mark.gpu
+def test_adasum_combine_on_the_card_matches_the_float64_model(cuda_device):
+    """``pair_combine`` and the tree of 4 correlated ranks on CUDA
+    tensors, f32 (f32 and f64 islands) and bf16, against the float64
+    model on the CPU at phase 8's tolerances, at small shapes; a plain
+    Sum and a combine without the factor 2 fail the same check."""
+    import chip_smoke
+    failures, lines = chip_smoke.adasum_checks(
+        torch, cuda_device, {"[257, 64]": (257, 64), "[64, 256]": (64, 256)})
+    assert not failures, "\n".join(lines)
+
+
+@pytest.mark.gpu
+def test_nccl_adasum_and_the_gradient_layer_in_a_world_of_one(nccl_world,
+                                                              cuda_device):
+    """In a world of one, Adasum gives its input on the card in every
+    form; ``DistributedOptimizer(op=Adasum)``,
+    ``PartialDistributedOptimizer`` and ``adasum_delta_step`` step as a
+    plain SGD step (the delta step within rounding), and
+    ``value_and_grad`` gives autograd's gradients."""
+    hvd = nccl_world
+    x = torch.randn(50, 3, device=cuda_device)
+    _same(hvd.allreduce(x, op=hvd.Adasum), x)
+    _same(hvd.allreduce(x.bfloat16(), op=hvd.Adasum), x.bfloat16())
+    _same(hvd.grouped_allreduce([x, x[:2]], op=hvd.Adasum)[1], x[:2])
+    t = x.clone()
+    assert hvd.allreduce_(t, op=hvd.Adasum) is t
+    _same(t, x)
+    _same(hvd.synchronize(hvd.allreduce_async(x, op=hvd.Adasum)), x)
+    model = torch.nn.Linear(3, 2, device=cuda_device)
+    start = [p.detach().clone() for p in model.parameters()]
+    g = [torch.randn_like(p) for p in model.parameters()]
+    want = [p - 0.5 * q for p, q in zip(start, g)]
+    for make in (
+            lambda sgd: hvd.DistributedOptimizer(sgd, op=hvd.Adasum),
+            lambda sgd: hvd.PartialDistributedOptimizer(
+                sgd, lambda name, p: name == "1"),
+            lambda sgd: sgd):
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+        sgd = torch.optim.SGD(model.parameters(), lr=0.5)
+        opt = make(sgd)
+        for p, q in zip(model.parameters(), g):
+            p.grad = q.clone()
+        if opt is sgd:
+            hvd.adasum_delta_step(sgd)
+        else:
+            opt.step()
+        for p, w in zip(model.parameters(), want):
+            assert p.is_cuda
+            torch.testing.assert_close(p.detach(), w, rtol=1e-6, atol=1e-6)
+
+    def loss(params, xb):
+        return (torch.func.functional_call(model, params, (xb,)) ** 2).mean()
+
+    params = dict(model.named_parameters())
+    value, grads = hvd.value_and_grad(loss)(params, x)
+    model.zero_grad()
+    loss(params, x).backward()
+    for k, p in params.items():
+        assert grads[k].is_cuda
+        torch.testing.assert_close(grads[k], p.grad)
+
+
+@pytest.mark.gpu
+def test_gpt2_adasum_example_trains_on_the_card(cuda_device):
+    """The example at its TINY size (f32, flash attention: the 3xTF32
+    kernels), 4 steps over NCCL in a world of one: the loss falls and
+    each flash kernel launched once per layer and step."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import gpt2_adasum as ga
+    n0 = dict(tfl.LAUNCHES)
+    try:
+        losses, _ = ga.main(["--size", "tiny", "--steps", "4",
+                             "--attention", "flash", "--seq-len", "64"])
+    finally:
+        hvd.shutdown()
+    got = {k: tfl.LAUNCHES[k] - n0[k] for k in n0}
+    L = ga.TINY.num_layers
+    assert losses[-1] < losses[0]
+    assert got["flash_fwd_tf32x3"] == got["flash_bwd_dq_tf32x3"] == \
+        got["flash_bwd_dkv_tf32x3"] == 4 * L, got

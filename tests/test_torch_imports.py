@@ -61,7 +61,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "parallel.flash", "models.transformer",
                  "examples.bert_pretraining", "serve.sampling",
                  "serve.replica", "serve.server", "models.mlp",
-                 "models.convert"):
+                 "models.convert", "ops.adasum", "callbacks",
+                 "examples.gpt2_adasum", "examples.adasum_bench"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"

@@ -26,6 +26,10 @@ from horovod_tpu.models import transformer as jt
 from test_torch_collectives import run_gloo_world
 
 B, S, PASSES = 2, 16, 4
+# Per rank gradients of two parameters whose largest magnitudes differ by
+# 10**3.4: quantized under one scale, the second would vanish.
+QUANT0 = ([1000.0, -500.0], [-500.0, 1000.0])
+QUANT1 = ([0.3, -0.7, 0.011], [0.011, -0.7, 0.3])
 JCFG = jt.TransformerConfig(vocab_size=61, num_layers=2, num_heads=2,
                             d_model=32, d_ff=64, max_len=S, causal=False,
                             dtype=jnp.float32, scan_layers=False)
@@ -105,9 +109,88 @@ st = adam.state[w]
 res["bos_exp_avg"] = st["exp_avg"].numpy().copy()
 res["bos_step"] = np.array(float(st["step"]))
 res["bos_lr"] = np.array(adam.param_groups[0]["lr"])
+
+
+class MaxAbsQuantizer(hvd.compression.Compressor):
+    """Each tensor scaled by its own largest magnitude to [-127, 127]."""
+
+    @staticmethod
+    def compress(t):
+        s = t.abs().max()
+        return torch.round(t / s * 127), s
+
+    @staticmethod
+    def decompress(t, s):
+        return t * s / 127
+
+
+w = [torch.nn.Parameter(torch.zeros(2)), torch.nn.Parameter(torch.zeros(3))]
+opt = hvd.DistributedOptimizer(torch.optim.SGD(w, lr=1.0),
+                               compression=MaxAbsQuantizer)
+w[0].grad = torch.tensor(%(quant0)r[r])
+w[1].grad = torch.tensor(%(quant1)r[r])
+opt.step()
+res["opt_quant_0"] = w[0].detach().numpy().copy()
+res["opt_quant_1"] = w[1].detach().numpy().copy()
+
+# The gradient-tape functions, PartialDistributedOptimizer and the
+# callbacks on the MLP (6 -> 8 -> 3).
+from types import SimpleNamespace
+from horovod_tpu_torch.models.mlp import MLP
+mlp_state = {k: torch.from_numpy(v) for k, v in np.load(MLP_WEIGHTS).items()}
+xb = torch.from_numpy(np.random.RandomState(40 + r).randn(5, 6)
+                      .astype(np.float32))
+mlp = MLP(6, (8, 3))
+mlp.load_state_dict(mlp_state)
+params = dict(mlp.named_parameters())
+
+
+def mlp_loss(p, x):
+    return (torch.func.functional_call(mlp, p, (x,)) ** 2).mean()
+
+
+value, grads = hvd.value_and_grad(mlp_loss)(params, xb)
+res["vg_value"] = value.numpy().copy()
+grads2 = hvd.grad(mlp_loss)(params, xb)
+lvalue, lgrads = hvd.local_value_and_grad(mlp_loss)(params, xb)
+res["lvg_value"] = lvalue.numpy().copy()
+for k in params:
+    res[f"vg_grad/{k}"] = grads[k].numpy().copy()
+    res[f"g_grad/{k}"] = grads2[k].numpy().copy()
+    res[f"lvg_grad/{k}"] = lgrads[k].numpy().copy()
+    assert params[k].grad is None
+part = MLP(6, (8, 3))
+part.load_state_dict(mlp_state)
+opt = hvd.PartialDistributedOptimizer(
+    torch.optim.SGD(part.parameters(), lr=0.1, momentum=0.9),
+    local_filter=lambda name, p: name.startswith("Dense_1"),
+    named_parameters=part.named_parameters())
+for _ in range(2):
+    opt.zero_grad()
+    (part(xb) ** 2).mean().backward()
+    opt.step()
+for k, v in part.state_dict().items():
+    res[f"partial/{k}"] = v.numpy().copy()
+
+logs = {"loss": 1.5 * (r + 1), "acc": 0.25 * r}
+hvd.callbacks.MetricAverageCallback().on_epoch_end(0, logs)
+res["metric_loss"], res["metric_acc"] = np.array(logs["loss"]), \
+    np.array(logs["acc"])
+bmodel = MLP(6, (8, 3))
+bmodel.load_state_dict({k: v * (r + 1) for k, v in mlp_state.items()})
+badam = torch.optim.AdamW(bmodel.parameters(), lr=1e-3, weight_decay=1e-4)
+(bmodel(xb) ** 2).mean().backward()
+badam.step()
+cbs = hvd.callbacks.CallbackList(
+    [hvd.callbacks.BroadcastGlobalVariablesCallback(root_rank=1)])
+cbs.on_train_begin(SimpleNamespace(model=bmodel, optimizer=badam))
+for k, v in bmodel.named_parameters():
+    res[f"bcast/{k}"] = v.detach().numpy().copy()
+    res[f"bcast_mu/{k}"] = badam.state[v]["exp_avg"].numpy().copy()
 np.savez(out_path, **res)
 hvd.shutdown()
-''' % {"S": S, "B": B, "PASSES": PASSES}
+''' % {"S": S, "B": B, "PASSES": PASSES, "quant0": QUANT0,
+       "quant1": QUANT1}
 
 
 def _numpy_params(tree, seed=0):
@@ -131,15 +214,20 @@ def _batch(p, r):
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    from horovod_tpu_torch.models import params_from_jax
+    from horovod_tpu_torch.models import params_from_jax, \
+        resnet_params_from_jax
     tmp = tmp_path_factory.mktemp("opt")
     model = jt.Transformer(JCFG)
     tree = model.init(jax.random.PRNGKey(0), jnp.zeros((1, S), jnp.int32))
     params = _numpy_params(jax.device_get(tree["params"]))
     state = {k: v.numpy() for k, v in params_from_jax(params).items()}
     np.savez(tmp / "weights.npz", **state)
+    np.savez(tmp / "mlp.npz", **{k: v.numpy() for k, v in
+                                 resnet_params_from_jax(
+                                     {"params": _mlp_params()}).items()})
     world = run_gloo_world(
-        WORKER.replace("sys.argv[2]", repr(str(tmp / "weights.npz"))), tmp)
+        WORKER.replace("sys.argv[2]", repr(str(tmp / "weights.npz")))
+        .replace("MLP_WEIGHTS", repr(str(tmp / "mlp.npz"))), tmp)
     return model, params, world
 
 
@@ -224,15 +312,27 @@ def test_broadcast_optimizer_state_takes_the_roots_state(setup):
 
 
 def test_wrapper_refuses_what_is_not_ported():
-    """Adasum still refuses; a process set does not: in a gloo world of
-    one, a step over the registered set (0,) applies the gradient."""
+    """Adasum no longer refuses: in a gloo world of one, a step with
+    op=Adasum applies the gradient as it is.  A process set does not
+    refuse: a step over the registered set (0,) applies the gradient.
+    Min is no gradient reduction, and a predivide needs Average."""
     import torch
     import horovod_tpu_torch as thvd
     from horovod_tpu_torch.process_sets import ProcessSet
     w = torch.nn.Parameter(torch.zeros(2))
     sgd = torch.optim.SGD([w], lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        thvd.DistributedOptimizer(sgd, op=thvd.Adasum)
+    ada = thvd.DistributedOptimizer(sgd, op=thvd.Adasum)
+    with pytest.raises(ValueError, match="Average, Sum or Adasum"):
+        thvd.DistributedOptimizer(sgd, op=thvd.Min)
+    thvd.init(device="cpu")
+    try:
+        w.grad = torch.tensor([1.0, -2.0])
+        ada.step()
+        torch.testing.assert_close(w.detach(), torch.tensor([-0.1, 0.2]))
+    finally:
+        thvd.shutdown()
+    with torch.no_grad():
+        w.zero_()
     ps = ProcessSet([0])
     opt = thvd.DistributedOptimizer(sgd, process_set=ps)
     assert opt.process_set is ps
@@ -247,3 +347,206 @@ def test_wrapper_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="predivide"):
         thvd.DistributedOptimizer(sgd, op=thvd.Sum,
                                   gradient_predivide_factor=2.0)
+
+
+def _jax_mlp():
+    from horovod_tpu.models import mlp as jmlp
+    return jmlp.create_mlp((8, 3))
+
+
+def _mlp_params():
+    params = _jax_mlp().init(jax.random.PRNGKey(0),
+                             jnp.zeros((1, 6)))["params"]
+    rng = np.random.RandomState(5)
+    return jax.tree_util.tree_map(
+        lambda a: (0.3 * rng.randn(*a.shape)).astype(np.float32),
+        jax.device_get(params))
+
+
+def _mlp_x(n=8):
+    return np.stack([np.random.RandomState(40 + r % 2).randn(5, 6)
+                     .astype(np.float32) for r in range(n)])
+
+
+def _as_port(tree):
+    from horovod_tpu_torch.models import resnet_params_from_jax
+    return {k: v.numpy() for k, v in resnet_params_from_jax(
+        {"params": jax.device_get(tree)}).items()}
+
+
+def test_custom_compressor_reduces_tensor_by_tensor_as_jax(setup, hvd8):
+    """A per-tensor max-abs quantizer: JAX reduces under any compressor
+    but the elementwise casts tensor by tensor, so each gradient keeps
+    its own scale.  The port's step must give JAX's parameters (packed
+    into one bucket, the second gradient would round to 0 under the
+    first's scale)."""
+    from horovod_tpu.compression import Compressor
+
+    class MaxAbsQuantizer(Compressor):
+        @staticmethod
+        def compress(t):
+            s = jnp.max(jnp.abs(t))
+            return jnp.round(t / s * 127), s
+
+        @staticmethod
+        def decompress(t, s):
+            return t * s / 127
+
+    world = setup[2]
+    opt = hvd8.DistributedOptimizer(optax.sgd(1.0),
+                                    compression=MaxAbsQuantizer)
+    params = [jnp.zeros((8, 2)), jnp.zeros((8, 3))]
+    grads = [jnp.asarray([q[r % 2] for r in range(8)], jnp.float32)
+             for q in (QUANT0, QUANT1)]
+    updates, _ = opt.update(grads, opt.init(params), params)
+    for i, u in enumerate(updates):
+        for r in (0, 1):
+            np.testing.assert_allclose(world[r][f"opt_quant_{i}"],
+                                       np.asarray(u)[r], rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{i} rank {r}")
+    assert np.abs(world[0]["opt_quant_1"]).min() > 0.1
+
+
+def test_value_and_grad_grad_and_local_value_and_grad_match_jax(setup,
+                                                                  hvd8):
+    """On the MLP, each rank's loss and local gradients, and the
+    gradients averaged over the world, against JAX's functions inside
+    shard_map (emulated rank r holds port rank r mod 2's batch)."""
+    from jax.sharding import PartitionSpec as P
+    world = setup[2]
+    model = _jax_mlp()
+
+    def loss(p, x):
+        return jnp.mean(model.apply({"params": p}, x) ** 2)
+
+    def body(p, x):
+        value, grads = hvd8.value_and_grad(loss)(p, x)
+        grads2 = hvd8.grad(loss)(p, x)
+        lvalue, lgrads = hvd8.local_value_and_grad(loss)(p, x)
+        return (value[None], grads, grads2, lvalue[None],
+                jax.tree_util.tree_map(lambda a: a[None], lgrads))
+
+    step = hvd8.parallel.shard_step(
+        body, in_specs=(P(), P("hvd")),
+        out_specs=(P("hvd"), P(), P(), P("hvd"), P("hvd")))
+    value, grads, grads2, lvalue, lgrads = step(
+        _mlp_params(), jnp.asarray(_mlp_x().reshape(-1, 6)))
+    tol = dict(rtol=2e-5, atol=1e-6)
+    for r in (0, 1):
+        w = world[r]
+        np.testing.assert_allclose(w["vg_value"], np.asarray(value)[r], **tol)
+        np.testing.assert_allclose(w["lvg_value"], np.asarray(lvalue)[r],
+                                   **tol)
+        local = _as_port(jax.tree_util.tree_map(lambda a: a[r], lgrads))
+        for key, want in _as_port(grads).items():
+            np.testing.assert_allclose(w[f"vg_grad/{key}"], want,
+                                       err_msg=key, **tol)
+            np.testing.assert_allclose(w[f"g_grad/{key}"], want,
+                                       err_msg=key, **tol)
+            np.testing.assert_allclose(w[f"lvg_grad/{key}"], local[key],
+                                       err_msg=key, **tol)
+    assert not np.allclose(world[0]["lvg_grad/Dense_0.kernel"],
+                           world[1]["lvg_grad/Dense_0.kernel"])
+
+
+def test_partial_optimizer_keeps_the_last_layer_local_as_jax(setup, hvd8):
+    """Two SGD-momentum steps of ``PartialDistributedOptimizer`` with
+    Dense_1 local: JAX's, eager on the per-rank stacks, against each
+    port rank; Dense_0 equal on both ranks, Dense_1 not."""
+    world = setup[2]
+    model = _jax_mlp()
+    stk = jax.tree_util.tree_map(lambda p: jnp.stack([p] * 8),
+                                 _mlp_params())
+    opt = hvd8.PartialDistributedOptimizer(
+        optax.sgd(0.1, momentum=0.9),
+        local_filter=lambda path, leaf: path[0].key == "Dense_1")
+    state = opt.init(stk)
+    xs = jnp.asarray(_mlp_x())
+
+    def loss(p, x):
+        return jnp.mean(model.apply({"params": p}, x) ** 2)
+
+    for _ in range(2):
+        grads = jax.vmap(jax.grad(loss))(stk, xs)
+        updates, state = opt.update(grads, state, stk)
+        stk = optax.apply_updates(stk, updates)
+    for r in (0, 1):
+        want = _as_port(jax.tree_util.tree_map(lambda a: a[r], stk))
+        for key, w in want.items():
+            np.testing.assert_allclose(world[r][f"partial/{key}"], w,
+                                       rtol=2e-5, atol=1e-6, err_msg=key)
+    np.testing.assert_array_equal(world[0]["partial/Dense_0.kernel"],
+                                  world[1]["partial/Dense_0.kernel"])
+    assert not np.allclose(world[0]["partial/Dense_1.kernel"],
+                           world[1]["partial/Dense_1.kernel"])
+
+
+def test_metric_average_and_broadcast_callbacks_match_jax(setup, hvd8):
+    """``MetricAverageCallback`` averages each log over the ranks, and
+    ``BroadcastGlobalVariablesCallback`` gives every rank root 1's model
+    and AdamW moments: JAX's callbacks on the same values."""
+    import types
+    world = setup[2]
+    logs = {"loss": jnp.asarray([1.5 * (r % 2 + 1) for r in range(8)]),
+            "acc": jnp.asarray([0.25 * (r % 2) for r in range(8)])}
+    hvd8.callbacks.MetricAverageCallback().on_epoch_end(0, logs)
+    for r in (0, 1):
+        assert float(world[r]["metric_loss"]) == pytest.approx(logs["loss"])
+        assert float(world[r]["metric_acc"]) == pytest.approx(logs["acc"])
+    model = _jax_mlp()
+    root = jax.tree_util.tree_map(lambda a: a * 2, _mlp_params())
+    adam = optax.adamw(1e-3, weight_decay=1e-4)
+    x = jnp.asarray(_mlp_x()[1])
+    g = jax.grad(lambda p: jnp.mean(model.apply({"params": p}, x) ** 2))(
+        root)
+    updates, opt_state = adam.update(g, adam.init(root), root)
+    root = optax.apply_updates(root, updates)
+    state = types.SimpleNamespace(params=root, opt_state=opt_state)
+    hvd8.callbacks.BroadcastGlobalVariablesCallback(
+        root_rank=1).on_train_begin(state)
+    want = _as_port(state.params)
+    mu = _as_port(state.opt_state[0].mu)
+    # Root 1's AdamW step rounds differently in torch and optax: hold
+    # the values to the optimizer tolerance, the ranks to the same bits.
+    for key in want:
+        for r in (0, 1):
+            np.testing.assert_allclose(world[r][f"bcast/{key}"], want[key],
+                                       rtol=2e-5, atol=1e-7, err_msg=key)
+            np.testing.assert_allclose(world[r][f"bcast_mu/{key}"], mu[key],
+                                       rtol=2e-5, atol=1e-9, err_msg=key)
+        for name in ("bcast", "bcast_mu"):
+            np.testing.assert_array_equal(world[0][f"{name}/{key}"],
+                                          world[1][f"{name}/{key}"])
+
+
+def test_learning_rate_and_early_stopping_callbacks_match_jax(hvd8,
+                                                               monkeypatch):
+    """Without a world (the slot count stubbed to JAX's 8): the warm-up
+    and schedule multipliers epoch by epoch, ``momentum_correction``'s
+    warning, and early stopping's decisions, against JAX's callbacks."""
+    import horovod_tpu_torch as thvd
+    from horovod_tpu_torch import callbacks as tcb
+    monkeypatch.setattr(tcb._core, "num_slots", lambda: 8)
+    runs = {}
+    for name, mod in (("jax", hvd8.callbacks), ("port", tcb)):
+        lrs = []
+        with pytest.warns(UserWarning, match="momentum_correction"):
+            warm = mod.LearningRateWarmupCallback(lrs.append, 0.1,
+                                                  warmup_epochs=3)
+        sched = mod.LearningRateScheduleCallback(
+            lrs.append, 0.1, lambda e: 0.5 ** e, start_epoch=2,
+            end_epoch=4)
+        cbs = mod.CallbackList([warm, sched])
+        stop = mod.EarlyStoppingCallback(monitor="loss", patience=2,
+                                         min_delta=0.01)
+        decisions = []
+        for epoch, loss in enumerate([1.0, 0.9, 0.895, 0.95, 0.85, 0.9,
+                                      0.91]):
+            cbs.on_epoch_begin(epoch)
+            stop.on_epoch_end(epoch, {"loss": loss})
+            decisions.append((stop.stop_training, stop.stopped_epoch,
+                              stop.best, stop.wait))
+        runs[name] = (lrs, decisions)
+    assert runs["port"] == runs["jax"]
+    assert runs["port"][1][-1][0]      # it stopped
+    assert thvd.callbacks is tcb

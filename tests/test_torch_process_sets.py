@@ -223,8 +223,7 @@ save("raises_unregistered", raises(
 save("raises_splits_subset", raises(
     NotImplementedError, lambda: hvd.alltoall(
         d["a2a_s"], splits=[2, 2, 2], process_set=ps_b), "ROADMAP"))
-save("raises_adasum", raises(
-    NotImplementedError, lambda: hvd.allreduce(x, op=hvd.Adasum), "ROADMAP"))
+save("adasum_B", hvd.allreduce(x, op=hvd.Adasum, process_set=ps_b))
 save("raises_indivisible", raises(
     ValueError, lambda: hvd.alltoall(d["a2a_w"], process_set=ps_b),
     "divisible"))
@@ -589,16 +588,35 @@ def test_registration_removal_and_refusals(world):
         assert w["ids_all"].tolist() == [0, 2, 3, 4, 5, 6, 7]
         assert w["included"].tolist() == [r < 2, r >= 2]
         for key in ("raises_unregistered", "raises_splits_subset",
-                    "raises_adasum", "raises_indivisible", "raises_trailing",
+                    "raises_indivisible", "raises_trailing",
                     "raises_removed"):
             assert int(w[key]) == 1, (key, r)
     xs = _stack("x")
+    # Adasum no longer refuses: over (1, 2, 3), the zero-padded tree of
+    # the float64 model (JAX's tolerance rtol 1e-4); rank 0 keeps x.
+    _check(world, "adasum_B", np.stack([_np_adasum_tree(xs[list(B)])] * N),
+           B, xs, rtol=1e-4)
+    _same_bits(world, "adasum_B", B)
     for r in range(N):
         half = (r // 2) * 2
         np.testing.assert_allclose(world[r]["ar_half"],
                                    xs[half] + xs[half + 1], rtol=1e-6)
         np.testing.assert_allclose(world[r]["ar_whole"], xs.sum(0),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _np_adasum_tree(ts):
+    ts = [t.astype(np.float64) for t in ts]
+    while len(ts) & (len(ts) - 1):
+        ts.append(np.zeros_like(ts[0]))
+    while len(ts) > 1:
+        pairs = []
+        for a, b in zip(ts[0::2], ts[1::2]):
+            dot, na, nb = (a * b).sum(), (a * a).sum(), (b * b).sum()
+            pairs.append((1 - dot / (2 * na) if na else 1.0) * a
+                         + (1 - dot / (2 * nb) if nb else 1.0) * b)
+        ts = pairs
+    return ts[0]
 
 
 def test_optimizer_over_a_set_matches_jax(world, jax4):
@@ -771,8 +789,6 @@ def test_exports_match_jax_but_for_the_listed_gap():
     missing = {n for n in names if not hasattr(thvd, n)}
     assert missing == {
         "join", "mesh", "mesh_axis", "start_timeline", "stop_timeline",
-        "PartialDistributedOptimizer", "value_and_grad", "grad",
-        "local_value_and_grad", "adasum_delta_step",
         "distributed_gradient_transformation"}
     assert len(names) > 70
 
