@@ -93,8 +93,9 @@ Phases, each of which exits non-zero on failure:
    steps of ``DistributedOptimizer(process_set=...)`` on the MLP; check
    each output against what a world of one must give, computed on the
    CPU, that it lies on the card and that the backend is NCCL; time one
-   call of allgather, alltoall and reducescatter at 4 KiB and 64 MiB of
-   f32 and a device-to-device copy of the same bytes with CUDA events;
+   call of allreduce, allgather, alltoall and reducescatter (through the
+   eager engine) at 4 KiB and 64 MiB of f32 and a device-to-device copy
+   of the same bytes with CUDA events;
 8. drive GPT-2-medium training with Adasum:
    ``examples/gpt2_adasum.main`` at full width and depth (24 layers,
    d_model 1024, 16 heads, vocab 50257, remat, causal flash attention,
@@ -114,12 +115,27 @@ Phases, each of which exits non-zero on failure:
    ``pair_combine`` at wte's
    shape timed with CUDA events beside a device copy of one operand
    and its bytes bound;
-9. print the card's name and power limit, one JSON line of phase 7's
-   times, one of phase 8's numbers, one JSON line describing every
-   ported kernel (a bf16 flash kernel has one entry for phase 5's
-   BERT-large path and one, ``*_gpt2_medium``, for phase 8's, each with
-   that path's launches, counted from 0, and the error and times at its
-   shape), and as the last line ``{"ok": true, "device": ...}``.
+9. drive the negotiated eager engine in an NCCL world of one: build
+   the native core (``csrc/hvd_core.cc``, g++) and check each of its
+   parts; run phase 5's GPT-2-small path (bf16, causal flash, 4 x 1024
+   tokens, 3 steps) with ``hvd.start_timeline`` on and check the
+   timeline: one ALLREDUCE and one NEGOTIATE_ALLREDUCE span per engine
+   dispatch, every B with its E, no event dropped; and each flash kernel
+   launched on its wgmma route 12 times a step; time a step with the
+   timeline on and off; a second op under a claimed name raises
+   DuplicateNameError; ``join()`` returns 0;
+   ``hierarchical_allreduce(local_size=1)`` gives the flat allreduce's
+   bits; a cached 4 KiB allreduce taken apart and timed per call (the
+   engine with a data plane that does nothing, the data plane alone,
+   the engine around it, the whole call) beside ``dist.all_reduce`` of
+   as many bytes;
+10. print the card's name and power limit, one JSON line of phase 7's
+   times, one of phase 8's numbers, one of phase 9's, one JSON line
+   describing every ported kernel (a bf16 flash kernel has one entry for
+   phase 5's BERT-large path, one, ``*_gpt2_medium``, for phase 8's and
+   one, ``*_gpt2_small``, for phase 9's, each with that path's launches,
+   counted from 0, and the error and times at its shape), and as the
+   last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.  ``--device cpu`` rehearses the same phases at a tiny
@@ -1949,14 +1965,14 @@ def collective_checks(torch, hvd, device):
 
 
 def collective_timing(torch, hvd, device):
-    """Device time of one call of allgather, alltoall and reducescatter
-    at 4 KiB and 64 MiB of f32 (CUDA events around each call, mean over
-    the calls), and of one device-to-device copy of the same bytes, the
-    yardstick.  In a world of one these show the port's per-call
-    overhead (the header exchange and its host sync, the launches), not
-    the link."""
-    ops = {"allgather": hvd.allgather, "alltoall": hvd.alltoall,
-           "reducescatter": hvd.reducescatter}
+    """Device time of one call of allreduce, allgather, alltoall and
+    reducescatter at 4 KiB and 64 MiB of f32 (CUDA events around each
+    call, mean over the calls), every call through the eager engine, and
+    of one device-to-device copy of the same bytes, the yardstick.  In a
+    world of one these show the port's per-call overhead (the engine, the
+    launches), not the link."""
+    ops = {"allreduce": hvd.allreduce, "allgather": hvd.allgather,
+           "alltoall": hvd.alltoall, "reducescatter": hvd.reducescatter}
     out = {}
     for label, numel, iters in (("4KiB", 1024, 50), ("64MiB", 16 << 20, 10)):
         x = torch.randn(numel, device=device)
@@ -2303,6 +2319,200 @@ def adasum_phase(torch, device, rehearsal):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the negotiated eager engine in a world of one
+# ---------------------------------------------------------------------------
+
+def native_core_check():
+    """Build the native core (g++, from the checkout's hvd_core.cc) and
+    exercise each of its parts once; returns (failures, build seconds)."""
+    from horovod_tpu_torch.csrc import native
+    t0 = time.monotonic()
+    native.lib()
+    build_s = time.monotonic() - t0
+    bad = []
+    c = native.NativeResponseCache(2)
+    got = [c.lookup("t", "float32", [4]), c.put("t", "float32", [4]),
+           c.lookup("t", "float32", [4]), c.lookup("t", "float32", [5])]
+    if got != [native.CACHE_MISS, 0, native.CACHE_HIT, native.CACHE_INVALID]:
+        bad.append(f"response cache {got}")
+    mt = native.NativeMessageTable(2)
+    mt.increment("g", "float32", [4], 1, 0)
+    mt.increment("g", "float32", [5], 1, 1)
+    if mt.validate("g") != "Mismatched shapes for collective g":
+        bad.append(f"message table verdict {mt.validate('g')!r}")
+    q = native.NativeTensorQueue()
+    if [q.add("x", "", []), q.add("x", "", [])] != [True, False]:
+        bad.append("tensor queue let a duplicate name in")
+    si = native.NativeStallInspector(1.0, 0.0, 2)
+    si.record_request("t", 0, 0.0)
+    if si.check(2.0) != (1, [("t", 2.0, [0], [1])]):
+        bad.append(f"stall report {si.check(2.0)}")
+    if native.plan_fusion([("a", "float32", 8, 1, 0), ("b", "float16", 8, 1,
+                                                        0),
+                           ("c", "float32", 8, 1, 0)], 64) != [[0, 2], [1]]:
+        bad.append("fusion plan")
+    return bad, build_s
+
+
+def timeline_spans(path):
+    """Parse a timeline: the B/E spans by name, spans left open or closed
+    without opening, and the dropped-events counter."""
+    events = json.load(open(path))
+    depth, spans, unmatched = {}, {}, 0
+    for e in events:
+        key = (e.get("tid"), e["name"])
+        if e["ph"] == "B":
+            depth[key] = depth.get(key, 0) + 1
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+        elif e["ph"] == "E":
+            if depth.get(key, 0) == 0:
+                unmatched += 1
+            else:
+                depth[key] -= 1
+    last = events[-1]
+    dropped = last["args"]["dropped"] \
+        if last["name"] == "hvd_timeline_dropped_events_total" else None
+    return {"events": len(events), "spans": spans,
+            "open": sum(depth.values()), "unmatched_ends": unmatched,
+            "dropped_events": dropped}
+
+
+def eager_phase(torch, device, rehearsal):
+    """Phase 9: the native core, then phase 5's GPT-2-small path (bf16,
+    causal flash, 4 x 1024 tokens, 3 steps) in an NCCL world of one with
+    ``hvd.start_timeline`` on: the timeline holds one ALLREDUCE and one
+    NEGOTIATE_ALLREDUCE span per engine dispatch, every B has its E and
+    nothing was dropped; a step timed with the timeline on and off (on,
+    off, on, off; the means); a
+    second op under a claimed name raises DuplicateNameError;
+    ``join()`` returns 0; ``hierarchical_allreduce(local_size=1)`` gives
+    the flat allreduce's bits; a cached 4 KiB allreduce taken apart and
+    timed per call (``join_bench.engine_cost``: the engine with a data
+    plane that does nothing, the data plane alone, the engine around
+    it, the whole call, ``dist.all_reduce``).  Returns the flash launches of the timeline's
+    3 steps and the numbers."""
+    import os
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples.join_bench import engine_cost
+    from horovod_tpu_torch.exceptions import DuplicateNameError
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    from horovod_tpu_torch.parallel import flash as fl
+    failures, build_s = native_core_check()
+    log(f"  native core built in {build_s:.1f} s; self-check "
+        f"{'ok' if not failures else failures}")
+    kw = dict(attention_impl="flash", dtype=torch.bfloat16)
+    B, S = 4, 1024
+    if rehearsal:
+        kw.update(num_layers=2, num_heads=2, d_model=32, d_ff=64,
+                  vocab_size=97, max_len=64, dtype=torch.float32)
+        B, S = 2, 64
+    hvd.init(device="cpu" if rehearsal else None)
+    tmp = tempfile.mkdtemp(prefix="hvd_timeline_")
+    path = os.path.join(tmp, "timeline.json")
+    try:
+        eng = hvd.core._state.engine
+        model = create_gpt2("small", device=device, seed=9, **kw)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        tokens = torch.as_tensor(np.random.RandomState(4).randint(
+            0, model.cfg.vocab_size, (B, S)), device=device)
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+
+        def steps(n):
+            losses = []
+            t = time.perf_counter()
+            for _ in range(n):
+                opt.zero_grad()
+                loss = lm_loss(model(tokens)[:, :-1], tokens[:, 1:])
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+            sync()
+            return losses, (time.perf_counter() - t) * 1e3 / n
+
+        steps(1)  # warm-up
+        for name in fl.LAUNCHES:  # the counts cover the timeline's steps
+            fl.LAUNCHES[name] = 0
+        d0 = eng.dispatches
+        hvd.start_timeline(path)
+        losses, on_ms = steps(3)
+        hvd.stop_timeline()
+        dispatches = eng.dispatches - d0
+        launches = dict(fl.LAUNCHES)
+        tl = timeline_spans(path)
+        # Then off, on, off, so that neither side always runs first.
+        _, off_ms = steps(3)
+        hvd.start_timeline(os.path.join(tmp, "again.json"))
+        _, on2_ms = steps(3)
+        hvd.stop_timeline()
+        os.remove(os.path.join(tmp, "again.json"))
+        _, off2_ms = steps(3)
+        on_ms, off_ms = (on_ms + on2_ms) / 2, (off_ms + off2_ms) / 2
+        spans = tl["spans"]
+        log(f"  gpt2-small B={B} S={S}, 3 steps with the timeline: losses "
+            f"{[round(x, 4) for x in losses]}, {dispatches} engine "
+            f"dispatches, timeline {tl}")
+        log(f"  step {on_ms:.2f} ms with the timeline on, {off_ms:.2f} ms "
+            f"off; flash launches {launches}")
+        if not all(np.isfinite(losses)):
+            failures.append(f"losses {losses}")
+        if not (dispatches > 0
+                and spans.get("ALLREDUCE") == dispatches
+                and spans.get("NEGOTIATE_ALLREDUCE") == dispatches
+                and tl["open"] == 0 and tl["unmatched_ends"] == 0
+                and tl["dropped_events"] == 0):
+            failures.append(f"timeline {tl} for {dispatches} dispatches")
+        if not rehearsal and not bf16_launches(launches,
+                                               3 * model.cfg.num_layers):
+            failures.append(f"flash launches {launches}, expected "
+                            f"{3 * model.cfg.num_layers} each on wgmma")
+        del model, opt
+        x = torch.randn(1024, device=device)  # 4 KiB of f32
+        eng.claim_name("phase9.claimed")
+        try:
+            hvd.allreduce(x, name="phase9.claimed")
+            failures.append("no DuplicateNameError under a claimed name")
+        except DuplicateNameError:
+            pass
+        finally:
+            eng.release_name("phase9.claimed")
+        last = hvd.join()
+        if last != 0:
+            failures.append(f"join() returned {last}")
+        y = torch.randn(50257, device=device)
+        if not torch.equal(hvd.hierarchical_allreduce(y, local_size=1),
+                           hvd.allreduce(y, op=hvd.Sum)):
+            failures.append("hierarchical_allreduce(local_size=1) != flat")
+        per_call = engine_cost(device, 100 if rehearsal else 1000)
+        for label, c in per_call.items():
+            log(f"  4 KiB allreduce, {label}: {c['host_us_per_call']:.1f} "
+                f"us of host per call" + (
+                    f", {c['device_ms_per_call']:.4f} ms of device"
+                    if c["device_ms_per_call"] is not None else ""))
+    finally:
+        hvd.shutdown()
+        if os.path.exists(path):
+            os.remove(path)
+        os.rmdir(tmp)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("eager engine phase failed")
+    return launches, {
+        "native_build_s": build_s, "dispatches_per_step": dispatches / 3,
+        "timeline": tl, "step_ms_timeline_on": on_ms,
+        "step_ms_timeline_off": off_ms,
+        "per_call_4KiB": per_call, "join": last,
+        "flash_launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -2369,6 +2579,12 @@ def main(argv=None) -> int:
     adasum_launches, adasum_numbers = adasum_phase(torch, device, rehearsal)
     log(f"  phase 8 took {time.monotonic() - t8:.1f} s")
 
+    log("phase 9: the negotiated eager engine (native core, timeline, "
+        "join, hierarchical allreduce; NCCL world of one)")
+    t9 = time.monotonic()
+    eager_launches, eager_numbers = eager_phase(torch, device, rehearsal)
+    log(f"  phase 9 took {time.monotonic() - t9:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -2376,6 +2592,7 @@ def main(argv=None) -> int:
     print(card_tag())
     print(json.dumps({"collectives": collectives}))
     print(json.dumps({"adasum": dict(adasum_numbers, card=card_tag())}))
+    print(json.dumps({"eager": dict(eager_numbers, card=card_tag())}))
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -2447,6 +2664,24 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": "GPT-2 small [4, 1024, 12, 64] f32, causal, cold L2; "
                      "launches: the f32 step of phase 5"})
+    for name, where in replaces.items():
+        r = frec["gpt2-small"][name]
+        # The same wgmma kernels on phase 9's GPT-2-small path, apart
+        # from phase 5's counts: its launches, the error and times at
+        # its shape.
+        kernels.append({
+            "name": name + "_gpt2_small", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/" + (
+                "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
+                else "flash_attention_bwd_sm90.cu"),
+            "replaces": where,
+            "launches": eager_launches[name + "_wgmma"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "GPT-2 small [4, 1024, 12, 64] bf16, causal, cold L2; "
+                     "launches: phase 9's 3 steps under the timeline"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,10 +31,16 @@ Ported so far:
   (``PartialDistributedOptimizer``, ``adasum_delta_step``,
   ``local_value_and_grad``, ``value_and_grad``, ``grad``) with the
   training callbacks (``hvd.callbacks``), trained on GPT-2-medium by
-  ``python -m horovod_tpu_torch.examples.gpt2_adasum``.
+  ``python -m horovod_tpu_torch.examples.gpt2_adasum``;
+* the negotiated eager engine (``ops/eager.py``, ``ops/negotiation.py``,
+  the native core ``csrc/hvd_core.cc``): every collective is negotiated
+  by the coordinator over the world's store before NCCL sees it, with a
+  response cache and a stall inspector; ``join`` for uneven data; the
+  Horovod timeline (``start_timeline`` / ``stop_timeline``,
+  ``HOROVOD_TIMELINE``); and the two-level ``hierarchical_allreduce``.
 
-Not exported yet (ROADMAP A1/A2): ``join``, ``mesh``, ``mesh_axis`` and
-``start_timeline`` / ``stop_timeline``.
+Not exported yet (ROADMAP A6/A9): ``mesh``, ``mesh_axis`` and
+``analysis_reports``.
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
 
@@ -51,6 +57,7 @@ from .core import (  # noqa: F401
     mpi_threads_supported, mpi_enabled, mpi_built,
     gloo_enabled, gloo_built, nccl_built, ddl_built, ccl_built,
     cuda_built, rocm_built, xla_built, xla_enabled,
+    start_timeline, stop_timeline,
 )
 
 from .ops import (  # noqa: F401
@@ -63,7 +70,7 @@ from .ops import (  # noqa: F401
     alltoall, alltoall_async,
     reducescatter, reducescatter_async,
     grouped_reducescatter, grouped_reducescatter_async,
-    poll, synchronize, barrier,
+    poll, synchronize, barrier, join, hierarchical_allreduce,
 )
 
 from .compression import Compression  # noqa: F401

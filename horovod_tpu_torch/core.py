@@ -2,23 +2,27 @@
 
 Port of ``horovod_tpu/core.py:146-453``: ``init``, ``shutdown``,
 ``is_initialized``, rank / size / local / cross, ``num_slots``,
-``local_slots``, ``is_homogeneous`` and the built / enabled queries.
-The state holds the process-set table (``process_sets.py``) and the
-async handles (``ops/eager.py``).
+``local_slots``, ``is_homogeneous``, ``start_timeline`` /
+``stop_timeline`` and the built / enabled queries.  The state holds the
+process-set table (``process_sets.py``), the async handles and the eager
+engine (``ops/eager.py``), the world's store and the timeline.
 
-The world forms through ``torch.distributed.init_process_group``: NCCL
-for a CUDA device, gloo for ``device="cpu"``.  Under a launcher
-(``HOROVOD_RANK`` / ``HOROVOD_SIZE`` set, size > 1) the store's address
-comes from the same environment the JAX package's
-``_maybe_join_distributed`` reads (``core.py:72-143``):
-``HVD_TPU_COORDINATOR``, else the rendezvous address at its port + 1.
-A world of one still gets a one-member group over an in-memory
-``HashStore``, so a single card's training step goes through NCCL like
-a many-card one.
+The world forms through ``torch.distributed.init_process_group`` over a
+store that ``init`` makes itself: NCCL for a CUDA device, gloo for
+``device="cpu"``.  Under a launcher (``HOROVOD_RANK`` / ``HOROVOD_SIZE``
+set, size > 1) the store is a ``TCPStore`` served by rank 0 at the
+address the JAX package's ``_maybe_join_distributed`` reads
+(``core.py:72-143``): ``HVD_TPU_COORDINATOR``, else the rendezvous
+address at its port + 1.  The eager engine negotiates over the same
+store (``ops/negotiation.py``).  A world of one still gets a one-member
+group over an in-memory ``HashStore``, so a single card's training step
+goes through NCCL like a many-card one.  ``HOROVOD_TIMELINE`` starts the
+timeline on rank 0 at ``init`` (``core.py:271-277``).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import threading
 from typing import Optional, Sequence
@@ -45,6 +49,13 @@ class _GlobalState:
         self.owns_group = False
         self.process_set_table = None
         self.handles = None
+        self.engine = None
+        self.store: Optional[dist.Store] = None
+        # host, port of a TCPStore (None for a HashStore or a store the
+        # caller's process group made): the negotiator's flusher opens
+        # its own client connection there.
+        self.store_address: Optional[tuple] = None
+        self.timeline = None
 
 
 _state = _GlobalState()
@@ -74,7 +85,7 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
     ``process_sets`` are registered once the world has formed, in their
     order, which must be the same on every rank."""
     from . import process_sets as _ps
-    from .ops.eager import HandleManager
+    from .ops.eager import EagerEngine, HandleManager
     with _state.lock:
         if _state.initialized:
             return
@@ -92,14 +103,19 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
                                    topo.local_rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         owns = not dist.is_initialized()
+        address = None
         if owns:
             if topo.size > 1:
-                dist.init_process_group(
-                    backend, init_method=f"tcp://{_store_address()}",
-                    world_size=topo.size, rank=topo.rank)
+                host, port = _store_address().rsplit(":", 1)
+                address = (host, int(port))
+                store = dist.TCPStore(
+                    host, int(port), topo.size, topo.rank == 0,
+                    timeout=datetime.timedelta(
+                        seconds=max(cfg.gloo_timeout_seconds, 300.0)))
             else:
-                dist.init_process_group(backend, store=dist.HashStore(),
-                                        world_size=1, rank=0)
+                store = dist.HashStore()
+            dist.init_process_group(backend, store=store,
+                                    world_size=topo.size, rank=topo.rank)
         elif (dist.get_world_size(), dist.get_rank()) != (topo.size,
                                                           topo.rank):
             raise ValueError(
@@ -109,8 +125,18 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
         _state.config, _state.topology = cfg, topo
         _state.device, _state.backend = dev, dist.get_backend()
         _state.owns_group = owns
+        _state.store = store if owns else \
+            dist.distributed_c10d._get_default_store()
+        _state.store_address = address
         _state.process_set_table = _ps.ProcessSetTable(topo.num_slots)
         _state.handles = HandleManager()
+        _state.engine = EagerEngine(topo)
+        if cfg.timeline_path and topo.rank == 0:
+            # Rank 0 writes the trace, like the reference's coordinator.
+            from .timeline import Timeline
+            _state.timeline = Timeline(cfg.timeline_path,
+                                       mark_cycles=cfg.timeline_mark_cycles,
+                                       rank=topo.rank)
         _state.initialized = True
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
@@ -122,11 +148,17 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
 
 
 def shutdown() -> None:
-    """Leave the world (``horovod_shutdown``): destroys every process
-    set's group, and the world's if ``init`` created it."""
+    """Leave the world (``horovod_shutdown``): closes the timeline and
+    the negotiator (its flusher stops after shipping the pending
+    records), then destroys every process set's group, and the world's
+    if ``init`` created it."""
     with _state.lock:
         if not _state.initialized:
             return
+        if _state.timeline is not None:
+            _state.timeline.close()
+            _state.timeline = None
+        _state.engine.close()
         if dist.is_initialized():
             _state.process_set_table.destroy()
             if _state.owns_group:
@@ -134,6 +166,7 @@ def shutdown() -> None:
         _state.initialized = False
         _state.topology = _state.device = _state.backend = None
         _state.process_set_table = _state.handles = None
+        _state.engine = _state.store = _state.store_address = None
 
 
 def _require_init() -> _GlobalState:
@@ -196,6 +229,26 @@ def is_homogeneous() -> bool:
 def device() -> torch.device:
     """This rank's device (``init``'s ``device``)."""
     return _require_init().device
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Start writing the timeline to ``file_path``
+    (``horovod_start_timeline``, operations.cc:1077); a running one is
+    closed first."""
+    from .timeline import Timeline
+    st = _require_init()
+    if st.timeline is not None:
+        st.timeline.close()
+    st.timeline = Timeline(file_path, mark_cycles=mark_cycles,
+                           rank=st.topology.rank)
+
+
+def stop_timeline() -> None:
+    """Close the timeline (``horovod_stop_timeline``)."""
+    st = _require_init()
+    if st.timeline is not None:
+        st.timeline.close()
+        st.timeline = None
 
 
 # ---------------------------------------------------------------------------

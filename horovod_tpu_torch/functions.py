@@ -123,16 +123,23 @@ def broadcast_object(obj: Any = None, root_rank: int = 0,
                      process_set: ProcessSet = global_process_set) -> Any:
     """The root's ``obj`` on every member of the set (``root_rank`` is
     the root's rank within it); a rank outside the set gets its own
-    ``obj`` back."""
+    ``obj`` back.  The byte count goes to every rank of the world, so
+    that a rank outside the set negotiates the payload's broadcast with
+    its shape."""
     m = _ops.members_of(process_set)
-    if not m.included:
-        return obj
+    if not 0 <= root_rank < m.size:
+        raise ValueError(f"root_rank {root_rank} outside the set of "
+                         f"{m.size} ranks")
     dev = _core.device()
     root = m.set_rank == root_rank
     payload = _to_bytes(obj) if root else None
     size = torch.tensor([payload.numel() if root else 0], dtype=torch.int64,
                         device=dev)
-    size = _ops.broadcast(size, root_rank, process_set=process_set)
+    size = _ops.broadcast(size, m.ranks[root_rank])
+    if not m.included:
+        _ops.broadcast(_ops._meta((int(size),), torch.uint8), root_rank,
+                       name=name, process_set=process_set)
+        return obj
     buf = payload if root else torch.empty(int(size), dtype=torch.uint8,
                                            device=dev)
     return _from_bytes(_ops.broadcast(buf, root_rank, name=name,
@@ -152,9 +159,8 @@ def allgather_object(obj: Any, name: Optional[str] = None,
                      process_set: ProcessSet = global_process_set) -> list:
     """Every member's ``obj``, in rank order; a rank outside the set
     gets ``[obj]``, as the JAX package gives it."""
-    del name
-    m = _ops.members_of(process_set)
-    if not m.included:
+    res = _ops._gather(_to_bytes(obj), process_set, name=name)
+    if res is None:
         return [obj]
-    out, rows = _ops._gather(_to_bytes(obj), m)
+    out, rows = res
     return [_from_bytes(b) for b in _ops._blocks(out, rows)]

@@ -3,7 +3,8 @@ share, in torch.
 
 Port of ``ReduceOp`` and its aliases (``horovod_tpu/ops/collective_ops.py
 :53-69``), ``_apply_scale`` (``:72``), ``reducescatter_padded_size``
-(``:351``) and the reduce-scatter rule (``:360-396``), plus:
+(``:351``), the reduce-scatter rule (``:360-396``) and
+``hierarchical_allreduce`` (``:407-467``), plus:
 
 * ``Members``: who takes part in a collective over a process set: the
   set's group (None for the world), its member ranks, and this rank's
@@ -27,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import core as _core
+from ..exceptions import HorovodInternalError
 
 
 class ReduceOp(enum.IntEnum):
@@ -77,6 +79,12 @@ def members_of(process_set) -> Members:
                    ranks.index(me) if me in ranks else None)
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """The wire name of a dtype: numpy's, as the JAX package sends it
+    (``float32``, ``bfloat16``, ``int64``, ``bool``)."""
+    return str(dtype).rpartition(".")[2]
+
+
 def _apply_scale(x: torch.Tensor, factor: float) -> torch.Tensor:
     """``x * factor``; f16/bf16 scale in f32 and round once, integers
     truncate back to their dtype (the JAX package's rules)."""
@@ -98,7 +106,9 @@ def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
 def _checked(what: str, t: torch.Tensor, call) -> None:
     """Run one collective on ``t``: a CUDA tensor goes through NCCL or
     raises (gloo would take some CUDA tensors and stage them through the
-    host), and a failure names the op, the tensor and the backend."""
+    host), and a failure of the call is the reference's
+    ``HorovodInternalError`` (``exceptions.py:18``, a ``RuntimeError``),
+    naming the op, the tensor and the backend."""
     backend = dist.get_backend()
     if t.is_cuda and backend != "nccl":
         raise RuntimeError(
@@ -108,7 +118,7 @@ def _checked(what: str, t: torch.Tensor, call) -> None:
     try:
         call()
     except RuntimeError as e:
-        raise RuntimeError(
+        raise HorovodInternalError(
             f"{what} of a {t.dtype} tensor on {t.device} failed on the "
             f"{backend} backend: {e}") from e
 
@@ -161,3 +171,44 @@ def reducescatter(x: torch.Tensor, op: ReduceOp, m: Members,
     if op == ReduceOp.AVERAGE:
         out = _divide(out, n)
     return _apply_scale(out, postscale_factor)
+
+
+def hierarchical_allreduce(x: torch.Tensor, op: ReduceOp, local_size: int,
+                           prescale_factor: float = 1.0,
+                           postscale_factor: float = 1.0) -> torch.Tensor:
+    """Two-level allreduce over the world (the reference's
+    NCCLHierarchicalAllreduce, nccl_operations.h:231): the flattened
+    tensor, zero-padded to a multiple of ``local_size``, is
+    reduce-scattered inside each node's group (ranks [k·L, (k+1)·L)),
+    each chunk is reduced across its cross group (the ranks of one local
+    rank, L apart), and the chunks are gathered back inside the node.
+    The groups are made collectively at first use and kept in the
+    process-set table.  SUM and AVERAGE; AVERAGE divides by the world's
+    size (floor division for integers)."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("hierarchical_allreduce supports SUM and AVERAGE")
+    st = _core._require_init()
+    n = st.topology.size
+    if n % local_size != 0:
+        raise ValueError(
+            f"axis size {n} not divisible by local_size {local_size} "
+            f"(hierarchical allreduce needs a homogeneous layout)")
+    local, cross = st.process_set_table.hierarchy(local_size,
+                                                  st.topology.rank)
+    x = _apply_scale(x, prescale_factor)
+    flat = x.reshape(-1)
+    # Phase 1: reduce-scatter inside the node (the port's reducescatter
+    # zero-pads to reducescatter_padded_size): each rank owns a chunk.
+    chunk = reducescatter(flat, ReduceOp.SUM, local)
+    # Phase 2: sum the chunk across nodes.
+    chunk = reduce_in_place(chunk, ReduceOp.SUM, cross)
+    # Phase 3: gather the chunks back inside the node.
+    full = chunk.new_empty(chunk.shape[0] * local_size)
+    _checked("hierarchical_allreduce", chunk,
+             lambda: dist.all_gather_into_tensor(full, chunk,
+                                                 group=local.group))
+    r = full[:flat.shape[0]].view(x.shape)
+    if op == ReduceOp.AVERAGE:
+        r = _divide(r, n)
+    return _apply_scale(r, postscale_factor)

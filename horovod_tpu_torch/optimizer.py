@@ -281,9 +281,15 @@ def adasum_delta_step(optimizer: torch.optim.Optimizer,
     before = [p.detach().clone() for p in params]
     optimizer.step()
     m = _ops.members_of(process_set)
+    wire = _ops._wire_ps(process_set)
     for name, p, old in zip(names, params, before):
         stacked = per_layer_stacked is not None and per_layer_stacked(name)
-        p.copy_(old + adasum_allreduce(p - old, m, per_slice_axis0=stacked))
+        delta = p - old
+        # One engine dispatch per delta, as allreduce(op=Adasum) is one.
+        p.copy_(old + _ops._engine().run(
+            "allreduce", lambda: adasum_allreduce(delta, m,
+                                                  per_slice_axis0=stacked),
+            [delta], op_id=int(ReduceOp.ADASUM), **wire))
     state = [(st, k, v) for st in optimizer.state.values()
              for k, v in st.items()
              if k != "step" and torch.is_tensor(v) and v.is_floating_point()]

@@ -95,6 +95,10 @@ class ProcessSetTable:
         self.table: Dict[int, ProcessSet] = {}
         # id → the set's group; None for a set that covers the world.
         self._groups: Dict[int, Optional[dist.ProcessGroup]] = {}
+        # local_size → this rank's (node, cross) Members of the
+        # two-level allreduce, and every group made for them.
+        self._hier: Dict[int, tuple] = {}
+        self._hier_groups: List[dist.ProcessGroup] = []
         g = ProcessSet()
         g.process_set_id = 0
         self.table[0] = g
@@ -142,6 +146,37 @@ class ProcessSetTable:
         except KeyError:
             raise ValueError(f"unknown process set id {process_set_id}")
 
+    def find(self, ranks: Sequence[int]) -> Optional[ProcessSet]:
+        """The registered set with these member ranks, or None."""
+        ranks = sorted(int(r) for r in ranks)
+        with self._lock:
+            for existing in self.table.values():
+                if existing._resolved_ranks() == ranks:
+                    return existing
+        return None
+
+    def hierarchy(self, local_size: int, rank: int):
+        """This rank's node and cross groups for ``local_size`` ranks per
+        node, as ``ops.Members``: made at first use, collectively (every
+        rank calls ``dist.new_group`` for every group, in one order)."""
+        from .ops.collective_ops import Members
+        with self._lock:
+            if local_size not in self._hier:
+                n = self.num_slots
+                nodes = [list(range(k * local_size, (k + 1) * local_size))
+                         for k in range(n // local_size)]
+                crosses = [list(range(j, n, local_size))
+                           for j in range(local_size)]
+                mine = []
+                for groups in (nodes, crosses):
+                    made = [dist.new_group(g) for g in groups]
+                    self._hier_groups.extend(made)
+                    i = next(i for i, g in enumerate(groups) if rank in g)
+                    mine.append(Members(made[i], tuple(groups[i]),
+                                        groups[i].index(rank)))
+                self._hier[local_size] = tuple(mine)
+            return self._hier[local_size]
+
     def resolve(self, ps: Optional[ProcessSet]
                 ) -> Tuple[Optional[dist.ProcessGroup], List[int]]:
         """The group a collective over ``ps`` runs on (None: the world)
@@ -166,6 +201,10 @@ class ProcessSetTable:
                 if pid:
                     self.table.pop(pid).process_set_id = None
                     _destroy(self._groups.pop(pid))
+            for group in self._hier_groups:
+                _destroy(group)
+            self._hier.clear()
+            self._hier_groups.clear()
 
 
 def _destroy(group: Optional[dist.ProcessGroup]) -> None:

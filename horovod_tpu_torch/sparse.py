@@ -32,11 +32,12 @@ def sparse_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     if not (isinstance(x, torch.Tensor) and x.layout == torch.sparse_coo):
         raise TypeError("sparse_allreduce takes a sparse COO tensor")
     m = _ops.members_of(process_set)
-    if not m.included:
-        return x
     # One row per nonzero: indices [nnz, ndim] and values [nnz, ...].
-    idx, rows = _ops._gather(x._indices().t(), m)
-    vals, _ = _ops._gather(x._values(), m)
+    res = _ops._gather(x._indices().t(), process_set)
+    vres = _ops._gather(x._values(), process_set)
+    if res is None:
+        return x
+    (idx, rows), (vals, _) = res, vres
     if len(set(rows)) > 1:
         idx = torch.cat(_ops._blocks(idx, rows))
         vals = torch.cat(_ops._blocks(vals, rows))

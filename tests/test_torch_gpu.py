@@ -1301,3 +1301,59 @@ def test_gpt2_adasum_example_trains_on_the_card(cuda_device):
     assert losses[-1] < losses[0]
     assert got["flash_fwd_tf32x3"] == got["flash_bwd_dq_tf32x3"] == \
         got["flash_bwd_dkv_tf32x3"] == 4 * L, got
+
+
+# -- The eager engine on the card (chip_smoke.py phase 9's checks) -----------
+
+@pytest.mark.gpu
+def test_nccl_allreduce_writes_its_timeline(nccl_world, cuda_device,
+                                            tmp_path):
+    """One NCCL allreduce through the engine: its NEGOTIATE and op spans
+    (host enqueue), every B with its E, no event dropped."""
+    import json
+    hvd = nccl_world
+    path = tmp_path / "timeline.json"
+    eng = hvd.core._state.engine
+    n = eng.dispatches
+    hvd.start_timeline(str(path))
+    out = hvd.allreduce(torch.ones(8, device=cuda_device), name="tl.grad",
+                        op=hvd.Sum)
+    hvd.stop_timeline()
+    _same(out, torch.ones(8, device=cuda_device))
+    assert eng.dispatches == n + 1
+    events = json.load(open(path))
+    spans = [(e["name"], e["ph"]) for e in events if e.get("tid") == "tl.grad"]
+    assert spans == [("NEGOTIATE_ALLREDUCE", "B"), ("0", "i"),
+                     ("NEGOTIATE_ALLREDUCE", "E"), ("ALLREDUCE", "B"),
+                     ("ALLREDUCE", "E")]
+    assert events[-1]["args"] == {"dropped": 0}
+
+
+@pytest.mark.gpu
+def test_join_and_hierarchical_allreduce_in_a_world_of_one(nccl_world,
+                                                           cuda_device):
+    hvd = nccl_world
+    assert hvd.join() == 0
+    x = torch.randn(1001, device=cuda_device)
+    _same(hvd.hierarchical_allreduce(x, local_size=1),
+          hvd.allreduce(x, op=hvd.Sum))
+    with pytest.raises(ValueError, match="SUM and AVERAGE"):
+        hvd.hierarchical_allreduce(x, op=hvd.Max, local_size=1)
+
+
+@pytest.mark.gpu
+def test_a_distributed_optimizer_step_is_one_engine_dispatch(nccl_world,
+                                                             cuda_device):
+    """The optimizer's one fusion bucket (every f32 gradient, below the
+    threshold) is one engine dispatch, under the bucket's name."""
+    hvd = nccl_world
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                                torch.nn.Linear(16, 4)).to(cuda_device)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1))
+    model(torch.randn(5, 8, device=cuda_device)).sum().backward()
+    eng = hvd.core._state.engine
+    n = eng.dispatches
+    opt.step()
+    assert eng.dispatches == n + 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())

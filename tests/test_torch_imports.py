@@ -62,7 +62,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "examples.bert_pretraining", "serve.sampling",
                  "serve.replica", "serve.server", "models.mlp",
                  "models.convert", "ops.adasum", "callbacks",
-                 "examples.gpt2_adasum", "examples.adasum_bench"):
+                 "examples.gpt2_adasum", "examples.adasum_bench",
+                 "csrc.native", "ops.negotiation", "timeline",
+                 "examples.join_bench"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -118,7 +120,7 @@ def test_no_port_file_imports_jax(path):
 
 @pytest.mark.parametrize("name", ["serve/blocks.py", "serve/batcher.py",
                                   "serve/tenancy.py", "exceptions.py",
-                                  "version.py"])
+                                  "version.py", "timeline.py"])
 def test_copied_modules_match_their_source(name):
     """The pure-Python modules the port copies keep the source's code:
     only the module docstring (which names the source) differs."""
@@ -137,3 +139,21 @@ def test_copied_modules_match_their_source(name):
     _, src = body(os.path.join(REPO, "horovod_tpu", name))
     assert f"horovod_tpu/{name}" in doc
     assert port == src
+
+
+def test_native_core_builds_from_the_port_alone():
+    """The native core is built from ``horovod_tpu_torch/csrc/hvd_core.cc``,
+    which includes system headers only, into the port's ``_build``; the
+    build command names no file outside the port."""
+    from horovod_tpu_torch.csrc import native
+    assert native.SOURCE == os.path.join(PORT, "csrc", "hvd_core.cc")
+    assert native.library_path().startswith(
+        os.path.join(PORT, "csrc", "_build") + os.sep)
+    with open(native.SOURCE) as f:
+        includes = [line for line in f if line.startswith("#include")]
+    assert includes and all("<" in line and '"' not in line
+                            for line in includes)
+    with open(native.__file__) as f:
+        text = f.read()
+    assert "libhvdcore.so" not in text
+    assert "horovod_tpu.csrc" not in text
