@@ -576,14 +576,24 @@ def flash_timing(torch, fl, name, shape, dtype, mode, inputs, flush):
     for both backward kernels) at one of the path's shapes."""
     q, k, v, do, lse, delta, scale = inputs
     kw = dict(mask_mode=mode, scale=scale)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
-    s_out = sdpa(sq, sk, sv, is_causal=mode == fl.MASK_CAUSAL)
+    if mode == fl.MASK_STRICT:
+        # STRICT as an explicit mask (key < query); row 0 sees no key,
+        # which SDPA leaves undefined where the kernel gives 0.
+        i = torch.arange(shape[1], device=q.device)
+        keep = i[:, None] > i[None, :]
+
+        def sdpa(a, b, c):
+            return torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, attn_mask=keep)
+    else:
+        def sdpa(a, b, c):
+            return torch.nn.functional.scaled_dot_product_attention(
+                a, b, c, is_causal=mode == fl.MASK_CAUSAL)
+    s_out = sdpa(sq, sk, sv)
     s_g = do.transpose(1, 2).contiguous()
-    lib_fwd = time_ms(torch, lambda: sdpa(sq, sk, sv,
-                                          is_causal=mode == fl.MASK_CAUSAL),
-                      20, flush)
+    lib_fwd = time_ms(torch, lambda: sdpa(sq, sk, sv), 20, flush)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         s_out, (sq, sk, sv), s_g, retain_graph=True), 20, flush)
     runs = {
@@ -2513,6 +2523,257 @@ def eager_phase(torch, device, rehearsal):
         "flash_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: sequence parallelism on one card
+# ---------------------------------------------------------------------------
+
+RING_SHARDS = 4        # phase 10(b)'s virtual shards
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _by_mode(fl, launches, route):
+    """Each kernel's launches on ``route`` by mask mode, from the
+    wrappers' own counts (a copy of ``flash.LAUNCHES_BY_MODE``)."""
+    return {k: {m: launches[f"{k}_{route}_{m}"] for m in fl.MODE_NAMES}
+            for k in KERNELS}
+
+
+def _gpt2_long(torch, rehearsal):
+    """GPT-2 small at 8192 tokens (tiny at 64 in the rehearsal)."""
+    kw = dict(attention_impl="flash", max_len=8192)
+    if rehearsal:
+        kw.update(num_layers=2, num_heads=4, d_model=64, d_ff=128,
+                  vocab_size=97, max_len=64)
+    return kw, kw["max_len"]
+
+
+def seqpar_steps(torch, fl, device, rehearsal, seq_parallel):
+    """2 bf16 steps of GPT-2 small over 8192 tokens with
+    ``seq_parallel`` in the world of one, AdamW through
+    DistributedOptimizer: the main path of phase 10 (a) (ring) or (c)
+    (Ulysses).  Every count is set to 0 just before the steps; returns
+    the flash launches of the steps alone, and by route and mask mode."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    from horovod_tpu_torch.parallel import ring
+    kw, S = _gpt2_long(torch, rehearsal)
+    model = create_gpt2("small", device=device, seed=11,
+                        dtype=torch.float32 if rehearsal else torch.bfloat16,
+                        seq_parallel=seq_parallel, **kw)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    toks = torch.as_tensor(np.random.RandomState(6).randint(
+        0, model.cfg.vocab_size, (1, S + 1)), device=device)
+    for counts in (fl.LAUNCHES, fl.LAUNCHES_BY_MODE):
+        for name in counts:
+            counts[name] = 0
+    ring.ROTATIONS.update(forward=0, backward=0)
+    calls = []
+    ring.set_ring_kernel_callback(calls.append)
+    losses = []
+    try:
+        for _ in range(2):
+            opt.zero_grad()
+            loss = lm_loss(model(toks[:, :-1]), toks[:, 1:])
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+    finally:
+        ring.set_ring_kernel_callback(None)
+    launches, by_mode = dict(fl.LAUNCHES), dict(fl.LAUNCHES_BY_MODE)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  {seq_parallel} gpt2-small S={S}, 2 steps in a world of one: "
+        f"losses {[round(x, 4) for x in losses]}, ring hop calls "
+        f"{len(calls)}, rotations {ring.ROTATIONS['forward']}, flash "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    L = model.cfg.num_layers
+    ok = all(np.isfinite(losses))
+    if seq_parallel == "ring":
+        # n = 1: one CAUSAL hop a layer, on the f32 (3xTF32) route.
+        ok = ok and calls == [fl.MASK_CAUSAL] * 2 * L \
+            and ring.ROTATIONS["forward"] == 0
+        route, other = "tf32x3", "wgmma"
+    else:
+        ok = ok and not calls
+        route, other = "wgmma", "tf32x3"
+    if not rehearsal:
+        ok = ok and all(launches[f"{k}_{route}"] == 2 * L
+                        and by_mode[f"{k}_{route}_causal"] == 2 * L
+                        and launches[f"{k}_{other}"] == 0 for k in KERNELS)
+    if not ok:
+        raise SystemExit(f"{seq_parallel} steps failed")
+    del model, opt
+    return launches, by_mode
+
+
+def ring_logits_check(torch, device, rehearsal):
+    """Phase 10(a)'s model check: the f32 GPT-2 small at 8192 tokens
+    under ``seq_parallel='ring'`` (n = 1: one CAUSAL hop a layer through
+    ``flash_attention_lse``) against the same weights under plain
+    ``flash_attention``, logits at 2e-3 (the JAX ring flash
+    transformer's tolerance).  Both take the same f32 kernels: this
+    holds the ring's wiring (the lse partial, the merge, the casts); the
+    kernels are held against their plain versions at this shape in
+    ``seqpar_phase``."""
+    from horovod_tpu_torch.models import create_gpt2
+    kw, S = _gpt2_long(torch, rehearsal)
+    toks = torch.as_tensor(np.random.RandomState(6).randint(
+        0, 97 if rehearsal else 50257, (1, S)), device=device)
+    logits = []
+    with torch.no_grad():
+        for sp in ("ring", None):
+            m = create_gpt2("small", device=device, seed=11,
+                            dtype=torch.float32, seq_parallel=sp, **kw)
+            logits.append(m(toks))
+            del m
+    a, b = logits
+    err = float((a - b).abs().max())
+    ratio = float(((a - b).abs() / (2e-3 + 2e-3 * b.abs())).max())
+    log(f"  ring (n = 1) f32 logits against plain flash_attention, S={S}: "
+        f"max abs err {err:.3e}, err/tol {ratio:.4f} at 2e-3")
+    if not ratio <= 1.0:
+        raise SystemExit("ring logits disagree with flash_attention")
+    return err
+
+
+def virtual_ring_check(torch, fl, device, rehearsal):
+    """Phase 10(b): 4 virtual shards of one [1, 8192, 12, 64] f32 q/k/v,
+    contiguous and striped causal, through
+    ``ring.virtual_ring_flash_attention`` (the ring's own ``_rank_hops``
+    for each shard): the merged output and dq, dk, dv against
+    ``flash_attention`` over the whole sequence at the f32 flash
+    tolerances.  Returns the hop kernels' launches of the two drives
+    alone, by mask mode (the wrappers' counts)."""
+    from horovod_tpu_torch.parallel import ring
+    shape = (1, 64, 2, 16) if rehearsal else (1, 8192, 12, 64)
+    rng = np.random.RandomState(8)
+    mk = lambda: torch.as_tensor(  # noqa: E731
+        (rng.randn(*shape) * 0.5).astype(np.float32), device=device)
+    q0, k0, v0, do = mk(), mk(), mk(), mk()
+    (frt, fat), (grt, gat) = FLASH_TOL["float32"]
+    leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    want = fl.flash_attention(*leaves, causal=True)
+    want_g = torch.autograd.grad(want, leaves, do)
+    want = want.detach()
+    before = dict(fl.LAUNCHES_BY_MODE)
+    calls = []
+    for striped in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+        ring.set_ring_kernel_callback(calls.append)
+        try:
+            out = ring.virtual_ring_flash_attention(
+                *leaves, RING_SHARDS, causal=True, striped=striped)
+            got_g = torch.autograd.grad(out, leaves, do)
+        finally:
+            ring.set_ring_kernel_callback(None)
+        out = out.detach()
+        fwd = float(((out - want).abs() / (fat + frt * want.abs())).max())
+        grad = max(float(((a - b).abs() / (gat + grt * b.abs())).max())
+                   for a, b in zip(got_g, want_g))
+        log(f"  virtual ring, {RING_SHARDS} shards of {list(shape)} f32 "
+            f"causal {'striped' if striped else 'contiguous'}: against "
+            f"flash_attention over the whole sequence, err/tol fwd "
+            f"{fwd:.4f}, grads {grad:.4f}; max abs err out "
+            f"{float((out - want).abs().max()):.3e}")
+        if not (fwd <= 1.0 and grad <= 1.0):
+            raise SystemExit("the virtual ring disagrees with "
+                             "flash_attention")
+    launches = {k: fl.LAUNCHES_BY_MODE[k] - before[k] for k in before}
+    by_mode = _by_mode(fl, launches, "tf32x3")
+    n = RING_SHARDS
+    # Contiguous: n(n+1)/2 hops (n CAUSAL); striped: n² (n(n+1)/2 CAUSAL).
+    want_modes = {"none": n * (n - 1) // 2,
+                  "causal": n + n * (n + 1) // 2, "strict": n * (n - 1) // 2}
+    got_calls = {m: calls.count(i) for i, m in enumerate(fl.MODE_NAMES)}
+    log(f"  virtual ring hop launches by mode {by_mode} (want "
+        f"{want_modes} for each kernel); hop calls {got_calls}")
+    if got_calls != want_modes or (not rehearsal and any(
+            by_mode[k] != want_modes for k in KERNELS)):
+        raise SystemExit("virtual ring launches")
+    return by_mode
+
+
+def kernel_cases(torch, fl, device, rehearsal, rng, cases, flush):
+    """Each case ``(name, shape, dtype, mode)``: the three kernels held
+    against their plain versions (``flash_case``) and timed
+    (``flash_timing``); returns ``{name: {kernel: record}}``."""
+    out = {}
+    for name, shape, dt, mode in cases:
+        errs, ok, inputs, ratios = flash_case(torch, fl, rng, shape, dt,
+                                              mode, device)
+        log(f"  {name} {list(shape)} {str(dt).split('.')[-1]} "
+            f"{fl.MODE_NAMES[mode]}: max_abs_err "
+            + ", ".join(f"{k[6:]} {e:.3e}" for k, e in errs.items())
+            + f"; err/tol fwd {ratios[0]:.3f}, grad {ratios[2]:.3f} "
+              f"({'ok' if ok else 'MISMATCH'})")
+        if not ok:
+            raise SystemExit(f"{name} kernels disagree with their plain "
+                             f"versions")
+        if not rehearsal:
+            out[name] = flash_timing(torch, fl, f"{name} {list(shape)}",
+                                     shape, dt, mode, inputs, flush)
+            for kname, e in errs.items():
+                out[name][kname]["max_abs_err"] = e
+        del inputs
+    return out
+
+
+def seqpar_phase(torch, device, rehearsal):
+    """Phase 10.  (a) GPT-2 small over 8192 tokens with
+    ``seq_parallel='ring'`` in the world of one: its f32 logits against
+    plain flash attention, then 2 bf16 steps, the main path (one CAUSAL
+    hop a layer on the 3xTF32 route, forward and backward); (b) the
+    ring's own hop code over 4 virtual shards (``virtual_ring_check``);
+    (c) 2 bf16 steps with ``seq_parallel='ulysses'``, the main path of
+    the bf16 kernels at Ulysses' shape.  Then each kernel at each shape
+    these paths give it, held against its plain version and timed:
+    (a)'s hop [1, 8192, 12, 64] f32 causal, the hops of 2 and 4 cards
+    ([1, 4096 | 2048, 12, 64] f32) in modes NONE, CAUSAL and STRICT,
+    (c)'s [1, 8192, 12, 64] bf16 causal and a 2- and 4-card rank's heads
+    ([1, 8192, 6 | 3, 64]).  Returns the launches of (a), (b) and (c)
+    and the records."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import flash as fl
+    hvd.init(device="cpu" if rehearsal else None)
+    try:
+        logits_err = ring_logits_check(torch, device, rehearsal)
+        ring_launches, ring_by_mode = seqpar_steps(torch, fl, device,
+                                                   rehearsal, "ring")
+        virtual = virtual_ring_check(torch, fl, device, rehearsal)
+        uly_launches, _ = seqpar_steps(torch, fl, device, rehearsal,
+                                       "ulysses")
+    finally:
+        hvd.shutdown()
+    f32, bf16 = torch.float32, torch.bfloat16
+    modes = (fl.MASK_NONE, fl.MASK_CAUSAL, fl.MASK_STRICT)
+    if rehearsal:
+        hops = {"n=1": (1, 64, 4, 16), "2 cards": (1, 32, 4, 16),
+                "4 cards": (1, 16, 4, 16)}
+        ulys = {"n=1": (1, 64, 4, 16), "2 cards": (1, 64, 2, 16),
+                "4 cards": (1, 64, 1, 16)}
+    else:
+        hops = {"n=1": (1, 8192, 12, 64), "2 cards": (1, 4096, 12, 64),
+                "4 cards": (1, 2048, 12, 64)}
+        ulys = {"n=1": (1, 8192, 12, 64), "2 cards": (1, 8192, 6, 64),
+                "4 cards": (1, 8192, 3, 64)}
+    cases = [("ring hop n=1", hops["n=1"], f32, fl.MASK_CAUSAL)]
+    cases += [(f"ring hop {cards} {fl.MODE_NAMES[m]}", hops[cards], f32, m)
+              for cards in ("2 cards", "4 cards") for m in modes]
+    cases += [(f"ulysses {cards}", ulys[cards], bf16, fl.MASK_CAUSAL)
+              for cards in ("n=1", "2 cards", "4 cards")]
+    flush = None if rehearsal else torch.empty(64 * 2**20, device=device)
+    rng = np.random.RandomState(9)
+    records = kernel_cases(torch, fl, device, rehearsal, rng, cases, flush)
+    del flush
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"logits_err": logits_err, "ring_launches": ring_launches,
+            "ring_by_mode": _by_mode(fl, ring_by_mode, "tf32x3"),
+            "virtual_launches": virtual, "ulysses_launches": uly_launches,
+            "hop_shapes": hops, "ulysses_shapes": ulys, "records": records}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -2584,6 +2845,12 @@ def main(argv=None) -> int:
     t9 = time.monotonic()
     eager_launches, eager_numbers = eager_phase(torch, device, rehearsal)
     log(f"  phase 9 took {time.monotonic() - t9:.1f} s")
+
+    log("phase 10: sequence parallelism on one card (ring at n = 1, the "
+        "ring's hops over 4 virtual shards, Ulysses' local flash)")
+    t10 = time.monotonic()
+    seqpar = seqpar_phase(torch, device, rehearsal)
+    log(f"  phase 10 took {time.monotonic() - t10:.1f} s")
 
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
@@ -2682,6 +2949,53 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"],
             "shape": "GPT-2 small [4, 1024, 12, 64] bf16, causal, cold L2; "
                      "launches: phase 9's 3 steps under the timeline"})
+    from horovod_tpu_torch.parallel import flash as fl
+    recs = seqpar["records"]
+
+    def numbers(r):
+        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        # The ring's hops (phase 10): f32 partials from bf16 models, so
+        # the 3xTF32 route.  Launches: (a)'s two steps, the main path,
+        # all CAUSAL at n = 1; the numbers at (a)'s hop shape; beside
+        # them each mode at the hop shapes of 2 and 4 cards, and (b)'s
+        # launches over 4 virtual shards.
+        r = recs["ring hop n=1"][name]
+        kernels.append(dict(
+            {"name": f"{name}_ring_hop", "route": "cuda",
+             "source": "horovod_tpu_torch/csrc/" + (
+                 "flash_attention_fwd_tf32_sm90.cu" if name == "flash_fwd"
+                 else "flash_attention_bwd_tf32_sm90.cu"),
+             "replaces": replaces[name],
+             "launches": seqpar["ring_launches"][name + "_tf32x3"]},
+            **numbers(r),
+            launches_by_mode=seqpar["ring_by_mode"][name],
+            virtual_shard_launches_by_mode=seqpar["virtual_launches"][name],
+            hop_shapes={
+                f"{cards} {list(seqpar['hop_shapes'][cards])} {m}":
+                    numbers(recs[f"ring hop {cards} {m}"][name])
+                for cards in ("2 cards", "4 cards") for m in fl.MODE_NAMES},
+            shape="ring n = 1 hop [1, 8192, 12, 64] f32, causal, cold L2; "
+                  "launches: phase 10 (a)'s 2 steps; hop_shapes: strict "
+                  "against SDPA with a boolean mask, row 0 undefined there"))
+        r = recs["ulysses n=1"][name]
+        kernels.append(dict(
+            {"name": name + "_ulysses", "route": "cuda",
+             "source": "horovod_tpu_torch/csrc/" + (
+                 "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
+                 else "flash_attention_bwd_sm90.cu"),
+             "replaces": replaces[name],
+             "launches": seqpar["ulysses_launches"][name + "_wgmma"]},
+            **numbers(r),
+            shard_shapes={
+                f"{cards} {list(seqpar['ulysses_shapes'][cards])} causal":
+                    numbers(recs[f"ulysses {cards}"][name])
+                for cards in ("2 cards", "4 cards")},
+            shape="Ulysses local [1, 8192, 12, 64] bf16, causal, cold L2; "
+                  "launches: phase 10 (c)'s 2 steps in a world of one"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

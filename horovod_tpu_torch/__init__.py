@@ -39,7 +39,15 @@ Ported so far:
   Horovod timeline (``start_timeline`` / ``stop_timeline``,
   ``HOROVOD_TIMELINE``); and the two-level ``hierarchical_allreduce``.
 
-Not exported yet (ROADMAP A6/A9): ``mesh``, ``mesh_axis`` and
+* sequence parallelism (``parallel/``): meshes of named axes
+  (``make_mesh``, ``hvd.mesh()``), ring attention over P2P rotations with
+  the flash kernels on every hop (``parallel/ring.py``), Ulysses
+  attention over the differentiable ``alltoall`` (``parallel/ulysses.py``),
+  the transformer's ``seq_parallel`` and
+  ``DistributedOptimizer(reduce_axes=...)``; the multi-card drive is
+  ``python -m horovod_tpu_torch.examples.seqpar_bench``.
+
+Not exported yet (ROADMAP A6/A9): ``shard_step`` and
 ``analysis_reports``.
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
@@ -57,7 +65,7 @@ from .core import (  # noqa: F401
     mpi_threads_supported, mpi_enabled, mpi_built,
     gloo_enabled, gloo_built, nccl_built, ddl_built, ccl_built,
     cuda_built, rocm_built, xla_built, xla_enabled,
-    start_timeline, stop_timeline,
+    start_timeline, stop_timeline, mesh, mesh_axis,
 )
 
 from .ops import (  # noqa: F401

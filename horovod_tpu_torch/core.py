@@ -2,8 +2,9 @@
 
 Port of ``horovod_tpu/core.py:146-453``: ``init``, ``shutdown``,
 ``is_initialized``, rank / size / local / cross, ``num_slots``,
-``local_slots``, ``is_homogeneous``, ``start_timeline`` /
-``stop_timeline`` and the built / enabled queries.  The state holds the
+``local_slots``, ``is_homogeneous``, ``mesh`` / ``mesh_axis``
+(``:387-393``), ``start_timeline`` / ``stop_timeline`` and the built /
+enabled queries.  The state holds the
 process-set table (``process_sets.py``), the async handles and the eager
 engine (``ops/eager.py``), the world's store and the timeline.
 
@@ -56,6 +57,11 @@ class _GlobalState:
         # its own client connection there.
         self.store_address: Optional[tuple] = None
         self.timeline = None
+        # The world as one mesh axis (``mesh()``), and the meshes
+        # ``parallel.make_mesh`` made, newest last: ``parallel.axis``
+        # resolves an axis name in them.
+        self.world_mesh = None
+        self.meshes: list = []
 
 
 _state = _GlobalState()
@@ -167,6 +173,8 @@ def shutdown() -> None:
         _state.topology = _state.device = _state.backend = None
         _state.process_set_table = _state.handles = None
         _state.engine = _state.store = _state.store_address = None
+        _state.world_mesh = None
+        _state.meshes = []
 
 
 def _require_init() -> _GlobalState:
@@ -224,6 +232,23 @@ def local_slots() -> int:
 def is_homogeneous() -> bool:
     """``horovod_is_homogeneous``: equal slots on every process."""
     return _require_init().topology.is_homogeneous
+
+
+def mesh():
+    """The world as one mesh axis named :func:`mesh_axis`
+    (``parallel.Mesh``), rank ``r`` at position ``r``."""
+    st = _require_init()
+    if st.world_mesh is None:
+        import numpy as np
+        from .parallel import Mesh
+        st.world_mesh = Mesh(np.arange(st.topology.size),
+                             (st.config.mesh_axis,))
+    return st.world_mesh
+
+
+def mesh_axis() -> str:
+    """The name of the world's axis (``HVD_TPU_MESH_AXIS``, ``"hvd"``)."""
+    return _require_init().config.mesh_axis
 
 
 def device() -> torch.device:

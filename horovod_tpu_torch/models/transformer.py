@@ -6,11 +6,20 @@ with the GPT-2 and BERT sizes, ``create_gpt2`` / ``create_bert``, the
 GPT-2/BERT initialisation, ``lm_loss``, and the ``Transformer`` module
 with the training features of the JAX model — ``attention_impl`` None
 (dense) or ``"flash"`` (the FlashAttention-2 kernels of
-``parallel/flash.py``), ``remat`` (``torch.utils.checkpoint`` per block)
-and ``predict_positions`` (the LM head only at the gathered masked
-positions).  Ring, Ulysses and MoE attention are not here yet (ROADMAP
-A6); ``scan_layers`` has no counterpart (``models/convert.py`` unstacks
-its parameter layout).
+``parallel/flash.py``), ``remat`` (``torch.utils.checkpoint`` per block),
+``predict_positions`` (the LM head only at the gathered masked
+positions) and ``seq_parallel`` over the mesh axis ``axis_name``:
+``'ring'`` / ``'ring_striped'`` (``parallel/ring.py``: the flash ring
+under ``attention_impl='flash'``, else the einsum ring) and
+``'ulysses'`` (``parallel/ulysses.py``, the flash kernels as the local
+attention under flash).  The tokens are then this rank's sequence
+shard, and positions default to the shard's global ones.  ``remat``
+with ``seq_parallel`` recomputes a block's rotations or exchanges at
+the block's first unpack in the backward, which on every rank comes
+after the whole backward of the next block, so every rank runs them in
+one order (the recomputed graph is dropped: the inverse rotations run
+once).  MoE is not here yet (ROADMAP A6); ``scan_layers`` has no counterpart
+(``models/convert.py`` unstacks its parameter layout).
 
 Parameters are float32 and each is cast to ``cfg.dtype`` where it is
 used, as flax's ``param_dtype=float32`` / ``dtype=cfg.dtype`` does: a
@@ -40,8 +49,14 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import parallel as _parallel
 from ..parallel.flash import flash_attention
+from ..parallel.ring import (ring_attention, ring_flash_attention,
+                             striped_positions)
+from ..parallel.ulysses import ulysses_attention
 from ..utils.device import resolve_device
+
+SEQ_PARALLEL = (None, "ring", "ring_striped", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +71,11 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16  # compute type, as in the JAX configs
     attention_impl: Optional[str] = None  # None (dense) | 'flash' (kernels)
     remat: bool = False
+    axis_name: str = "hvd"
+    seq_parallel: Optional[str] = None   # None|'ring'|'ring_striped'|'ulysses'
+    # The ring's hop schedule (parallel/ring.py SCHEDULES); the JAX
+    # model always runs the default, "overlap".
+    ring_schedule: str = "overlap"
 
     @property
     def head_dim(self) -> int:
@@ -130,6 +150,10 @@ def dense_attention(q, k, v, causal: bool) -> torch.Tensor:
     return torch.einsum("bhqk,bkhe->bqhe", p, v.float()).to(q.dtype)
 
 
+def _local_flash(q, k, v, *, causal, scale=None):
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
 class Block(nn.Module):
     """ln1 → qkv → attention → proj residual → ln2 → fc1/gelu(tanh)/fc2
     residual."""
@@ -141,6 +165,9 @@ class Block(nn.Module):
             raise ValueError(
                 f"unknown attention_impl {cfg.attention_impl!r}; "
                 f"expected None or 'flash'")
+        if cfg.seq_parallel not in SEQ_PARALLEL:
+            raise ValueError(f"unknown seq_parallel {cfg.seq_parallel!r}; "
+                             f"expected one of {SEQ_PARALLEL}")
         self.cfg = cfg
         self.ln1 = LayerNorm(d, 1e-5, device)
         self.attn = nn.Module()
@@ -156,7 +183,17 @@ class Block(nn.Module):
         w, b = self.attn.qkv.cast(dt)
         qkv = torch.einsum("bsd,dthe->bsthe", h, w) + b
         q, k, v = qkv.unbind(dim=2)                       # [B, S, H, Dh]
-        if cfg.attention_impl == "flash":
+        flash = cfg.attention_impl == "flash"
+        if cfg.seq_parallel in ("ring", "ring_striped"):
+            ring = ring_flash_attention if flash else ring_attention
+            out = ring(q, k, v, axis_name=cfg.axis_name, causal=cfg.causal,
+                       striped=cfg.seq_parallel == "ring_striped",
+                       schedule=cfg.ring_schedule)
+        elif cfg.seq_parallel == "ulysses":
+            out = ulysses_attention(
+                q, k, v, axis_name=cfg.axis_name, causal=cfg.causal,
+                attention_fn=_local_flash if flash else None)
+        elif flash:
             out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dense_attention(q, k, v, cfg.causal)
@@ -189,10 +226,17 @@ class Transformer(nn.Module):
         """``predict_positions`` ([B, K] int, BERT MLM): the final
         LayerNorm and the LM head run only at those K positions, giving
         [B, K, vocab] logits."""
-        dt = self.cfg.dtype
-        if positions is None:
-            positions = torch.arange(tokens.shape[1],
-                                     device=tokens.device)[None]
+        cfg, dt, S = self.cfg, self.cfg.dtype, tokens.shape[1]
+        if positions is None and cfg.seq_parallel == "ring_striped":
+            # This shard holds global tokens [i, i + n, i + 2n, ...].
+            positions = striped_positions(S, axis_name=cfg.axis_name,
+                                          device=tokens.device)[None]
+        elif positions is None:
+            positions = torch.arange(S, device=tokens.device)[None]
+            if cfg.seq_parallel is not None:
+                # Contiguous shards: this one holds [i·S, (i + 1)·S).
+                positions = positions + \
+                    _parallel.axis(cfg.axis_name).index * S
         x = self.wte.embedding[tokens].to(dt) \
             + self.wpe.embedding[positions].to(dt)
         for blk in self.blocks:

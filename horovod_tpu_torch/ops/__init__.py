@@ -37,6 +37,17 @@ them, as Horovod's torch API does.  An ``*_async`` form runs its op and
 returns a handle; ``synchronize`` waits for the outputs on the card and
 returns them.  As in the JAX package (``:124-133``), ``allreduce`` stays
 flat; the two-level form is ``hierarchical_allreduce``.
+
+``allgather``, ``alltoall`` (without ``splits``) and ``reducescatter``
+are differentiable, as the JAX package's are (``lax`` collectives
+transpose): given a tensor that requires grad, the backward of an
+alltoall is the inverse alltoall, an allgather's reduce-scatters
+(sums) the cotangent back to each member's rows, and a reducescatter's
+allgathers it.  Each backward is an engine dispatch of its own, under
+the forward's name with ``.grad`` appended (``eager.backward_name``), so
+negotiation, ``join`` and the timeline see it; every rank must run the
+backward, as every rank ran the forward.  A rank outside the set gets
+the cotangent back, as it got its input.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from .collective_ops import (  # noqa: F401
     ReduceOp, Average, Sum, Adasum, Min, Max, Product, _apply_scale,
     Members, members_of, reduce_in_place, reducescatter_padded_size)
 from . import collective_ops as C
+from .eager import backward_name
 from .. import core as _core
 from ..compression import Compression
 from ..process_sets import ProcessSet, global_process_set
@@ -94,6 +106,11 @@ def _normalize_op(op, average):
                       "op=hvd.Sum instead", DeprecationWarning, stacklevel=3)
         return ReduceOp.AVERAGE if average else ReduceOp.SUM
     return ReduceOp.AVERAGE if op is None else ReduceOp(op)
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    """Whether a collective on ``t`` must record its backward."""
+    return torch.is_grad_enabled() and t.requires_grad
 
 
 def _reduce(t: torch.Tensor, rop: ReduceOp, prescale: float,
@@ -322,15 +339,55 @@ def _blocks(out: torch.Tensor, rows: List[int]) -> List[torch.Tensor]:
     return [out[i * top:i * top + r] for i, r in enumerate(rows)]
 
 
+def _allgather(tensor, name, process_set):
+    """``allgather``'s value and each member's rows (None outside)."""
+    res = _gather(tensor, process_set, name=name)
+    if res is None:
+        return tensor.clone(), None
+    out, rows = res
+    return (out if len(set(rows)) == 1 else torch.cat(_blocks(out, rows)),
+            rows)
+
+
+class _AllgatherGrad(torch.autograd.Function):
+    """allgather whose backward reduce-scatters (sums) the cotangent of
+    the gathered rows back to each member's own rows."""
+
+    @staticmethod
+    def forward(ctx, tensor, name, process_set):
+        out, ctx.rows = _allgather(tensor, name, process_set)
+        ctx.name, ctx.process_set = name, process_set
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, ps = ctx.rows, ctx.process_set
+        g = g.contiguous()
+        if rows is None:  # outside the set: dispatch, get g back
+            return reducescatter(g, op=ReduceOp.SUM,
+                                 name=backward_name(ctx.name),
+                                 process_set=ps), None, None
+        top = max(rows)
+        if len(set(rows)) > 1:  # each member's rows at i·top
+            padded = g.new_zeros((len(rows) * top,) + tuple(g.shape[1:]))
+            start = 0
+            for i, r in enumerate(rows):
+                padded[i * top:i * top + r] = g[start:start + r]
+                start += r
+            g = padded
+        out = reducescatter(g, op=ReduceOp.SUM,
+                            name=backward_name(ctx.name), process_set=ps)
+        return out[:rows[members_of(ps).set_rank]], None, None
+
+
 def allgather(tensor: torch.Tensor, name: Optional[str] = None,
               process_set: ProcessSet = global_process_set) -> torch.Tensor:
     """Every member's tensor concatenated along dim 0, in member order
-    (``hvd.allgather``); dim 0 may differ between members."""
-    res = _gather(tensor, process_set, name=name)
-    if res is None:
-        return tensor.clone()
-    out, rows = res
-    return out if len(set(rows)) == 1 else torch.cat(_blocks(out, rows))
+    (``hvd.allgather``); dim 0 may differ between members.
+    Differentiable (module docstring)."""
+    if _differentiable(tensor):
+        return _AllgatherGrad.apply(tensor, name, process_set)
+    return _allgather(tensor, name, process_set)[0]
 
 
 def grouped_allgather(tensors: Sequence[torch.Tensor], name=None,
@@ -387,7 +444,8 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
     of dim 0 (divisible by the member count) goes to member i.  With
     ``splits`` (one row count per rank, summing to dim 0), returns
     ``(output, received_splits)``: the rows each rank sent here, in rank
-    order, and their counts (int32)."""
+    order, and their counts (int32).  The form without ``splits`` is
+    differentiable (module docstring)."""
     m = members_of(process_set)
     if splits is None:
         if tensor.dim() == 0 or tensor.shape[0] % m.size:
@@ -395,24 +453,48 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
                 f"alltoall requires dim0 ({tuple(tensor.shape)[:1]}) "
                 f"divisible by group size ({m.size}); use alltoall with "
                 f"splits for ragged sends")
-        t = tensor.contiguous()
-
-        def fn():
-            if not m.included:
-                return tensor.clone()
-            out = torch.empty_like(t)
-            C._checked("alltoall", t, lambda: dist.all_to_all_single(
-                out, t, group=m.group))
-            return out
-
-        return _engine().run("alltoall", fn, [t], name=name,
-                             **_wire_ps(process_set))
+        if _differentiable(tensor):
+            return _AlltoallGrad.apply(tensor, name, process_set)
+        return _alltoall(tensor, m, name, process_set)
     if m.group is not None:
         raise NotImplementedError(
             "alltoall with splits over a strict subset of the ranks is not "
             "ported (ROADMAP Queue C: the JAX package runs it over the "
             "world)")
     return _alltoallv(tensor, splits, m, name=name)
+
+
+def _alltoall(tensor: torch.Tensor, m: Members, name, process_set):
+    """The equal exchange: row block i of dim 0 to member i."""
+    t = tensor.contiguous()
+
+    def fn():
+        if not m.included:
+            return tensor.clone()
+        out = torch.empty_like(t)
+        C._checked("alltoall", t, lambda: dist.all_to_all_single(
+            out, t, group=m.group))
+        return out
+
+    return _engine().run("alltoall", fn, [t], name=name,
+                         **_wire_ps(process_set))
+
+
+class _AlltoallGrad(torch.autograd.Function):
+    """The equal alltoall, whose backward is the inverse alltoall: the
+    equal exchange is its own inverse (block j from member j returns to
+    member j's block i)."""
+
+    @staticmethod
+    def forward(ctx, tensor, name, process_set):
+        ctx.name, ctx.process_set = name, process_set
+        return _alltoall(tensor, members_of(process_set), name, process_set)
+
+    @staticmethod
+    def backward(ctx, g):
+        ps = ctx.process_set
+        return _alltoall(g, members_of(ps), backward_name(ctx.name),
+                         ps), None, None
 
 
 def _alltoallv(tensor: torch.Tensor, splits, m: Members,
@@ -490,8 +572,18 @@ def reducescatter(tensor: torch.Tensor, op=ReduceOp.SUM,
     """Reduce over the members, then member i keeps row block i
     (``hvd.reducescatter``).  A dim 0 that the member count does not
     divide is zero-padded up to a multiple of it
-    (``reducescatter_padded_size``), as in the JAX package."""
+    (``reducescatter_padded_size``), as in the JAX package.
+    Differentiable (module docstring)."""
     rop = ReduceOp(op) if op is not None else ReduceOp.SUM
+    if _differentiable(tensor):
+        return _ReducescatterGrad.apply(tensor, rop, name, prescale_factor,
+                                        postscale_factor, process_set)
+    return _reducescatter(tensor, rop, name, prescale_factor,
+                          postscale_factor, process_set)
+
+
+def _reducescatter(tensor, rop, name, prescale_factor, postscale_factor,
+                   process_set):
     m = members_of(process_set)
 
     def fn():
@@ -503,6 +595,31 @@ def reducescatter(tensor: torch.Tensor, op=ReduceOp.SUM,
     return _engine().run("reducescatter", fn, [tensor], name=name,
                          op_id=int(rop), prescale=prescale_factor,
                          postscale=postscale_factor, **_wire_ps(process_set))
+
+
+class _ReducescatterGrad(torch.autograd.Function):
+    """reducescatter whose backward allgathers the cotangent of each
+    member's block, scaled as the forward scaled (prescale · postscale,
+    and 1/members for Average), and drops dim 0's padding."""
+
+    @staticmethod
+    def forward(ctx, tensor, rop, name, prescale, postscale, process_set):
+        m = members_of(process_set)
+        ctx.name, ctx.process_set, ctx.rows = name, process_set, \
+            tensor.shape[0]
+        ctx.included = m.included
+        ctx.scale = prescale * postscale / (
+            m.size if rop == ReduceOp.AVERAGE else 1)
+        return _reducescatter(tensor, rop, name, prescale, postscale,
+                              process_set)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = allgather(g.contiguous(), name=backward_name(ctx.name),
+                         process_set=ctx.process_set)
+        if ctx.included:
+            full = _apply_scale(full[:ctx.rows], ctx.scale)
+        return full, None, None, None, None, None
 
 
 def grouped_reducescatter(tensors: Sequence[torch.Tensor], op=ReduceOp.SUM,

@@ -36,6 +36,14 @@ from .collective_ops import dtype_name
 from ..utils.logging import get_logger
 
 
+def backward_name(name: Optional[str]) -> Optional[str]:
+    """The name of a differentiable collective's backward dispatch: the
+    forward's name with ``.grad`` appended.  The backward of an unnamed
+    forward is unnamed too, and ``run`` labels it by its own kind and
+    signature, as any unnamed op."""
+    return None if name is None else f"{name}.grad"
+
+
 def _tensors(result) -> Iterator[torch.Tensor]:
     if isinstance(result, torch.Tensor):
         yield result

@@ -26,7 +26,12 @@ planner bypassed, as in JAX.
 
 With ``process_set``, the gradients reduce over the set's ranks, and a
 rank outside the set steps on its own gradients (the JAX package's
-non-member passthrough).  It supports ``op`` (Average, Sum, Adasum),
+non-member passthrough).  ``reduce_axes=("dp", "sp")`` (``:354``)
+reduces over the process set spanning those axes of the mesh
+(``parallel.make_mesh``; the world when they span it), so Average
+divides by the product of their sizes: the data- and
+sequence-parallel training of a model whose replicated parameters get
+a local gradient on every rank.  It supports ``op`` (Average, Sum, Adasum),
 ``compression`` and ``gradient_predivide_factor`` (``:320-330``, Average
 only: prescale 1/f, postscale f).  ``named_parameters`` is accepted and
 ignored, as in JAX.  ``zero_grad``, ``param_groups``, ``state`` and
@@ -92,6 +97,24 @@ def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
     return out
 
 
+def _reduce_axes_set(reduce_axes, op, compression, groups,
+                     process_set) -> ProcessSet:
+    """The process set ``reduce_axes`` names, with the JAX package's
+    refusals (``optimizer.py:390-401``, ``:172-192``)."""
+    from .parallel import axes_process_set
+    if process_set is not global_process_set:
+        raise ValueError("reduce_axes and process_set are mutually "
+                         "exclusive (subset semantics live on the 1-D "
+                         "framework axis)")
+    if compression is not Compression.none or groups:
+        raise ValueError("compression/groups are not supported with "
+                         "reduce_axes")
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"reduce_axes supports Sum/Average gradients, "
+                         f"got {op!r}")
+    return axes_process_set(reduce_axes)
+
+
 def _param_names(params: Sequence[torch.nn.Parameter], named_parameters
                  ) -> List[str]:
     """Each parameter's name from ``named_parameters``, else its index in
@@ -121,12 +144,17 @@ class DistributedOptimizer:
                  op: ReduceOp = ReduceOp.AVERAGE,
                  gradient_predivide_factor: float = 1.0,
                  num_groups: int = 0, groups=None,
-                 process_set: ProcessSet = global_process_set):
+                 process_set: ProcessSet = global_process_set,
+                 reduce_axes: Optional[Sequence[str]] = None):
         del named_parameters  # API parity: parameter order is the contract
         op = ReduceOp(op)
         if op not in (ReduceOp.AVERAGE, ReduceOp.SUM, ReduceOp.ADASUM):
             raise ValueError(f"gradients reduce with Average, Sum or "
                              f"Adasum, got {op!r}")
+        if reduce_axes is not None:
+            process_set = _reduce_axes_set(reduce_axes, op, compression,
+                                           groups or num_groups,
+                                           process_set)
         if gradient_predivide_factor != 1.0:
             if op != ReduceOp.AVERAGE:
                 raise ValueError("gradient_predivide_factor supported only "

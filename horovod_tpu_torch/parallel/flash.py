@@ -61,6 +61,8 @@ NEG_INF = -1e30
 # positions; STRICT = q > k (the striped ring's off-diagonal rule).
 MASK_NONE, MASK_CAUSAL, MASK_STRICT = 0, 1, 2
 
+MODE_NAMES = ("none", "causal", "strict")
+
 #: Kernel launches since the last reset, by kernel name.  Bumped once per
 #: wrapper call that launches its kernel, never by the plain versions.
 #: ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` count every launch
@@ -70,6 +72,12 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_wgmma": 0, "flash_bwd_dq_wgmma": 0,
             "flash_bwd_dkv_wgmma": 0, "flash_fwd_tf32x3": 0,
             "flash_bwd_dq_tf32x3": 0, "flash_bwd_dkv_tf32x3": 0}
+
+#: The same launches by route and mask mode, ``<kernel>_<route>_<mode>``
+#: (``MODE_NAMES``), bumped beside ``LAUNCHES``; reset on its own.
+LAUNCHES_BY_MODE = {f"flash_{k}_{r}_{m}": 0
+                    for k in ("fwd", "bwd_dq", "bwd_dkv")
+                    for r in ("wgmma", "tf32x3") for m in MODE_NAMES}
 
 HEAD_DIMS = (16, 32, 64, 128)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -330,9 +338,10 @@ def _validate(q, k, v):
            f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
 
 
-def _count(name, route):
+def _count(name, route, mask_mode):
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}_{route}"] += 1
+    LAUNCHES_BY_MODE[f"{name}_{route}_{MODE_NAMES[mask_mode]}"] += 1
 
 
 def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):
@@ -350,7 +359,7 @@ def _fwd_cuda(q, k, v, mask_mode, scale, out_dtype):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_fwd", err)
-    _count("flash_fwd", route)
+    _count("flash_fwd", route, int(mask_mode))
     return out.to(out_dtype), lse
 
 
@@ -379,7 +388,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dq", err)
-    _count("flash_bwd_dq", route)
+    _count("flash_bwd_dq", route, int(mask_mode))
     return dq.to(q_dtype)
 
 
@@ -398,7 +407,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale):
         int(mask_mode), _KINDS[dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _launch(lib, "hvd_flash_bwd_dkv", err)
-    _count("flash_bwd_dkv", route)
+    _count("flash_bwd_dkv", route, int(mask_mode))
     return dk.to(k_dtype), dv.to(v_dtype)
 
 
@@ -516,9 +525,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None, block_q: int = 128,
                         block_k: int = 128, out_dtype=None):
     """Flash attention returning ``(out [B, S, H, D], lse [B, H, S])``,
-    both differentiable (ring attention's per-hop building block).
+    both differentiable: ring attention's per-hop building block, whose
+    merge weights depend on lse, so its cotangent is not zero (it folds
+    into delta).  ``mask_mode`` (MASK_NONE / MASK_CAUSAL / MASK_STRICT)
+    applies on the LOCAL block indices of q and k; the ring picks the
+    mode per hop from the block's owner (``ring._hop_plan``).
     ``out_dtype`` casts q before the forward, as JAX does, so an f32
-    partial can come out of bf16 inputs."""
+    partial can come out of bf16 inputs; with f32 K/V (the ring's) the
+    forward and the backward then take the f32 (3xTF32) route, and dq
+    comes back in q's own dtype."""
     S, D = q.shape[1], q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     _blocks("flash_attention_lse", S, block_q, block_k)

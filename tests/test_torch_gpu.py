@@ -1357,3 +1357,89 @@ def test_a_distributed_optimizer_step_is_one_engine_dispatch(nccl_world,
     opt.step()
     assert eng.dispatches == n + 1
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism on the card (chip_smoke.py phase 10): the f32 hop
+# kernels at a 2- and a 4-card ring's hop shapes, and the ring's own hop
+# code over virtual shards against flash attention over the whole
+# sequence, at the f32 flash tolerances.
+# ---------------------------------------------------------------------------
+
+from horovod_tpu_torch.parallel import ring as tring  # noqa: E402
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_local", [2048, 4096])
+@pytest.mark.parametrize("mode", [tfl.MASK_STRICT, tfl.MASK_NONE])
+def test_f32_hop_kernels_at_the_ring_hop_shape(cuda_device, mode, s_local):
+    """A 4- and a 2-card ring's hop at GPT-2 small, 8192 tokens:
+    [1, 2048 | 4096, 12, 64] f32 (the 3xTF32 route), STRICT (the striped
+    ring's off-diagonal hops) and NONE."""
+    rng = np.random.RandomState(21 + mode)
+    shape = (1, s_local, 12, 64)
+    q, k, v, do = _flash_inputs(rng, shape, torch.float32, cuda_device)
+    scale = 1.0 / np.sqrt(shape[-1])
+    out, lse = _check_fwd(q, k, v, mode, scale, torch.float32)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    _check_bwd(q, k, v, do, lse, delta, mode, scale, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("striped", [False, True])
+def test_virtual_ring_matches_flash_attention(cuda_device, striped):
+    """4 virtual shards of [1, 512, 4, 64] f32 through the ring's own hop
+    code (``ring.virtual_ring_flash_attention``, phase 10 (b)): the
+    merged output and dq, dk, dv against flash_attention over the whole
+    sequence; each hop ran the 3xTF32 kernels, by the wrappers' counts
+    n(n+1)/2 hops contiguous (n(n-1)/2 NONE, n CAUSAL), n² striped
+    (n(n+1)/2 CAUSAL, n(n-1)/2 STRICT)."""
+    rng = np.random.RandomState(5 + striped)
+    q0, k0, v0, do = _flash_inputs(rng, (1, 512, 4, 64), torch.float32,
+                                   cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    want = tfl.flash_attention(*leaves, causal=True)
+    want_g = torch.autograd.grad(want, leaves, do)
+    leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+    n0, m0 = dict(tfl.LAUNCHES), dict(tfl.LAUNCHES_BY_MODE)
+    out = tring.virtual_ring_flash_attention(*leaves, 4, causal=True,
+                                             striped=striped)
+    got_g = torch.autograd.grad(out, leaves, do)
+    (frt, fat), (grt, gat) = _TOL[torch.float32]
+    _assert_close(out.detach(), want.detach(), frt, fat, msg="out")
+    for g, w, name in zip(got_g, want_g, "qkv"):
+        _assert_close(g, w, grt, gat, msg=f"d{name}")
+    modes = {"none": 0, "causal": 10, "strict": 6} if striped else \
+        {"none": 6, "causal": 4, "strict": 0}
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfl.LAUNCHES[f"{kernel}_tf32x3"] == \
+            n0[f"{kernel}_tf32x3"] + sum(modes.values())
+        for m, c in modes.items():
+            assert tfl.LAUNCHES_BY_MODE[f"{kernel}_tf32x3_{m}"] == \
+                m0[f"{kernel}_tf32x3_{m}"] + c
+        assert tfl.LAUNCHES[f"{kernel}_wgmma"] == n0[f"{kernel}_wgmma"]
+
+
+@pytest.mark.gpu
+def test_ring_and_ulysses_gpt2_in_a_world_of_one(nccl_world, cuda_device):
+    """A world of one over NCCL: the ring is one CAUSAL hop on the f32
+    route, Ulysses the bf16 wgmma kernels; both give plain flash
+    attention's logits within the bf16 flash tolerance."""
+    from horovod_tpu_torch.models import create_gpt2
+    toks = torch.as_tensor(np.random.RandomState(2).randint(
+        0, 97, (1, 256)), device=cuda_device)
+    kw = dict(num_layers=2, num_heads=4, d_model=256, d_ff=512,
+              vocab_size=97, max_len=256, attention_impl="flash",
+              dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = create_gpt2("small", device=cuda_device, seed=3, **kw)(toks)
+    for sp, route in (("ring", "tf32x3"), ("ulysses", "wgmma")):
+        model = create_gpt2("small", device=cuda_device, seed=3,
+                            seq_parallel=sp, **kw)
+        n0 = dict(tfl.LAUNCHES)
+        logits = model(toks)
+        logits.float().sum().backward()
+        torch.testing.assert_close(logits, want, rtol=0.1, atol=0.05)
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert tfl.LAUNCHES[f"{kernel}_{route}"] == \
+                n0[f"{kernel}_{route}"] + 2

@@ -64,7 +64,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "models.convert", "ops.adasum", "callbacks",
                  "examples.gpt2_adasum", "examples.adasum_bench",
                  "csrc.native", "ops.negotiation", "timeline",
-                 "examples.join_bench"):
+                 "examples.join_bench", "parallel.ring",
+                 "parallel.ulysses", "examples.seqpar_bench"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"

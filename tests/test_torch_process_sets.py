@@ -787,8 +787,7 @@ def test_exports_match_jax_but_for_the_listed_gap():
              if isinstance(node, ast.ImportFrom) and node.module in modules
              for a in node.names}
     missing = {n for n in names if not hasattr(thvd, n)}
-    assert missing == {"mesh", "mesh_axis",
-                       "distributed_gradient_transformation"}
+    assert missing == {"distributed_gradient_transformation"}
     assert len(names) > 70
 
 
