@@ -129,13 +129,32 @@ Phases, each of which exits non-zero on failure:
    engine with a data plane that does nothing, the data plane alone,
    the engine around it, the whole call) beside ``dist.all_reduce`` of
    as many bytes;
-10. print the card's name and power limit, one JSON line of phase 7's
-   times, one of phase 8's numbers, one of phase 9's, one JSON line
+10. sequence parallelism on one card: GPT-2 small over 8192 tokens
+   with ring attention at n = 1 (f32 logits against plain flash, then
+   2 bf16 steps on the 3xTF32 hops), the ring's hops over 4 virtual
+   shards, 2 Ulysses steps, and each kernel at each of those shapes;
+11. model parallelism in a world of one: MoE GPT-2 small at full width
+   (8 experts, top 2, capacity factor 1.25, every 2nd block, experts on
+   a dp 1 × ep 1 mesh, where the MoE layer skips both alltoalls):
+   first the MoE layer alone at that width (x [4096, 768], C = 1280,
+   top 2, claims dropped), f32, against JAX's formula with the
+   materialised dispatch and combine at 1e-4 / 1e-5; then the model's
+   f32 logits with flash against dense
+   attention at 2e-3 (every token on all 8 experts, so no routing choice
+   can flip), then 2 bf16 AdamW steps on [4, 1024] tokens
+   through ``DistributedOptimizer(reduce_axes=("dp", "ep"))``, each
+   flash kernel launched on its wgmma route 12 times a step; then the
+   dry-run MoE, pipeline and tensor-parallel steps
+   (``entry.dryrun_{moe,pp,tp}_step``) on the card;
+12. print the card's name and power limit, one JSON line of phase 7's
+   times, one of phase 8's numbers, one of phase 9's, one of phase
+   11's, one JSON line
    describing every ported kernel (a bf16 flash kernel has one entry for
    phase 5's BERT-large path, one, ``*_gpt2_medium``, for phase 8's and
-   one, ``*_gpt2_small``, for phase 9's, each with that path's launches,
-   counted from 0, and the error and times at its shape), and as the
-   last line ``{"ok": true, "device": ...}``.
+   one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop`` and
+   ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each with
+   that path's launches, counted from 0, and the error and times at its
+   shape), and as the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.  ``--device cpu`` rehearses the same phases at a tiny
@@ -2774,6 +2793,185 @@ def seqpar_phase(torch, device, rehearsal):
             "hop_shapes": hops, "ulysses_shapes": ulys, "records": records}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: model parallelism in a world of one
+# ---------------------------------------------------------------------------
+
+MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+           moe_every=2, expert_axis="ep")
+
+
+def _moe_gpt2(torch, device, rehearsal, dtype, attention_impl, seed,
+              **overrides):
+    """MoE GPT-2 small (8 experts, top 2, every 2nd block) with its
+    experts on the ``ep`` axis; tiny in the rehearsal."""
+    from horovod_tpu_torch.models import create_gpt2
+    kw = dict(MOE, **overrides)
+    if rehearsal:
+        kw.update(num_layers=2, num_heads=2, d_model=32, d_ff=64,
+                  vocab_size=97, max_len=64)
+    return create_gpt2("small", device=device, seed=seed, dtype=dtype,
+                       attention_impl=attention_impl, **kw)
+
+
+def moe_dispatch_check(torch, device, rehearsal):
+    """Phase 11 (a), first: ``expert_parallel_ffn`` at the MoE block's
+    full width (x [4096, 768], d_ff 3072, 8 experts, top 2, capacity
+    factor 1.25: C = 1280; ``axis_name=None``, E_local = 8), f32, against
+    JAX's formula with the materialised [T, E, C] dispatch and combine
+    (``moe._dispatch_combine`` and its einsums) on the same device and
+    inputs, at the JAX MoE tolerance 1e-4 / 1e-5: the output, the aux
+    loss and the dropped share.  The tokens share a random mean
+    direction, as hidden states do, which skews the router; on the card
+    claims must be dropped, so the capacity path runs.  Both sides take
+    their router logits from the same product on the same device, so
+    they route alike.  Returns (max abs err, dropped share)."""
+    from horovod_tpu_torch.parallel import moe
+    T, d, f, E = (64, 32, 64, 8) if rehearsal else (4096, 768, 3072, 8)
+    k, cf = 2, 1.25
+    rng = np.random.RandomState(14)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.float32), device=device)
+
+    x = t(rng.randn(T, d) + 0.3 * rng.randn(d))
+    gate, w_in, w_out = (t(rng.randn(*shape) * 0.02) for shape in
+                         ((d, E), (E, d, f), (E, f, d)))
+    with torch.no_grad():
+        got = moe.expert_parallel_ffn(x, gate, w_in, w_out, axis_name=None,
+                                      top_k=k, capacity_factor=cf)
+        C = max(1, int(cf * k * T / E))
+        idx, wts, probs = moe._top_k_gating(x.float() @ gate.float(), k)
+        dispatch, combine, dropped = moe._dispatch_combine(idx, wts, probs,
+                                                           E, C)
+        h = torch.bmm(moe.gelu(torch.bmm(
+            torch.einsum("tec,td->ecd", dispatch, x), w_in)), w_out)
+        want = torch.einsum("tec,ecd->td", combine, h)
+        aux = moe.switch_aux_loss(probs, dispatch)
+        del dispatch, combine, h
+    err = float((got.out - want).abs().max())
+    ratio = max(float(((a - b).abs() / (1e-5 + 1e-4 * b.abs())).max())
+                for a, b in ((got.out, want), (got.aux_loss, aux)))
+    drop = float(got.dropped_frac)
+    log(f"  moe ffn top 2 at [{T}, {d}], E {E}, C {C}, f32, index dispatch "
+        f"against the materialised one: max abs err {err:.3e}, err/tol "
+        f"{ratio:.4f} at 1e-4 / 1e-5, dropped {drop:.4f} (reference "
+        f"{float(dropped):.4f})")
+    if not (ratio <= 1.0 and drop == float(dropped)
+            and (rehearsal or drop > 0.0)):
+        raise SystemExit("MoE ffn: the index dispatch disagrees with the "
+                         "materialised one")
+    return err, drop
+
+
+def moe_path(torch, fl, device, rehearsal):
+    """Phase 11 (a): MoE GPT-2 small at full width in the world of one
+    (E_local = 8 on a dp 1 × ep 1 mesh; with one member the MoE layer
+    skips both alltoalls, so no exchange runs on the card here: that is
+    ``model_parallel_bench``'s).  First ``moe_dispatch_check``.  Then the
+    model's f32 logits against the same weights with dense attention at
+    2e-3, every token routed to all 8 experts: a top-2 router's choice
+    is discontinuous, and flash and dense attention differ by enough
+    (~1e-6) to flip a few of its 24576 choices and, through attention,
+    the tokens after them; with every expert chosen and capacity for
+    all, the layer is continuous.  Then 2 bf16 AdamW steps through
+    ``DistributedOptimizer(reduce_axes=("dp", "ep"))`` on [4, 1024]
+    tokens, every count set to 0 just before them.  Returns the flash
+    launches of the two steps and numbers to print."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import lm_loss
+    from horovod_tpu_torch.parallel import make_mesh
+    make_mesh({"dp": 1, "ep": 1})
+    ffn_err, ffn_dropped = moe_dispatch_check(torch, device, rehearsal)
+    B, S = (2, 64) if rehearsal else (4, 1024)
+    toks = torch.as_tensor(np.random.RandomState(12).randint(
+        0, 97 if rehearsal else 50257, (B, S + 1)), device=device)
+    x, y = toks[:, :-1], toks[:, 1:]
+    logits = []
+    with torch.no_grad():
+        for impl in ("flash", None):
+            m = _moe_gpt2(torch, device, rehearsal, torch.float32, impl, 13,
+                          moe_top_k=8)
+            logits.append(m(x))
+            del m
+    a, b = logits
+    err = float((a - b).abs().max())
+    ratio = float(((a - b).abs() / (2e-3 + 2e-3 * b.abs())).max())
+    log(f"  moe gpt2-small f32 logits (top 8), flash against dense "
+        f"attention, [{B}, {S}]: max abs err {err:.3e}, err/tol "
+        f"{ratio:.4f} at 2e-3")
+    del logits, a, b
+    if not ratio <= 1.0:
+        raise SystemExit("MoE logits: flash disagrees with dense attention")
+    model = _moe_gpt2(torch, device, rehearsal,
+                      torch.float32 if rehearsal else torch.bfloat16,
+                      "flash", 13)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4),
+        reduce_axes=("dp", "ep"))
+    for counts in (fl.LAUNCHES, fl.LAUNCHES_BY_MODE):
+        for name in counts:
+            counts[name] = 0
+    losses, t0 = [], time.monotonic()
+    for _ in range(2):
+        opt.zero_grad()
+        loss = lm_loss(model(x), y) + 0.01 * sum(model.aux_losses)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    launches = dict(fl.LAUNCHES)
+    by_mode = _by_mode(fl, dict(fl.LAUNCHES_BY_MODE), "wgmma")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    dropped = [round(float(f), 4) for f in model.dropped_fracs]
+    aux = float(sum(model.aux_losses).detach())
+    L = model.cfg.num_layers
+    log(f"  moe gpt2-small {str(model.cfg.dtype)[6:]}, 2 AdamW steps on "
+        f"[{B}, {S}]: losses "
+        f"{[round(v, 4) for v in losses]}, aux {aux:.4f}, dropped "
+        f"{dropped} ({len(dropped)} MoE blocks), {seconds:.2f} s, flash "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    ok = all(np.isfinite(losses)) and len(dropped) == L // 2
+    if not rehearsal:
+        ok = ok and all(launches[f"{k}_wgmma"] == 2 * L
+                        and by_mode[k]["causal"] == 2 * L
+                        and launches[f"{k}_tf32x3"] == 0 for k in KERNELS)
+    if not ok:
+        raise SystemExit("MoE GPT-2 steps failed")
+    del model, opt
+    return launches, {"ffn_err": ffn_err, "ffn_dropped_frac": ffn_dropped,
+                      "logits_err": err, "losses": losses, "aux": aux,
+                      "dropped_frac": dropped, "steps_s": seconds}
+
+
+def model_parallel_phase(torch, device, rehearsal):
+    """Phase 11.  (a) ``moe_path``; (b) ``entry.dryrun_moe_step``,
+    ``dryrun_pp_step`` and ``dryrun_tp_step`` (phases 3-5 of
+    ``dryrun_multichip``) on the card.  Returns (a)'s launches and the
+    numbers."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import entry
+    from horovod_tpu_torch.parallel import flash as fl
+    dev = "cpu" if rehearsal else None
+    hvd.init(device=dev)
+    try:
+        launches, numbers = moe_path(torch, fl, device, rehearsal)
+        losses = {"moe": entry.dryrun_moe_step(device=dev)[0],
+                  "pp": entry.dryrun_pp_step(device=dev)[0],
+                  "tp": entry.dryrun_tp_step(device=dev)[0]}
+    finally:
+        hvd.shutdown()
+    log(f"  dry-run steps (phases 3-5 of dryrun_multichip): losses "
+        f"{ {k: round(v, 4) for k, v in losses.items()} }")
+    if not all(np.isfinite(list(losses.values()))):
+        raise SystemExit("dry-run steps failed")
+    numbers["dryrun_losses"] = losses
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -2852,6 +3050,13 @@ def main(argv=None) -> int:
     seqpar = seqpar_phase(torch, device, rehearsal)
     log(f"  phase 10 took {time.monotonic() - t10:.1f} s")
 
+    log("phase 11: model parallelism in a world of one (MoE GPT-2 small, "
+        "the dry-run MoE, pipeline and tensor-parallel steps)")
+    t11 = time.monotonic()
+    moe_launches, moe_numbers = model_parallel_phase(torch, device,
+                                                     rehearsal)
+    log(f"  phase 11 took {time.monotonic() - t11:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -2860,6 +3065,7 @@ def main(argv=None) -> int:
     print(json.dumps({"collectives": collectives}))
     print(json.dumps({"adasum": dict(adasum_numbers, card=card_tag())}))
     print(json.dumps({"eager": dict(eager_numbers, card=card_tag())}))
+    print(json.dumps({"moe": dict(moe_numbers, card=card_tag())}))
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -2996,6 +3202,25 @@ def main(argv=None) -> int:
                 for cards in ("2 cards", "4 cards")},
             shape="Ulysses local [1, 8192, 12, 64] bf16, causal, cold L2; "
                   "launches: phase 10 (c)'s 2 steps in a world of one"))
+    for name, where in replaces.items():
+        r = frec["gpt2-small"][name]
+        # The same wgmma kernels on phase 11 (a)'s MoE GPT-2 small, whose
+        # attention has phase 5's GPT-2 shape: its launches, and the
+        # error and times of phase 3's timing at that shape.
+        kernels.append({
+            "name": name + "_moe", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/" + (
+                "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
+                else "flash_attention_bwd_sm90.cu"),
+            "replaces": where,
+            "launches": moe_launches[name + "_wgmma"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": "GPT-2 small [4, 1024, 12, 64] bf16, causal, cold L2 "
+                     "(phase 3's timing); launches: phase 11 (a)'s 2 MoE "
+                     "steps"})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,10 +45,16 @@ Ported so far:
   attention over the differentiable ``alltoall`` (``parallel/ulysses.py``),
   the transformer's ``seq_parallel`` and
   ``DistributedOptimizer(reduce_axes=...)``; the multi-card drive is
-  ``python -m horovod_tpu_torch.examples.seqpar_bench``.
+  ``python -m horovod_tpu_torch.examples.seqpar_bench``;
+* model parallelism (``parallel/``): expert-parallel mixtures of
+  experts over two alltoalls (``parallel/moe.py``, the transformer's
+  ``moe_experts`` / ``expert_axis``), Megatron's column / row MLP
+  (``parallel/tensor.py``), the GPipe schedule over P2P hops
+  (``parallel/pipeline.py``), per-parameter ``reduce_axes`` and
+  ``hvd.shard_step``; the multi-card drive is
+  ``python -m horovod_tpu_torch.examples.model_parallel_bench``.
 
-Not exported yet (ROADMAP A6/A9): ``shard_step`` and
-``analysis_reports``.
+Not exported yet (ROADMAP A9): ``analysis_reports``.
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
 
@@ -108,3 +114,5 @@ from .exceptions import (  # noqa: F401
 )
 
 from . import callbacks  # noqa: F401
+from . import parallel  # noqa: F401
+from .parallel import shard_step  # noqa: F401  (the hvd.shard_step idiom)

@@ -530,9 +530,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(args, argv) -> int:
-    """Build the kernels once, start ``--nproc`` ranks of this script and
-    wait for them; rank 0 prints the result."""
+def launch(args, argv,
+           module: str = "horovod_tpu_torch.examples.seqpar_bench") -> int:
+    """Build the kernels once, start ``--nproc`` ranks of ``module`` (this
+    script by default) and wait for them; rank 0 prints the result."""
     if args.device != "cpu":
         from horovod_tpu_torch.csrc import build
         build.build()
@@ -545,8 +546,7 @@ def launch(args, argv) -> int:
                    HOROVOD_LOCAL_SIZE=str(args.nproc),
                    HVD_TPU_COORDINATOR=f"127.0.0.1:{port}")
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "horovod_tpu_torch.examples.seqpar_bench"]
-            + list(argv), env=env))
+            [sys.executable, "-m", module] + list(argv), env=env))
     deadline = time.monotonic() + TIMEOUT_S
     try:
         codes = [p.wait(timeout=max(1.0, deadline - time.monotonic()))

@@ -11,7 +11,10 @@ module's own copy of ``unstack_block_params``,
 ``horovod_tpu/models/transformer.py:296``).  The port keeps the flax
 leaf layouts (qkv kernel [d, 3, H, Dh], proj kernel [H, Dh, d], dense
 kernels [in, out], tied ``wte``), so conversion renames and never
-transposes.
+transposes.  ``shard_experts`` slices the global expert weights of such
+a state dict (an MoE model's ``moe_w_in`` / ``moe_w_out``, [E, ...]) to
+one rank's experts on the expert axis, the port's counterpart of JAX's
+``in_specs=P("ep")`` on those leaves.
 
 ``resnet_params_from_jax`` takes the ``{"params", "batch_stats"}``
 variables of the JAX package's ``ResNet`` (or the ``params`` of its
@@ -69,6 +72,31 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             key = ("blocks", key[0][len("block_"):]) + key[1:]
         state[".".join(key)] = torch.from_numpy(np.array(value))
     return state
+
+
+EXPERT_LEAVES = ("moe_w_in", "moe_w_out")
+
+
+def shard_experts(state: Mapping[str, torch.Tensor], axis_name: str = "ep",
+                  *, mesh=None) -> Dict[str, torch.Tensor]:
+    """``state`` with each expert weight (a key ending in
+    ``EXPERT_LEAVES``, [E, ...]) cut to this rank's E / n experts: the
+    block of its index on ``axis_name`` (``parallel.axis``), of size n.
+    Other entries pass through."""
+    from .. import parallel
+    ax = parallel.axis(axis_name, mesh)
+    n, index = ax.size, ax.index
+    out = {}
+    for key, value in state.items():
+        if key.endswith(EXPERT_LEAVES):
+            if value.shape[0] % n:
+                raise ValueError(f"{key}: {value.shape[0]} experts do not "
+                                 f"divide over {n} ranks of "
+                                 f"{axis_name!r}")
+            e = value.shape[0] // n
+            value = value[index * e:(index + 1) * e]
+        out[key] = value
+    return out
 
 
 # The flax module names of the ResNet, MLP and MnistCNN trees, and the

@@ -18,8 +18,16 @@ with ``seq_parallel`` recomputes a block's rotations or exchanges at
 the block's first unpack in the backward, which on every rank comes
 after the whole backward of the next block, so every rank runs them in
 one order (the recomputed graph is dropped: the inverse rotations run
-once).  MoE is not here yet (ROADMAP A6); ``scan_layers`` has no counterpart
-(``models/convert.py`` unstacks its parameter layout).
+once).  ``moe_experts > 0`` makes every ``moe_every``-th block a
+mixture of experts (``parallel/moe.py``), its experts sharded over
+``expert_axis`` when that names a bound axis (E / n experts a rank,
+``models/convert.py`` ``shard_experts`` slices a global state dict) and
+replicated when it is None; each forward leaves one aux loss per MoE
+block in ``Transformer.aux_losses`` (JAX's sown ``"losses"``), and
+``remat`` recomputes an MoE block, its two alltoalls included, at the
+same point of the backward on every rank without adding an entry.
+``scan_layers`` has no counterpart (``models/convert.py`` unstacks its
+parameter layout; JAX refuses it with ``moe_every > 1``).
 
 Parameters are float32 and each is cast to ``cfg.dtype`` where it is
 used, as flax's ``param_dtype=float32`` / ``dtype=cfg.dtype`` does: a
@@ -32,7 +40,9 @@ like the JAX adapter's:
 
 * ``attn.qkv.kernel`` [d, 3, H, Dh], ``attn.qkv.bias`` [3, H, Dh];
 * ``attn.proj.kernel`` [H, Dh, d];
-* ``fc1``/``fc2`` kernels [in, out];
+* ``fc1``/``fc2`` kernels [in, out]; an MoE block has ``moe_gate``
+  [d, E], ``moe_w_in`` [E_local, d, d_ff] and ``moe_w_out``
+  [E_local, d_ff, d] in their place;
 * ``wte.embedding`` [V, d], tied to the LM head; ``wpe.embedding``
   [max_len, d];
 * LayerNorms hold ``scale`` and ``bias``.
@@ -51,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import parallel as _parallel
 from ..parallel.flash import flash_attention
+from ..parallel.moe import expert_parallel_ffn
 from ..parallel.ring import (ring_attention, ring_flash_attention,
                              striped_positions)
 from ..parallel.ulysses import ulysses_attention
@@ -76,6 +87,14 @@ class TransformerConfig:
     # The ring's hop schedule (parallel/ring.py SCHEDULES); the JAX
     # model always runs the default, "overlap".
     ring_schedule: str = "overlap"
+    # Mixture-of-experts FFN (parallel/moe.py) in every moe_every-th
+    # block when moe_experts > 0, experts sharded over expert_axis (None:
+    # replicated), as the JAX config.
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_every: int = 2
+    expert_axis: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -154,11 +173,35 @@ def _local_flash(q, k, v, *, causal, scale=None):
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
+def experts_per_rank(cfg: TransformerConfig) -> int:
+    """E_local: ``moe_experts`` over the size of ``expert_axis`` (the
+    axis resolved with ``parallel.axis``; all of them when it is
+    None)."""
+    n = 1
+    if cfg.expert_axis:
+        try:
+            n = _parallel.axis(cfg.expert_axis).size
+        except ValueError as e:
+            raise ValueError(
+                f"expert_axis={cfg.expert_axis!r} is not bound: build the "
+                f"model with expert_axis=None for the global [E, ...] "
+                f"expert weights, or make a mesh with the axis first "
+                f"(make_mesh) and give each rank its experts "
+                f"(models.convert.shard_experts)") from e
+    if cfg.moe_experts % n:
+        raise ValueError(f"moe_experts ({cfg.moe_experts}) must divide by "
+                         f"the {cfg.expert_axis!r} axis size ({n})")
+    return cfg.moe_experts // n
+
+
 class Block(nn.Module):
     """ln1 → qkv → attention → proj residual → ln2 → fc1/gelu(tanh)/fc2
-    residual."""
+    residual, or with ``use_moe`` the mixture of experts in place of
+    fc1/fc2.  ``forward`` returns the block's output and, for an MoE
+    block, its ``MoEOutput`` (else None)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 use_moe: bool = False):
         super().__init__()
         d, H, Dh = cfg.d_model, cfg.num_heads, cfg.head_dim
         if cfg.attention_impl not in (None, "flash"):
@@ -174,8 +217,20 @@ class Block(nn.Module):
         self.attn.qkv = Dense((d, 3, H, Dh), (3, H, Dh), device)
         self.attn.proj = Dense((H, Dh, d), (d,), device)
         self.ln2 = LayerNorm(d, 1e-5, device)
-        self.fc1 = Dense((d, cfg.d_ff), (cfg.d_ff,), device)
-        self.fc2 = Dense((cfg.d_ff, d), (d,), device)
+        self.use_moe = use_moe
+        if use_moe:
+            e_local = experts_per_rank(cfg)
+            mk = lambda *s: nn.Parameter(  # noqa: E731
+                torch.empty(s, device=device))
+            self.moe_gate = mk(d, cfg.moe_experts)
+            self.moe_w_in = mk(e_local, d, cfg.d_ff)
+            self.moe_w_out = mk(e_local, cfg.d_ff, d)
+            if cfg.expert_axis:
+                for p in (self.moe_w_in, self.moe_w_out):
+                    _parallel.mark_sharded(p, cfg.expert_axis)
+        else:
+            self.fc1 = Dense((d, cfg.d_ff), (cfg.d_ff,), device)
+            self.fc2 = Dense((cfg.d_ff, d), (d,), device)
 
     def forward(self, x):
         cfg, dt = self.cfg, self.cfg.dtype
@@ -200,15 +255,26 @@ class Block(nn.Module):
         w, b = self.attn.proj.cast(dt)
         x = x + (torch.einsum("bshe,hed->bsd", out, w) + b)
         h = self.ln2(x).to(dt)
+        if self.use_moe:
+            B, S, d = h.shape
+            res = expert_parallel_ffn(
+                h.reshape(B * S, d), self.moe_gate, self.moe_w_in.to(dt),
+                self.moe_w_out.to(dt), axis_name=cfg.expert_axis,
+                top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+            return x + res.out.view(B, S, d), res
         w, b = self.fc1.cast(dt)
         h = F.gelu(h @ w + b, approximate="tanh")
         w, b = self.fc2.cast(dt)
-        return x + (h @ w + b)
+        return x + (h @ w + b), None
 
 
 class Transformer(nn.Module):
     """Decoder-only (``causal``, GPT-2) or encoder (BERT) producing f32
-    token logits (the LM head ties the token embedding)."""
+    token logits (the LM head ties the token embedding).  After a
+    forward, ``aux_losses`` holds each MoE block's Switch aux loss and
+    ``dropped_fracs`` its share of dropped claims (detached), in block
+    order (empty without MoE); ``sum(aux_losses)`` is JAX's
+    ``sum(tree.leaves(losses))``."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -216,8 +282,12 @@ class Transformer(nn.Module):
         self.wte = Embed(cfg.vocab_size, cfg.d_model, device)
         self.wpe = Embed(cfg.max_len, cfg.d_model, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers))
+            Block(cfg, device, use_moe=cfg.moe_experts > 0
+                  and i % cfg.moe_every == cfg.moe_every - 1)
+            for i in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, 1e-6, device)
+        self.aux_losses: list = []
+        self.dropped_fracs: list = []
 
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
@@ -239,11 +309,17 @@ class Transformer(nn.Module):
                     _parallel.axis(cfg.axis_name).index * S
         x = self.wte.embedding[tokens].to(dt) \
             + self.wpe.embedding[positions].to(dt)
+        # A checkpointed block's recompute runs inside the backward and
+        # its outputs are dropped, so each MoE block records once.
+        self.aux_losses, self.dropped_fracs = [], []
         for blk in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(blk, x, use_reentrant=False)
+                x, res = checkpoint(blk, x, use_reentrant=False)
             else:
-                x = blk(x)
+                x, res = blk(x)
+            if res is not None:
+                self.aux_losses.append(res.aux_loss)
+                self.dropped_fracs.append(res.dropped_frac.detach())
         if predict_positions is not None:
             x = torch.take_along_dim(
                 x, predict_positions.long()[..., None], dim=1)
@@ -268,13 +344,24 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
 @torch.no_grad()
 def init_gpt2_(model: Transformer, generator: torch.Generator) -> Transformer:
     """GPT-2 / BERT initialisation in place, drawn from ``generator`` (on the
-    parameters' device): normal(0.02) kernels and token embedding,
-    normal(0.01) position embedding, zero biases, unit LayerNorm
-    scales."""
+    parameters' device): normal(0.02) kernels, expert weights and token
+    embedding, normal(0.01) position embedding, zero biases, unit
+    LayerNorm scales.  An expert-sharded weight takes this rank's slice
+    of the global draw."""
     for name, p in model.named_parameters():
         if name == "wpe.embedding":
             p.normal_(0.0, 0.01, generator=generator)
-        elif name.endswith(("kernel", "embedding")):
+        elif _parallel.sharded_axes(p):
+            # This rank's slice of the global [E, ...] draw, so a sharded
+            # model holds the experts of the replicated one.
+            ax = _parallel.axis(_parallel.sharded_axes(p)[0])
+            e = p.shape[0]
+            full = torch.empty((e * ax.size,) + tuple(p.shape[1:]),
+                               device=p.device)
+            p.copy_(full.normal_(0.0, 0.02, generator=generator)[
+                ax.index * e:(ax.index + 1) * e])
+        elif name.endswith(("kernel", "embedding", "moe_gate", "moe_w_in",
+                            "moe_w_out")):
             p.normal_(0.0, 0.02, generator=generator)
         elif name.endswith("scale"):
             p.fill_(1.0)

@@ -27,13 +27,19 @@ planner bypassed, as in JAX.
 With ``process_set``, the gradients reduce over the set's ranks, and a
 rank outside the set steps on its own gradients (the JAX package's
 non-member passthrough).  ``reduce_axes=("dp", "sp")`` (``:354``)
-reduces over the process set spanning those axes of the mesh
-(``parallel.make_mesh``; the world when they span it), so Average
-divides by the product of their sizes: the data- and
-sequence-parallel training of a model whose replicated parameters get
-a local gradient on every rank.  It supports ``op`` (Average, Sum, Adasum),
-``compression`` and ``gradient_predivide_factor`` (``:320-330``, Average
-only: prescale 1/f, postscale f).  ``named_parameters`` is accepted and
+reduces each gradient by ``_reduce_multi_axis_leaf``'s rule
+(``:122-157``): summed over the process set spanning ``reduce_axes``
+less the axes its parameter is sharded over (``parallel.mark_sharded``:
+expert weights over ``"ep"`` are summed over ``"dp"`` alone, since each
+``"ep"`` member holds other experts), and under Average divided by the
+product of the sizes of all of ``reduce_axes``, the global token mean
+when the batch is split over every listed axis.  Parameters with
+different reduce sets never share a fusion bucket; those sharded over
+none of the axes reduce as before, Average over the set spanning them.
+``reduce_axes`` takes Average and Sum.  The optimizer supports ``op``
+(Average, Sum, Adasum), ``compression`` and
+``gradient_predivide_factor`` (``:320-330``, Average only: prescale
+1/f, postscale f).  ``named_parameters`` is accepted and
 ignored, as in JAX.  ``zero_grad``, ``param_groups``, ``state`` and
 ``state_dict`` pass through to the wrapped optimizer.
 
@@ -174,6 +180,8 @@ class DistributedOptimizer:
         self._groups = self._index_groups(groups)
         self._acc: Optional[List[torch.Tensor]] = None
         self._passes = 0
+        self._axis_sets = None if reduce_axes is None else \
+            _axis_sets(self._params, tuple(reduce_axes))
 
     def _index_groups(self, groups) -> Optional[List[List[int]]]:
         if not groups:
@@ -239,9 +247,45 @@ class DistributedOptimizer:
         return self.optimizer.step()
 
     def _allreduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        return _allreduce_list(grads, self.op, self.compression,
-                               self._prescale, self._postscale,
-                               self.process_set, self._groups)
+        if self._axis_sets is None:
+            return _allreduce_list(grads, self.op, self.compression,
+                                   self._prescale, self._postscale,
+                                   self.process_set, self._groups)
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        n_all, sets = self._axis_sets
+        for ps, idx in sets:
+            sub = [grads[i] for i in idx]
+            if ps is self.process_set:
+                red = _allreduce_list(sub, self.op, self.compression,
+                                      self._prescale, self._postscale, ps)
+            else:
+                # A sharded parameter: the sum over its reduce set, then
+                # the divisor of every reduce axis (JAX's order).
+                red = _allreduce_list(sub, ReduceOp.SUM, self.compression,
+                                      self._prescale, 1.0, ps) \
+                    if ps is not None else [g * self._prescale for g in sub]
+                if self.op == ReduceOp.AVERAGE:
+                    red = [g / n_all for g in red]
+                red = [g * self._postscale for g in red]
+            for i, g in zip(idx, red):
+                out[i] = g
+        return out
+
+
+def _axis_sets(params, reduce_axes):
+    """``(product of the reduce axes' sizes, [(process set, parameter
+    indices)])``: parameters grouped by their reduce set, ``reduce_axes``
+    less the axes each is sharded over, in order of first appearance;
+    the set is None where nothing is left.  Every rank registers the
+    same sets in the same order (collective on first use)."""
+    from .parallel import axes_process_set, axis, sharded_axes
+    n_all = int(np.prod([axis(a).size for a in reduce_axes]))
+    groups = {}
+    for i, p in enumerate(params):
+        axes = tuple(a for a in reduce_axes if a not in sharded_axes(p))
+        groups.setdefault(axes, []).append(i)
+    return n_all, [(axes_process_set(axes) if axes else None, idx)
+                   for axes, idx in groups.items()]
 
 
 class PartialDistributedOptimizer(DistributedOptimizer):

@@ -17,16 +17,34 @@ because ``dist.new_group`` is collective over the world.
 A function that takes ``axis_name`` resolves it with :func:`axis`: in
 the ``mesh`` it is given, else in the most recent ``make_mesh`` that has
 the axis, else as the world's one axis (``core.mesh_axis()``, ``"hvd"``,
-the axis of ``core.mesh()``).  ``shard_step``, ``data_parallel_sharding``
-and ``replicated_sharding`` are not ported yet (ROADMAP A6).
+the axis of ``core.mesh()``).
+
+Model parallelism: ``moe.py`` (experts over an axis, two alltoalls),
+``tensor.py`` (Megatron's column / row pair, one allreduce) and
+``pipeline.py`` (GPipe over P2P hops).  A parameter that holds a shard
+of a larger weight carries the axes it is sharded over
+(:func:`mark_sharded`, read by :func:`sharded_axes`), the port's stand-in
+for JAX's varying-axes type: ``DistributedOptimizer(reduce_axes=...)``
+does not sum its gradient over them.
+
+``shard_step`` (``:63``) runs a per-rank step on this rank's pieces of
+its arguments, as ``jax.shard_map`` hands each device its block:
+:class:`PartitionSpec` ``P(axis)`` splits dim 0 by this rank's index on
+the axis (a tuple of axes indexes their sub-mesh row-major), ``P()``
+passes an argument whole; outputs under ``P(axis)`` are allgathered.
+``data_parallel_sharding`` and ``replicated_sharding`` (``:134``,
+``:143``) give the :class:`NamedSharding` that cuts a global batch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+import torch
 import torch.distributed as dist
+from torch.utils import _pytree
 
 from .. import core as _core
 from ..process_sets import ProcessSet, global_process_set
@@ -205,3 +223,150 @@ def axes_process_set(axes: Sequence[str], mesh: Optional[Mesh] = None
                 f"(make_mesh); the world's axis is {st.config.mesh_axis!r}")
         return global_process_set
     return mesh.process_set(*axes)
+
+
+def mark_sharded(param: torch.Tensor, *axes: str) -> torch.Tensor:
+    """Record that ``param`` holds this rank's shard over ``axes`` (its
+    gradient differs between the members of each, so it is never summed
+    over them); returns ``param``."""
+    param.hvd_sharded_axes = tuple(axes)
+    return param
+
+
+def sharded_axes(param: torch.Tensor) -> Tuple[str, ...]:
+    """The axes :func:`mark_sharded` recorded on ``param`` (none)."""
+    return getattr(param, "hvd_sharded_axes", ())
+
+
+# -- shard_step ---------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one entry per leading dim, each
+    None (whole), an axis name, or a tuple of axis names (their
+    sub-mesh, row-major).  ``P()`` is replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding(NamedTuple):
+    """A spec over a mesh (``jax.sharding.NamedSharding``): ``shard``
+    cuts this rank's block out of a global tensor, ``gather`` puts the
+    blocks of every rank back together."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def _cut(self, dim: int, entry) -> Tuple[int, int]:
+        """(pieces, this rank's piece) of ``dim`` under ``entry``."""
+        axes = _entry_axes(entry)
+        pieces, index = 1, 0
+        for a in axes:
+            ax = self.mesh.axis(a)
+            pieces, index = pieces * ax.size, index * ax.size + ax.index
+        return pieces, index
+
+    def shard(self, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        for dim, entry in enumerate(self.spec):
+            pieces, index = self._cut(dim, entry)
+            if pieces > 1:
+                if x.shape[dim] % pieces:
+                    raise ValueError(
+                        f"dim {dim} of {tuple(x.shape)} does not divide "
+                        f"into {pieces} pieces over {entry!r}")
+                x = x.chunk(pieces, dim)[index]
+        return x
+
+    def gather(self, x):
+        from .. import ops as _ops
+        if not isinstance(x, torch.Tensor):
+            return x
+        for dim, entry in reversed(list(enumerate(self.spec))):
+            axes = _entry_axes(entry)
+            if self._cut(dim, entry)[0] > 1:
+                ps = self.mesh.process_set(*axes)
+                x = _ops.allgather(x.movedim(dim, 0).contiguous(),
+                                   process_set=ps).movedim(0, dim)
+        return x
+
+
+def _tree_map(fn, spec, tree):
+    """``fn(spec, leaf)`` over ``tree``, with ``spec`` a tree prefix of
+    it (JAX's rule): a PartitionSpec applies to every leaf below it."""
+    if isinstance(spec, PartitionSpec):
+        return _pytree.tree_map(lambda leaf: fn(spec, leaf), tree)
+    if isinstance(spec, dict):
+        if set(spec) != set(tree):
+            raise ValueError(f"spec keys {sorted(spec)} do not match "
+                             f"{sorted(tree)}")
+        return type(tree)((k, _tree_map(fn, spec[k], v))
+                          for k, v in tree.items())
+    if isinstance(spec, (list, tuple)) and len(spec) == len(tree):
+        return type(tree)(_tree_map(fn, s, t) for s, t in zip(spec, tree))
+    raise ValueError(f"spec {spec!r} is no prefix of the tree")
+
+
+def shard_step(fn: Callable, *, mesh: Optional[Mesh] = None, in_specs=None,
+               out_specs=None, axis_name: Optional[str] = None,
+               donate_argnums: Tuple[int, ...] = (),
+               check_vma: bool = True) -> Callable:
+    """The SPMD step wrapper: ``wrapper(*args)`` calls ``fn`` on this
+    rank's pieces of ``args`` under ``in_specs`` (default: the first
+    argument whole, the others split on dim 0 over ``axis_name``, the
+    world's axis by default) and returns ``fn``'s outputs under
+    ``out_specs`` (default ``P()``: as they are; ``P(axis)`` allgathers
+    them).  Each spec is one ``P`` for an argument or output, or a tree
+    of them matching its structure.
+
+    ``donate_argnums`` and ``check_vma`` are accepted for the JAX
+    signature and change nothing: PyTorch runs eagerly and frees a
+    buffer when its last reference goes, so there is nothing to donate,
+    and it has no varying-axes types to check.  JAX's analysis hook
+    (``HVD_ANALYZE``) has no counterpart yet (ROADMAP A9)."""
+    del donate_argnums, check_vma
+
+    def wrapper(*args, **kwargs):
+        if kwargs:
+            raise TypeError(
+                "shard_step-wrapped functions take positional arguments "
+                f"only (the specs are positional); pass {sorted(kwargs)} "
+                f"positionally")
+        m = mesh or _core.mesh()
+        axis_ = axis_name or _core.mesh_axis()
+        ins = in_specs
+        if ins is None:
+            ins = tuple(P(axis_) if i else P() for i in range(len(args)))
+        local = _tree_map(lambda s, x: NamedSharding(m, s).shard(x),
+                          tuple(ins), args)
+        out = fn(*local)
+        outs = out_specs if out_specs is not None else P()
+        return _tree_map(lambda s, x: NamedSharding(m, s).gather(x), outs,
+                         out)
+
+    return wrapper
+
+
+def data_parallel_sharding(mesh: Optional[Mesh] = None,
+                           axis_name: Optional[str] = None
+                           ) -> NamedSharding:
+    """Dim 0 split over the mesh axis: ``.shard(batch)`` is this rank's
+    rows of a global batch."""
+    return NamedSharding(mesh or _core.mesh(),
+                         P(axis_name or _core.mesh_axis()))
+
+
+def replicated_sharding(mesh: Optional[Mesh] = None) -> NamedSharding:
+    return NamedSharding(mesh or _core.mesh(), P())

@@ -1443,3 +1443,107 @@ def test_ring_and_ulysses_gpt2_in_a_world_of_one(nccl_world, cuda_device):
         for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             assert tfl.LAUNCHES[f"{kernel}_{route}"] == \
                 n0[f"{kernel}_{route}"] + 2
+
+
+@pytest.mark.gpu
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda_device):
+    """``expert_parallel_ffn(axis_name=None)`` on the card against the
+    same call on the CPU, with claims dropped: the output, aux loss,
+    dropped share and gradients, f32, at the JAX MoE tolerance."""
+    from horovod_tpu_torch.parallel import moe
+    rng = np.random.RandomState(4)
+    arrays = [rng.randn(256, 64), rng.randn(64, 8) * 2.0,
+              rng.randn(8, 64, 128) * 0.1, rng.randn(8, 128, 64) * 0.1]
+    w = torch.from_numpy(rng.randn(256, 64).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  .requires_grad_() for a in arrays]
+        res = moe.expert_parallel_ffn(*leaves, axis_name=None, top_k=2,
+                                      capacity_factor=0.75)
+        (torch.sum(res.out * w.to(dev)) + res.aux_loss).backward()
+        out[str(dev)] = [res.out, res.aux_loss, res.dropped_frac] + \
+            [t.grad for t in leaves]
+    assert float(out["cpu"][2]) > 0.0
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        assert got.is_cuda
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_moe_gpt2_in_a_world_of_one(nccl_world, cuda_device):
+    """An expert-sharded MoE GPT-2 (dp 1 × ep 1) over NCCL: f32 flash
+    logits equal dense attention's within 2e-3 with every token on all
+    experts (a top-2 choice would flip at a near-tie between the two
+    attentions), and a bf16 step through
+    ``DistributedOptimizer(reduce_axes=("dp", "ep"))`` launches each
+    wgmma kernel once per block and records one aux loss per MoE
+    block."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    from horovod_tpu_torch.parallel import make_mesh
+    make_mesh({"dp": 1, "ep": 1})
+    kw = dict(num_layers=4, num_heads=4, d_model=256, d_ff=512,
+              vocab_size=97, max_len=256, moe_experts=8, expert_axis="ep")
+    toks = torch.as_tensor(np.random.RandomState(5).randint(
+        0, 97, (2, 257)), device=cuda_device)
+    with torch.no_grad():
+        a, b = (create_gpt2("small", device=cuda_device, seed=4,
+                            dtype=torch.float32, attention_impl=impl,
+                            **dict(kw, moe_top_k=8))(toks[:, :-1])
+                for impl in ("flash", None))
+    torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    model = create_gpt2("small", device=cuda_device, seed=4,
+                        attention_impl="flash", **kw)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters(),
+                                                     lr=1e-4),
+                                   reduce_axes=("dp", "ep"))
+    n0 = dict(tfl.LAUNCHES)
+    loss = lm_loss(model(toks[:, :-1]), toks[:, 1:]) + \
+        0.01 * sum(model.aux_losses)
+    loss.backward()
+    opt.step()
+    assert len(model.aux_losses) == 2 and torch.isfinite(loss)
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfl.LAUNCHES[f"{kernel}_wgmma"] == n0[f"{kernel}_wgmma"] + 4
+
+
+@pytest.mark.gpu
+def test_pipeline_tensor_and_dryrun_steps_in_a_world_of_one(nccl_world,
+                                                            cuda_device):
+    """A one-stage ``gpipe_spmd`` and a one-shard
+    ``column_row_parallel_mlp`` on the card equal their plain
+    computations (outputs and gradients), and phases 3-5 of
+    ``dryrun_multichip`` run over NCCL."""
+    from horovod_tpu_torch import entry
+    from horovod_tpu_torch.parallel import make_mesh, pipeline, tensor
+    make_mesh({"pp": 1})
+    make_mesh({"tp": 1})
+    rng = np.random.RandomState(6)
+    w = torch.from_numpy((rng.randn(1, 32, 32) * 0.3).astype(np.float32)
+                         ).to(cuda_device).requires_grad_()
+    xs = torch.from_numpy(rng.randn(4, 2, 32).astype(np.float32)).to(
+        cuda_device)
+    ys = pipeline.gpipe_spmd(lambda p, x: torch.tanh(x @ p[0]), w, xs)
+    ys.square().mean().backward()
+    w2 = w.detach().clone().requires_grad_()
+    want = torch.tanh(xs @ w2[0])
+    want.square().mean().backward()
+    torch.testing.assert_close(ys, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=1e-4, atol=1e-6)
+    x = torch.from_numpy(rng.randn(64, 32).astype(np.float32)).to(
+        cuda_device).requires_grad_()
+    c = torch.from_numpy((rng.randn(32, 128) * 0.1).astype(np.float32)).to(
+        cuda_device).requires_grad_()
+    r = torch.from_numpy((rng.randn(128, 32) * 0.1).astype(np.float32)).to(
+        cuda_device).requires_grad_()
+    y = tensor.column_row_parallel_mlp(x, c, r)
+    g = torch.autograd.grad(y.sum(), (x, c, r))
+    want = tensor.gelu(x @ c) @ r
+    gw = torch.autograd.grad(want.sum(), (x, c, r))
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)
+    for a, b in zip(g, gw):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for step in (entry.dryrun_moe_step, entry.dryrun_pp_step,
+                 entry.dryrun_tp_step):
+        assert np.isfinite(step()[0])

@@ -65,7 +65,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "examples.gpt2_adasum", "examples.adasum_bench",
                  "csrc.native", "ops.negotiation", "timeline",
                  "examples.join_bench", "parallel.ring",
-                 "parallel.ulysses", "examples.seqpar_bench"):
+                 "parallel.ulysses", "examples.seqpar_bench",
+                 "parallel.moe", "parallel.tensor", "parallel.pipeline",
+                 "examples.model_parallel_bench"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"

@@ -121,7 +121,8 @@ def test_gpt2_configs_match_jax(name):
             "GPT2_LARGE": GPT2_LARGE}[name]
     ref = getattr(jt, name)
     for field in ("vocab_size", "num_layers", "num_heads", "d_model",
-                  "d_ff", "max_len", "causal"):
+                  "d_ff", "max_len", "causal", "moe_experts", "moe_top_k",
+                  "moe_capacity_factor", "moe_every", "expert_axis"):
         assert getattr(port, field) == getattr(ref, field), field
     # The compute type, by name: bf16 in both.
     assert str(port.dtype).removeprefix("torch.") == \
