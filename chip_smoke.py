@@ -146,9 +146,21 @@ Phases, each of which exits non-zero on failure:
    flash kernel launched on its wgmma route 12 times a step; then the
    dry-run MoE, pipeline and tensor-parallel steps
    (``entry.dryrun_{moe,pp,tp}_step``) on the card;
-12. print the card's name and power limit, one JSON line of phase 7's
+12. elastic training in a world of one: the port's launcher with
+   ``--min-np 1 --max-np 1`` runs ``examples/elastic_resnet`` (ResNet-50
+   at 224², 32 images, bf16, sync BN, SGD with momentum, ``TorchState``
+   with a spill directory, a commit every 2 steps); the worker exits
+   abruptly after step 5, the driver respawns it and it resumes from the
+   spill at step 4 to step 8; its final parameters must equal an
+   uninterrupted deterministic 8-step run's bit for bit, and a
+   ``save_model`` / ``load_model`` round trip saved mid-cycle at
+   ``backward_passes_per_step=2`` must give the same bits;
+13. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
-   11's, one JSON line
+   11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
+   to the first step of the new incarnation, steps redone, host ms of a
+   commit with and without the spill and of a restore, images/s before
+   and after), one JSON line
    describing every ported kernel (a bf16 flash kernel has one entry for
    phase 5's BERT-large path, one, ``*_gpt2_medium``, for phase 8's and
    one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop`` and
@@ -2972,6 +2984,190 @@ def model_parallel_phase(torch, device, rehearsal):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: elastic kill-and-rejoin in a world of one
+# ---------------------------------------------------------------------------
+
+def _startup(events):
+    """Seconds from each incarnation's process start to its world, its
+    model and its first step."""
+    out = []
+    for start in (e for e in events if e["event"] == "start"):
+        later = [e for e in events if e["wall"] >= start["at"]
+                 and e["world_version"] == start["world_version"]]
+
+        def first(name):
+            got = [e["wall"] for e in later if e["event"] == name]
+            return round(min(got) - start["at"], 3) if got else None
+        out.append({"world_version": start["world_version"],
+                    "to_start": round(start["wall"] - start["at"], 3),
+                    "to_init": first("init"), "to_built": first("built"),
+                    "to_entry": first("entry"), "to_first_step":
+                    first("step")})
+    return out
+
+
+def launch_in_process(argv, env):
+    """``horovod_tpu_torch.runner.launch`` with ``argv`` in this process,
+    ``env`` added to what the workers inherit; a CompletedProcess."""
+    import os
+    from horovod_tpu_torch.runner import launch
+    saved = {k: os.environ.get(k) for k in list(env) + ["HVD_TPU_COORD_PORT"]}
+    os.environ.update(env)
+    try:
+        rc = launch._run(launch.parse_args(argv))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return subprocess.CompletedProcess(argv, rc, "", "")
+
+
+def elastic_phase(torch, device, rehearsal):
+    """Phase 12.  The port's launcher runs ``examples/elastic_resnet``
+    with ``--min-np 1 --max-np 1`` and a discovery script: ResNet-50 at
+    224², 32 images a step, bf16, sync BN, SGD with momentum, under
+    ``TorchState`` with a spill directory, committing every 2 steps; the
+    worker ``os._exit(1)``s after step 5 of its first incarnation, the
+    driver respawns it, and it resumes from the spill at step 4 and runs
+    to step 8.  Beside it the same 8 steps uninterrupted, trained while
+    the respawn starts up (with the ``save_model`` / ``load_model``
+    round trip, mid-cycle at ``backward_passes_per_step=2``).  Both runs are deterministic
+    (``torch.use_deterministic_algorithms``, the stem whose pool backward
+    is deterministic); the final parameters and buffers must be equal bit
+    for bit.  Returns the numbers."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="hvd_elastic_phase_")
+    disc = os.path.join(work, "discover.sh")
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    batch = 4 if rehearsal else 32
+    common = ["--deterministic", "--fast-stem", "--commit-every", "2",
+              "--steps", "8", "--epochs", "1",
+              "--dataset-size", str(8 * batch)]
+    common += ["--device", "cpu", "--small"] if rehearsal else \
+        ["--image-size", "224", "--batch-size", str(batch)]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env.pop("HVD_TPU_ELASTIC_SPILL_DIR", None)
+    ev1, ev2 = os.path.join(work, "elastic.jsonl"), \
+        os.path.join(work, "reference.jsonl")
+    example = [sys.executable, "-m",
+               "horovod_tpu_torch.examples.elastic_resnet"]
+    spill = os.path.join(work, "spill")
+    t0 = time.monotonic()
+    # The uninterrupted run starts up beside the elastic one, which
+    # trains once the reference has built its model (the ready file), so
+    # the steps read as "before" have the card to themselves.  The
+    # reference trains once the elastic worker has died (its marker in
+    # the spill directory), while the respawn starts up: the two never
+    # step at once, and the phase pays for one process start fewer.
+    ready = os.path.join(work, "reference.ready")
+    ref = subprocess.Popen(
+        example + common + [
+            "--events", ev2, "--roundtrip", os.path.join(work, "rt"),
+            "--ready-file", ready,
+            "--start-after", os.path.join(spill, "died"),
+            "--save-params", os.path.join(work, "reference.pt")],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def release_if_reference_died():
+        # A reference that dies before it is ready must not leave the
+        # elastic worker waiting: the phase then fails on its exit code.
+        while not os.path.exists(ready) and ref.poll() is None:
+            time.sleep(0.2)
+        if not os.path.exists(ready):
+            open(ready, "w").close()
+    threading.Thread(target=release_if_reference_died, daemon=True).start()
+    try:
+        # The port's launcher, in this process (it would import torch
+        # again as a process of its own): its elastic driver spawns and
+        # respawns the worker.
+        run1 = launch_in_process(
+            ["--min-np", "1", "--max-np", "1", "--host-discovery-script",
+             disc] + example + common + [
+                "--events", ev1, "--spill-dir", spill, "--die-after", "5",
+                "--start-after", ready,
+                "--save-params", os.path.join(work, "elastic.pt")],
+            {k: env[k] for k in ("PYTHONPATH", "CUBLAS_WORKSPACE_CONFIG")})
+        t1 = time.monotonic()
+        out, err = ref.communicate(timeout=300)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+    t2 = time.monotonic()
+    run2 = subprocess.CompletedProcess(ref.args, ref.returncode, out, err)
+    for name, run in (("elastic", run1), ("reference", run2)):
+        if run.returncode != 0:
+            print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+            raise SystemExit(f"phase 12: the {name} run failed "
+                             f"(rc {run.returncode})")
+    a = torch.load(os.path.join(work, "elastic.pt"))
+    b = torch.load(os.path.join(work, "reference.pt"))
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    worst = max((float((a[k].float() - b[k].float()).abs().max())
+                 for k in differ), default=0.0)
+    from horovod_tpu_torch.examples.elastic_resnet import (read_events,
+                                                           step_rate)
+    e1, e2 = read_events(ev1), read_events(ev2)
+    kill = [e for e in e1 if e["event"] == "kill"]
+    resumed = [e for e in e1 if e["event"] == "resumed"]
+    steps = [e for e in e1 if e["event"] == "step"]
+    first_inc = [e for e in steps if e["world_version"] == 1]
+    second = [e for e in steps if e["world_version"] > 1]
+    commits = [e for e in e1 if e["event"] == "commit"]
+    roundtrip = [e for e in e2 if e["event"] == "roundtrip"]
+    ref_built = [e["wall"] for e in e2 if e["event"] == "built"]
+    nondet = sorted({e["warning"] for e in e1 + e2
+                     if e["event"] == "nondeterministic"})
+    ok = (not differ and len(kill) == 1 and resumed
+          and resumed[0]["step"] == 4 and second
+          and second[0]["step"] == 5 and second[-1]["step"] == 8
+          and roundtrip and roundtrip[0]["equal"])
+    numbers = {
+        "kill_to_first_step_s": second[0]["wall"] - kill[0]["wall"]
+        if kill and second else None,
+        "steps_redone": kill[0]["step"] - resumed[0]["step"]
+        if kill and resumed else None,
+        "commit_ms_with_spill": [round(c["commit_ms"], 3) for c in commits],
+        "commit_ms_without_spill": [round(c["save_ms"], 3)
+                                    for c in commits],
+        "restore_ms": resumed[0]["restore_ms"] if resumed else None,
+        # Each step's own time, the first of each incarnation left out.
+        "images_per_s_before": step_rate(first_inc[1:], batch),
+        "images_per_s_after": step_rate(second[1:], batch),
+        # Whether the reference ran beside either side of the comparison:
+        # built before the first incarnation's first step, and done
+        # (its last event) before the respawn's first step ended.
+        "reference_built_before_steps": bool(
+            ref_built and first_inc and ref_built[0] < first_inc[0]["wall"]),
+        "reference_done_before_respawn_steps": bool(
+            e2 and second and max(e["wall"] for e in e2)
+            < second[0]["wall"]),
+        "params_equal_bitwise": not differ,
+        "params_differing": len(differ), "max_abs_diff": worst,
+        "roundtrip_equal_bitwise": bool(roundtrip and roundtrip[0]["equal"]),
+        "nondeterministic_ops": nondet,
+        "elastic_run_s": t1 - t0, "both_runs_s": t2 - t0,
+        "startup_s": _startup(e1), "reference_startup_s": _startup(e2),
+    }
+    log(f"  elastic run {t1 - t0:.1f} s, both runs {t2 - t0:.1f} s; "
+        f"kill to first step {numbers['kill_to_first_step_s']}; params "
+        f"equal {not differ} ({len(differ)} differ, max {worst:.3e}); "
+        f"round trip {numbers['roundtrip_equal_bitwise']}")
+    if not ok:
+        raise SystemExit(f"phase 12 failed: {json.dumps(numbers)}")
+    return numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -3057,6 +3253,12 @@ def main(argv=None) -> int:
                                                      rehearsal)
     log(f"  phase 11 took {time.monotonic() - t11:.1f} s")
 
+    log("phase 12: elastic kill-and-rejoin in a world of one (ResNet-50, "
+        "TorchState, the port's launcher and driver)")
+    t12 = time.monotonic()
+    elastic = elastic_phase(torch, device, rehearsal)
+    log(f"  phase 12 took {time.monotonic() - t12:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -3066,6 +3268,7 @@ def main(argv=None) -> int:
     print(json.dumps({"adasum": dict(adasum_numbers, card=card_tag())}))
     print(json.dumps({"eager": dict(eager_numbers, card=card_tag())}))
     print(json.dumps({"moe": dict(moe_numbers, card=card_tag())}))
+    print(json.dumps({"elastic": dict(elastic, card=card_tag())}))
     kernels = []
     for name, source, launches, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",

@@ -54,6 +54,15 @@ Ported so far:
   ``hvd.shard_step``; the multi-card drive is
   ``python -m horovod_tpu_torch.examples.model_parallel_bench``.
 
+* elastic training and checkpoints: ``hvd.elastic.run`` with
+  ``TorchState`` (commit, restore, sync, a disk spill that outlives the
+  process), ``ElasticSampler``, the launcher and its elastic driver
+  (``python -m horovod_tpu_torch.runner.launch``), ``hvd.checkpoint``
+  (rank 0 writes with ``torch.save``, the others get a broadcast), the
+  data loaders and data service (``hvd.data``) and the autotuner of the
+  fusion threshold (``HOROVOD_AUTOTUNE``); BASELINE's elastic ResNet-50
+  is ``python -m horovod_tpu_torch.examples.elastic_resnet``.
+
 Not exported yet (ROADMAP A9): ``analysis_reports``.
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
@@ -115,4 +124,7 @@ from .exceptions import (  # noqa: F401
 
 from . import callbacks  # noqa: F401
 from . import parallel  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import elastic  # noqa: F401
+from . import data  # noqa: F401
 from .parallel import shard_step  # noqa: F401  (the hvd.shard_step idiom)

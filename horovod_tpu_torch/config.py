@@ -6,8 +6,10 @@ path and the eager engine read (``:99-150``): the fusion threshold
 ``operations.cc:519``), the name of the world's mesh axis
 (``HVD_TPU_MESH_AXIS``, ``"hvd"``), the log level, the response cache's capacity,
 the timeline, the stall inspector, the negotiation timeout
-(``HOROVOD_GLOO_TIMEOUT_SECONDS``), and the names of the rank, size and
-rendezvous variables a launcher (``horovodrun``) exports.  The knob names
+(``HOROVOD_GLOO_TIMEOUT_SECONDS``), the autotuner
+(``HOROVOD_AUTOTUNE*``), and the names of the rank, size and
+rendezvous variables a launcher (``runner/launch.py``) exports, with
+the flags' knobs the launcher writes.  The knob names
 and defaults are the reference's, so job scripts keep working.  The
 hierarchical switches are not read: the public ``allreduce`` stays flat,
 as in the JAX package, and the two-level form is the explicit
@@ -29,6 +31,14 @@ HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
 HOROVOD_GLOO_TIMEOUT_SECONDS = "HOROVOD_GLOO_TIMEOUT_SECONDS"
+HOROVOD_LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
+# The autotuner (autotune.py), as the JAX package reads it.
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+HOROVOD_AUTOTUNE_SEARCH = "HOROVOD_AUTOTUNE_SEARCH"      # sweep | bayes
+HOROVOD_AUTOTUNE_BAYES_ROUNDS = "HOROVOD_AUTOTUNE_BAYES_ROUNDS"
+# Elastic runs (elastic/): how long a reset waits for its new world.
+HOROVOD_ELASTIC_TIMEOUT = "HOROVOD_ELASTIC_TIMEOUT"
 # Rendezvous / rank env injected by the launcher (runner/gloo_run.py:66-78,
 # common/gloo/gloo_context.h:28-42 in the reference).
 HOROVOD_RANK = "HOROVOD_RANK"
@@ -37,6 +47,7 @@ HOROVOD_LOCAL_RANK = "HOROVOD_LOCAL_RANK"
 HOROVOD_LOCAL_SIZE = "HOROVOD_LOCAL_SIZE"
 HOROVOD_CROSS_RANK = "HOROVOD_CROSS_RANK"
 HOROVOD_CROSS_SIZE = "HOROVOD_CROSS_SIZE"
+HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
 HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
 HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
 # host:port of the process-group store; defaults to the rendezvous
@@ -90,6 +101,10 @@ class Config:
     # How long negotiation and join wait for the other ranks.
     gloo_timeout_seconds: float = 300.0
     mesh_axis: str = "hvd"
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_search: str = "sweep"
+    autotune_bayes_rounds: int = 12
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -108,4 +123,9 @@ class Config:
             gloo_timeout_seconds=env_float(HOROVOD_GLOO_TIMEOUT_SECONDS,
                                            300.0),
             mesh_axis=os.environ.get(HVD_TPU_MESH_AXIS, "hvd"),
+            autotune=env_bool(HOROVOD_AUTOTUNE),
+            autotune_log=os.environ.get(HOROVOD_AUTOTUNE_LOG),
+            autotune_search=os.environ.get(HOROVOD_AUTOTUNE_SEARCH, "sweep"),
+            autotune_bayes_rounds=env_int(HOROVOD_AUTOTUNE_BAYES_ROUNDS,
+                                          12),
         )

@@ -18,11 +18,21 @@ address at its port + 1.  The eager engine negotiates over the same
 store (``ops/negotiation.py``).  A world of one still gets a one-member
 group over an in-memory ``HashStore``, so a single card's training step
 goes through NCCL like a many-card one.  ``HOROVOD_TIMELINE`` starts the
-timeline on rank 0 at ``init`` (``core.py:271-277``).
+timeline on rank 0 at ``init`` (``core.py:271-277``).  ``init`` makes the
+autotuner (``autotune.py``, ``HOROVOD_AUTOTUNE``), as JAX's does
+(``core.py:197-270``), over the world's store.
+
+In an elastic run (``HOROVOD_ELASTIC=1``, ``elastic/``) ``init`` first
+meets every member of its world generation at the rendezvous's init
+barrier, then serves the generation's store; each collective is bounded
+by ``elastic.COLLECTIVE_TIMEOUT_S`` (30 s), the negotiator
+watches the rendezvous world version, and an NCCL world gets a wedge
+watch; ``shutdown`` aborts an elastic NCCL world's communicators.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import threading
@@ -30,6 +40,12 @@ from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+# Imported before any group exists: its functions take ``group.WORLD`` as
+# a default argument, bound at import, and an import while a world is up
+# (``torch._dynamo`` imports it, and a ``torch.optim`` optimizer imports
+# that) would keep that world's group alive after ``shutdown``, its gloo
+# pairs open, for the life of the process.
+import torch.distributed.nn.functional  # noqa: F401
 
 from . import config as _config
 from . import topology as _topology
@@ -62,9 +78,75 @@ class _GlobalState:
         # resolves an axis name in them.
         self.world_mesh = None
         self.meshes: list = []
+        # The autotuner (autotune.ParameterManager), made by every init.
+        self.param_manager = None
+        # Elastic runs: the rendezvous world version watch (the
+        # negotiator's liveness hook) and the NCCL wedge watch.
+        self.world_watch = None
+        self.wedge_watch = None
+        # The device the last init ran on, kept across shutdown: an
+        # elastic reset re-initializes there.
+        self.last_device: Optional[torch.device] = None
+        # Bumped by every init and every shutdown.
+        self.generation = 0
 
 
 _state = _GlobalState()
+
+
+def _elastic() -> bool:
+    return os.environ.get("HOROVOD_ELASTIC") == "1"
+
+
+def _param_manager(cfg: _config.Config, topo: _topology.Topology, store):
+    """The autotuner, wired as the JAX package wires it
+    (``horovod_tpu/core.py:197-270``) with the world's store as the
+    transport: rank 0's converged threshold and each bayes round's
+    candidate are published under the negotiation generation, and the
+    other ranks adopt them, so fusion buckets match on every rank."""
+    import json
+    from .autotune import ParameterManager
+    from .exceptions import HorovodInternalError
+    prefix = f"hvd/autotune/{os.environ.get('HVD_TPU_NEGOTIATION_GEN', '0')}/"
+
+    def fetch(key: str, seconds: float):
+        try:
+            store.wait([key], datetime.timedelta(seconds=seconds))
+        except RuntimeError:
+            return None
+        return json.loads(store.get(key))
+
+    def synced_decision(local_choice: int) -> int:
+        if topo.size <= 1:
+            return local_choice
+        if topo.rank == 0:
+            store.set(prefix + "threshold",
+                      json.dumps({"threshold": local_choice}))
+            return local_choice
+        got = fetch(prefix + "threshold", 60.0)
+        return local_choice if got is None else int(got["threshold"])
+
+    search = cfg.autotune_search
+    candidate_pub = candidate_fetch = None
+    if cfg.autotune and search == "bayes" and topo.size > 1:
+        if topo.rank == 0:
+            def candidate_pub(round_, value):
+                store.set(prefix + f"cand/{round_}", json.dumps(value))
+        else:
+            def candidate_fetch(round_):
+                got = fetch(prefix + f"cand/{round_}", 120.0)
+                if got is None:
+                    raise HorovodInternalError(
+                        f"timed out fetching autotune candidate for "
+                        f"round {round_} from rank 0")
+                return float(got)
+    return ParameterManager(
+        enabled=cfg.autotune,
+        initial_threshold=cfg.fusion_threshold_bytes,
+        log_path=cfg.autotune_log if topo.rank == 0 else None,
+        decide_fn=synced_decision, search=search,
+        bayes_rounds=cfg.autotune_bayes_rounds,
+        candidate_pub=candidate_pub, candidate_fetch=candidate_fetch)
 
 
 def _store_address() -> str:
@@ -97,6 +179,14 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
             return
         dev = resolve_device(device)
         cfg = _config.Config.from_env()
+        elastic = _elastic()
+        if elastic:
+            # Meet every peer incarnation of this world generation before
+            # forming its store (elastic._await_world_at_init_barrier);
+            # the barrier may adopt a newer world, so the topology is read
+            # after it.
+            from .elastic import _await_world_at_init_barrier
+            _await_world_at_init_barrier()
         topo = _topology.detect()
         if comm is not None and list(comm) != list(range(topo.size)):
             raise ValueError(
@@ -120,8 +210,17 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
                         seconds=max(cfg.gloo_timeout_seconds, 300.0)))
             else:
                 store = dist.HashStore()
+            # An elastic world bounds each collective, so a survivor
+            # whose peers left a collective for a reset leaves it too
+            # (elastic/__init__.py).
+            extra = {}
+            if elastic:
+                from .elastic import COLLECTIVE_TIMEOUT_S
+                extra["timeout"] = datetime.timedelta(
+                    seconds=COLLECTIVE_TIMEOUT_S)
             dist.init_process_group(backend, store=store,
-                                    world_size=topo.size, rank=topo.rank)
+                                    world_size=topo.size, rank=topo.rank,
+                                    **extra)
         elif (dist.get_world_size(), dist.get_rank()) != (topo.size,
                                                           topo.rank):
             raise ValueError(
@@ -136,7 +235,12 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
         _state.store_address = address
         _state.process_set_table = _ps.ProcessSetTable(topo.num_slots)
         _state.handles = HandleManager()
+        _state.last_device = dev
+        if elastic and topo.size > 1:
+            from .elastic import WorldWatch
+            _state.world_watch = WorldWatch()
         _state.engine = EagerEngine(topo)
+        _state.param_manager = _param_manager(cfg, topo, _state.store)
         if cfg.timeline_path and topo.rank == 0:
             # Rank 0 writes the trace, like the reference's coordinator.
             from .timeline import Timeline
@@ -144,6 +248,10 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
                                        mark_cycles=cfg.timeline_mark_cycles,
                                        rank=topo.rank)
         _state.initialized = True
+        _state.generation += 1
+        if elastic and topo.size > 1 and _state.backend == "nccl":
+            from .elastic import _WedgeWatch
+            _state.wedge_watch = _WedgeWatch(lambda: _state.generation)
         for ps in process_sets or ():
             _state.process_set_table.register(ps)
         get_logger().info(
@@ -164,17 +272,54 @@ def shutdown() -> None:
         if _state.timeline is not None:
             _state.timeline.close()
             _state.timeline = None
+        if _state.wedge_watch is not None:
+            _state.wedge_watch.stop()
+        if _state.param_manager is not None:
+            _state.param_manager.close()
         _state.engine.close()
         if dist.is_initialized():
-            _state.process_set_table.destroy()
-            if _state.owns_group:
-                dist.destroy_process_group()
+            if _elastic() and _state.owns_group and \
+                    _state.backend == "nccl":
+                # An elastic world may be broken (a dead peer): abort its
+                # communicators, which a graceful destroy could wait on.
+                _abort_world()
+            else:
+                _state.process_set_table.destroy()
+                if _state.owns_group:
+                    dist.destroy_process_group()
+        _state.generation += 1
+        _state.wedge_watch = _state.world_watch = None
+        _state.param_manager = None
         _state.initialized = False
         _state.topology = _state.device = _state.backend = None
         _state.process_set_table = _state.handles = None
         _state.engine = _state.store = _state.store_address = None
         _state.world_mesh = None
         _state.meshes = []
+
+
+# A process that leaves without shutdown() must still take its world
+# down in order (JAX's core.py:304): torch's store and process group
+# threads otherwise abort the interpreter at exit (SIGABRT, "terminate
+# called without an active exception"), which a launcher counts as a
+# failed rank.
+atexit.register(shutdown)
+
+
+def _abort_world() -> None:
+    """Abort every process group (NCCL's ``ncclCommAbort``), falling back
+    to a destroy where this torch has no abort."""
+    abort = getattr(dist.distributed_c10d, "_abort_process_group", None)
+    try:
+        if abort is None:
+            raise RuntimeError("no _abort_process_group")
+        abort()
+        _state.process_set_table.destroy(groups=False)
+    except Exception as e:
+        get_logger().warning("aborting the process groups failed (%s); "
+                             "destroying them", e)
+        _state.process_set_table.destroy()
+        dist.destroy_process_group()
 
 
 def _require_init() -> _GlobalState:

@@ -91,6 +91,21 @@ class HandleManager:
         return result
 
 
+# What a collective's data plane raises when a peer died or the
+# communicator broke: a DistError (NCCL's backend errors), or gloo's
+# plain RuntimeError ("Connection closed by peer", a reset, a timeout).
+_TRANSPORT_MARKERS = ("connection closed", "connection reset",
+                      "connection refused", "broken pipe", "timed out")
+
+
+def _transport_failure(e: BaseException) -> bool:
+    import torch.distributed as dist
+    if isinstance(e, dist.DistError):
+        return True
+    text = str(e).lower()
+    return any(m in text for m in _TRANSPORT_MARKERS)
+
+
 class EagerEngine:
     """The dispatch pipeline of one process (``core.init`` makes it)."""
 
@@ -150,7 +165,17 @@ class EagerEngine:
                         self._negotiate(kind, label, tensors, op_id,
                                         prescale, postscale, ps_id,
                                         ps_ranks, tl)
-                    return fn()
+                    try:
+                        return fn()
+                    except RuntimeError as e:
+                        if isinstance(e, HorovodInternalError) or \
+                                not _transport_failure(e):
+                            raise
+                        # A dead peer or a broken communicator: the
+                        # elastic retry loop owns it.
+                        raise HorovodInternalError(
+                            f"{kind} {label!r} failed in the "
+                            f"communication backend: {e}") from e
                 finally:
                     if tl is not None:
                         tl.end(label, kind.upper())
@@ -210,9 +235,11 @@ class EagerEngine:
                 return dist.TCPStore(addr[0], addr[1], None, False,
                                      timeout=datetime.timedelta(seconds=60))
 
+            watch = st.world_watch
             self._negotiator = Negotiator(
                 self.topo.rank, self.topo.size, st.config, st.store,
-                flush_store if addr is not None else None)
+                flush_store if addr is not None else None,
+                liveness=watch.check if watch is not None else None)
         return self._negotiator
 
     def close(self) -> None:

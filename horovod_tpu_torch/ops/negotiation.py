@@ -105,7 +105,8 @@ class Negotiator:
     in-process store allows)."""
 
     def __init__(self, rank: int, size: int, cfg, store=None,
-                 flush_store: Optional[Callable[[], object]] = None):
+                 flush_store: Optional[Callable[[], object]] = None,
+                 liveness: Optional[Callable[[], Optional[str]]] = None):
         self.rank = rank
         self.size = size
         self.cfg = cfg
@@ -134,11 +135,14 @@ class Negotiator:
         self._inval_at: Dict[str, set] = {}  # name -> uses to renegotiate
         self._inval_seen = 0        # last global invalidation absorbed
         self._inval_check_ts = 0.0
-        # Negotiation generation, a part of every key.  The JAX package's
-        # elastic resets bump it so a fresh negotiator never consumes its
-        # previous incarnation's records; the port has no elastic layer
-        # yet, so it is fixed.
-        self._gen = "0"
+        # Negotiation generation "w.c", a part of every key
+        # (HVD_TPU_NEGOTIATION_GEN, bumped by elastic resets; each
+        # generation also gets a store of its own).
+        self._gen = os.environ.get("HVD_TPU_NEGOTIATION_GEN", "0")
+        # Elastic runs: a callable giving a reason to abandon a wait (the
+        # world moved on: a peer died), checked once a wait has lasted a
+        # poll, so a dead peer costs a survivor seconds, not the timeout.
+        self._liveness = liveness
         self.join_round = 0
         self._joined: Dict[int, Dict[int, dict]] = {}  # round -> k -> marker
         # Replayable dispatch stream (the join protocol's backbone): every
@@ -501,11 +505,16 @@ class Negotiator:
                        json.dumps(sig))
         resp = self._resp_key(name, epoch)
         deadline = time.time() + self._timeout
+        chunk = _POLL_S if self._liveness is not None else 5.0
         while not self._wait(self.store, [resp],
-                             min(deadline - time.time(), 5.0)):
+                             min(deadline - time.time(), chunk)):
             if time.time() >= deadline:
                 raise HorovodInternalError(
                     f"timed out waiting for negotiation verdict on {name!r}")
+            why = self._liveness() if self._liveness is not None else None
+            if why:
+                raise HorovodInternalError(
+                    f"negotiation of {name!r} abandoned: {why}")
         return json.loads(self.store.get(resp)).get("error", "")
 
     def _coordinate(self, name: str, epoch: int, my_sig: dict,
@@ -519,7 +528,8 @@ class Negotiator:
         the stream); only a broadcast whose root has joined is refused
         (a joined root has no data, and zeros would be silently wrong)."""
         tbl_key = f"{name}#{epoch}"
-        deadline = time.time() + self._timeout
+        started = time.time()
+        deadline = started + self._timeout
         arrived = set()
         sigs = {0: my_sig}
         keys = {r: self._req_key(name, epoch, r) for r in range(1, self.size)}
@@ -584,6 +594,14 @@ class Negotiator:
                     return self._publish(
                         name, epoch,
                         f"negotiation timed out; arrived={sorted(arrived)}")
+                if len(arrived) < self.size and \
+                        self._liveness is not None and \
+                        now - started >= _POLL_S:
+                    why = self._liveness()
+                    if why:
+                        return self._publish(
+                            name, epoch,
+                            f"{why}; arrived={sorted(arrived)}")
             verdict = self._membership_verdict(name, sigs)
             if verdict is not None:
                 return self._publish(name, epoch, verdict)

@@ -17,7 +17,8 @@ per-parameter hooks.
 Gradients reduce as ``_allreduce_tree`` reduces them (``:231-290``):
 Average and Sum under an elementwise compressor (``Compression.none``,
 ``fp16``, ``bf16``) are bucketed by the fusion planner up to
-``HOROVOD_FUSION_THRESHOLD``, one flat buffer and one collective per
+``HOROVOD_FUSION_THRESHOLD`` (or the threshold the autotuner explores,
+``autotune.py``, which scores each window), one flat buffer and one collective per
 bucket (``_fused_allreduce``); Adasum, and any other ``Compressor``,
 reduce tensor by tensor, so each tensor gets its own Adasum coefficients
 or its own compression (a per-tensor quantizer's scale, say).
@@ -40,8 +41,12 @@ none of the axes reduce as before, Average over the set spanning them.
 (Average, Sum, Adasum), ``compression`` and
 ``gradient_predivide_factor`` (``:320-330``, Average only: prescale
 1/f, postscale f).  ``named_parameters`` is accepted and
-ignored, as in JAX.  ``zero_grad``, ``param_groups``, ``state`` and
-``state_dict`` pass through to the wrapped optimizer.
+ignored, as in JAX.  ``zero_grad``, ``param_groups`` and ``state`` pass
+through to the wrapped optimizer.  ``state_dict`` is the wrapped
+optimizer's, with the local-aggregation accumulators (``hvd_acc``, None
+before the first pass) and the passes of the open cycle
+(``hvd_passes``) beside it, so ``load_state_dict`` resumes a cycle
+mid-flight, as JAX's optax state carries its counter.
 
 Also here: ``PartialDistributedOptimizer`` (``:496``), which keeps the
 gradients ``local_filter`` picks local; ``adasum_delta_step`` (``:549``),
@@ -53,6 +58,7 @@ optax's form of the optimizer and has no torch counterpart.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -93,13 +99,26 @@ def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
                     [grads[i] for i in g], **kw)):
                 out[i] = r
         return out
-    threshold = _core._require_init().config.fusion_threshold_bytes
+    st = _core._require_init()
+    pm = st.param_manager
+    threshold = pm.fusion_threshold_bytes if pm is not None else \
+        st.config.fusion_threshold_bytes
     entries = [(str(i), str(g.dtype), g.numel() * g.element_size(),
                 int(op), 0) for i, g in enumerate(grads)]
+    t0 = time.perf_counter()
     for bucket in plan_fusion(entries, threshold):
         for i, r in zip(bucket, _ops._fused_allreduce(
                 [grads[i] for i in bucket], **kw)):
             out[i] = r
+    if pm is not None and pm.enabled and not pm.converged and \
+            len(grads) > 1:
+        # Autotune scores this window (JAX's optimizer.py:286-289): the
+        # reductions are asynchronous on a card, so wait for them where
+        # JAX blocks on its arrays.
+        if grads[0].is_cuda:
+            torch.cuda.synchronize(grads[0].device)
+        pm.record_sample(sum(e[2] for e in entries),
+                         time.perf_counter() - t0)
     return out
 
 
@@ -213,8 +232,31 @@ class DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
-    def state_dict(self):
-        return self.optimizer.state_dict()
+    def state_dict(self) -> dict:
+        """The wrapped optimizer's ``state_dict`` with ``hvd_acc`` and
+        ``hvd_passes`` beside it.  Like torch's, it holds references to
+        the live tensors: copy it to keep it."""
+        return dict(self.optimizer.state_dict(), hvd_acc=self._acc,
+                    hvd_passes=self._passes)
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore what :meth:`state_dict` gave, the aggregation cycle
+        included (a dict without the ``hvd_`` keys starts a fresh
+        cycle)."""
+        inner = {k: v for k, v in state_dict.items()
+                 if k not in ("hvd_acc", "hvd_passes")}
+        self.optimizer.load_state_dict(inner)
+        acc = state_dict.get("hvd_acc")
+        if acc is None:
+            self._acc = None
+        else:
+            if len(acc) != len(self._params):
+                raise ValueError(f"hvd_acc holds {len(acc)} tensors for "
+                                 f"{len(self._params)} parameters")
+            self._acc = [torch.zeros_like(p, dtype=torch.float32).copy_(a)
+                         for p, a in zip(self._params, acc)]
+        self._passes = int(state_dict.get("hvd_passes", 0))
 
     # -- the step ----------------------------------------------------------
 

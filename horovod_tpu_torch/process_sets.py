@@ -193,15 +193,18 @@ class ProcessSetTable:
             f"hvd.add_process_set({ps.ranks}) (or init(process_sets=...)) "
             f"before a collective uses it")
 
-    def destroy(self) -> None:
+    def destroy(self, groups: bool = True) -> None:
         """Destroy every subset's group and forget every set but the
-        global one (``shutdown``)."""
+        global one (``shutdown``); ``groups=False`` only forgets, for
+        groups already aborted."""
         with self._lock:
             for pid in list(self.table):
                 if pid:
                     self.table.pop(pid).process_set_id = None
-                    _destroy(self._groups.pop(pid))
-            for group in self._hier_groups:
+                    group = self._groups.pop(pid)
+                    if groups:
+                        _destroy(group)
+            for group in self._hier_groups if groups else ():
                 _destroy(group)
             self._hier.clear()
             self._hier_groups.clear()

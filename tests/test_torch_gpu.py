@@ -1547,3 +1547,64 @@ def test_pipeline_tensor_and_dryrun_steps_in_a_world_of_one(nccl_world,
     for step in (entry.dryrun_moe_step, entry.dryrun_pp_step,
                  entry.dryrun_tp_step):
         assert np.isfinite(step()[0])
+
+
+ELASTIC_NCCL_WORKER = '''
+import gc, weakref
+import torch
+import torch.distributed as dist
+import horovod_tpu_torch as hvd
+
+hvd.init()
+first = weakref.ref(dist.group.WORLD)
+model = torch.nn.Linear(8, 8, device=hvd.device())
+opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1))
+state = hvd.elastic.TorchState(model, opt, batch=0)
+raised = []
+
+
+@hvd.elastic.run
+def train(state):
+    while state.batch < 6:
+        opt.zero_grad()
+        model(torch.ones(4, 8, device=hvd.device())).sum().backward()
+        opt.step()
+        state.batch += 1
+        state.commit()
+        if state.batch == 3 and not raised:
+            raised.append(1)
+            raise hvd.HorovodInternalError("simulated fault")
+
+
+train(state)
+gc.collect()
+print(f"RESET DONE batches={state.batch} old_group_freed={first() is None} "
+      f"world={dist.get_backend()}", flush=True)
+'''
+
+
+@pytest.mark.gpu
+def test_elastic_in_place_reset_aborts_and_frees_the_nccl_group(
+        cuda_device, tmp_path):
+    """An in-place reset of an elastic NCCL world through the port's
+    launcher: ``shutdown`` aborts the communicators, the old group is
+    freed, and the new world trains on."""
+    import os
+    import subprocess
+    import sys
+    disc = tmp_path / "discover.sh"
+    disc.write_text("#!/bin/sh\necho localhost:1\n")
+    disc.chmod(0o755)
+    worker = tmp_path / "worker.py"
+    worker.write_text(ELASTIC_NCCL_WORKER)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+         "--min-np", "1", "--max-np", "1", "--host-discovery-script",
+         str(disc), sys.executable, str(worker)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "RESET DONE batches=6 old_group_freed=True world=nccl" in \
+        proc.stdout, proc.stdout[-3000:]

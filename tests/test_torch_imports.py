@@ -67,7 +67,14 @@ def test_importing_every_port_module_loads_no_jax():
                  "examples.join_bench", "parallel.ring",
                  "parallel.ulysses", "examples.seqpar_bench",
                  "parallel.moe", "parallel.tensor", "parallel.pipeline",
-                 "examples.model_parallel_bench"):
+                 "examples.model_parallel_bench", "checkpoint",
+                 "elastic", "elastic.state", "elastic.sampler",
+                 "elastic.driver", "elastic.discovery",
+                 "elastic.registration", "elastic.launch_support",
+                 "runner", "runner.launch", "runner.http_server",
+                 "runner.hosts", "runner.safe_shell_exec", "data",
+                 "data.data_loader_base", "data.service", "autotune",
+                 "optim", "examples.elastic_resnet"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -123,7 +130,9 @@ def test_no_port_file_imports_jax(path):
 
 @pytest.mark.parametrize("name", ["serve/blocks.py", "serve/batcher.py",
                                   "serve/tenancy.py", "exceptions.py",
-                                  "version.py", "timeline.py"])
+                                  "version.py", "timeline.py", "optim.py",
+                                  "autotune.py", "runner/hosts.py",
+                                  "runner/safe_shell_exec.py"])
 def test_copied_modules_match_their_source(name):
     """The pure-Python modules the port copies keep the source's code:
     only the module docstring (which names the source) differs."""
@@ -142,6 +151,113 @@ def test_copied_modules_match_their_source(name):
     _, src = body(os.path.join(REPO, "horovod_tpu", name))
     assert f"horovod_tpu/{name}" in doc
     assert port == src
+
+
+_LOGGER_IMPORT = {"removed": {"from ..utils import get_logger"},
+                  "added": {"from ..utils.logging import get_logger"}}
+
+# The copies that differ from their source on purpose, each difference
+# named by symbol (``Class.method`` for a method, the source text for an
+# import): what the source has and the copy does not ("removed"), what
+# both have but not alike ("changed"), what only the copy has ("added").
+# Docstrings are not compared.  Every copy imports its logger from
+# ``utils.logging``: the port's ``utils`` package re-exports nothing.
+COPY_EDITS = {
+    "elastic/discovery.py": dict(_LOGGER_IMPORT),
+    "elastic/registration.py": {},
+    "elastic/launch_support.py": {},
+    "elastic/sampler.py": {},
+    "elastic/driver.py": dict(
+        _LOGGER_IMPORT,
+        # No preemption-aware discovery and no decommission grace: the
+        # preemption sentinel waits for the fault-injection layer.
+        changed={"ElasticDriver.__init__",
+                 "ElasticDriver._terminate_workers_on_lost_hosts",
+                 # Stops the driver and the rendezvous in ``finally``.
+                 "launch_elastic"}),
+    "runner/http_server.py": dict(
+        _LOGGER_IMPORT,
+        # The Python server is the one backend (no C++ ``kv_server``).
+        changed={"KVStoreServer.__init__", "KVStoreServer.start",
+                 "KVStoreServer.port", "KVStoreServer.put",
+                 "KVStoreServer.get", "KVStoreServer.scan_scope",
+                 "KVStoreServer.stop",
+                 # No fault-injection or request-tracing hooks.
+                 "KVStoreClient.__init__", "KVStoreClient._request"}),
+    "runner/launch.py": dict(
+        # No LSF / jsrun and no NIC probing (``--network-interface``
+        # names the address); no flags of knobs the port does not read;
+        # ``--check-build`` reports PyTorch, NCCL and gloo; the store's
+        # base port lies below the ephemeral range.
+        removed={"_jsrun_spawn"},
+        changed={"check_build", "parse_args", "_apply_config_file",
+                 "env_from_args", "_run_static",
+                 "pick_coordinator_base_port"},
+        added={"_addr_for_interfaces", "_ephemeral_port_range"}),
+    "data/service.py": dict(
+        # Batches are pickled with their tensors on the host.
+        removed=_LOGGER_IMPORT["removed"],
+        changed={"DataServiceWorker.start"},
+        added=_LOGGER_IMPORT["added"] | {"_to_host"}),
+    "data/data_loader_base.py": dict(
+        # ``device_prefetch`` copies to the rank's device.
+        changed={"ShardedDataLoader.__init__", "ShardedDataLoader._iterate"},
+        added={"import torch", "_tree_to"}),
+}
+
+
+def _symbols(path):
+    """Each top-level statement and each class member of ``path``, by
+    name, as its AST without docstrings."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+
+    def name(node):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            return node.name
+        if isinstance(node, ast.Assign):
+            return ", ".join(ast.unparse(t) for t in node.targets)
+        if isinstance(node, ast.AnnAssign):
+            return ast.unparse(node.target)
+        return ast.unparse(node)
+
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            members, node.body = node.body, []
+            out[node.name] = ast.dump(node)
+            for m in members:
+                out[f"{node.name}.{name(m)}"] = ast.dump(m)
+        else:
+            out[name(node)] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(COPY_EDITS))
+def test_copies_differ_from_their_source_only_where_stated(name):
+    """A copy drifts from its source only in the symbols ``COPY_EDITS``
+    names, and each symbol named there does differ."""
+    port = _symbols(os.path.join(PORT, name))
+    src = _symbols(os.path.join(REPO, "horovod_tpu", name))
+    found = {
+        "removed": {k for k in src if k not in port},
+        "changed": {k for k in src if k in port and port[k] != src[k]},
+        "added": {k for k in port if k not in src},
+    }
+    stated = {k: set(COPY_EDITS[name].get(k, ())) for k in found}
+    assert found == stated
+    with open(os.path.join(PORT, name)) as f:
+        doc = ast.get_docstring(ast.parse(f.read())) or ""
+    assert f"horovod_tpu/{name}" in doc
 
 
 def test_native_core_builds_from_the_port_alone():
