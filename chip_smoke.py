@@ -155,18 +155,38 @@ Phases, each of which exits non-zero on failure:
    uninterrupted deterministic 8-step run's bit for bit, and a
    ``save_model`` / ``load_model`` round trip saved mid-cycle at
    ``backward_passes_per_step=2`` must give the same bits;
-13. print the card's name and power limit, one JSON line of phase 7's
+13. the serving request surface on gpt2-small f32 at full width, random
+   weights from the seed: ``checkpoint.save_model`` of the model, served
+   by the CLI's factory with ``--checkpoint`` (``prompt_logits`` equal
+   to the in-memory model's bit for bit); the first request's TTFT of a
+   fresh engine started cold and of one started warm; then two replicas
+   on the card (no process sets, warmup on, a ``ModelRegistry``) behind
+   the HTTP server: greedy and sampled requests with ``logprobs: 5``
+   (each logprob against log_softmax of the plain route's logits,
+   1e-4; greedy tokens equal without logprobs), ``/score`` over 1024
+   tokens against the plain route (2e-4 / 2e-5), a stream against the
+   buffered answer (same tokens, no duplicate; the first SSE token's
+   time beside the buffered TTFT), ``schema`` decoding on a model of
+   GPT-2 small's widths with vocab 256 (every greedy and sampled
+   document conforms) and on gpt2-small (the JAX server's 400 streamed,
+   500 buffered), a rank-8 delta on every block's query projection
+   resident beside the default model and rolled to version 1 across
+   both replicas under 16 mixed requests in flight (none fails, swap
+   progress done == total, the answers after it equal the new weights
+   served cold); a B = 8 decode step fused against host mode;
+14. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
    commit with and without the spill and of a restore, images/s before
-   and after), one JSON line
-   describing every ported kernel (a bf16 flash kernel has one entry for
-   phase 5's BERT-large path, one, ``*_gpt2_medium``, for phase 8's and
-   one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop`` and
-   ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each with
-   that path's launches, counted from 0, and the error and times at its
-   shape), and as the last line ``{"ok": true, "device": ...}``.
+   and after), one of phase 13's (``{"serve_surface": ...}``), one JSON
+   line describing every ported kernel (a bf16 flash kernel has one
+   entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
+   phase 8's and one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop``
+   and ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each
+   with that path's launches, counted from 0, and the error and times at
+   its shape; the paged kernels' launches sum phases 4 and 13), and as
+   the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.  ``--device cpu`` rehearses the same phases at a tiny
@@ -3168,6 +3188,525 @@ def elastic_phase(torch, device, rehearsal):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the serving request surface
+# ---------------------------------------------------------------------------
+
+# The schema phase 13 decodes under: a document that always completes (a
+# boolean and an enum), so every greedy and sampled answer must parse.
+SURFACE_SCHEMA = {"type": "object",
+                  "properties": {"ok": {"type": "boolean"},
+                                 "tag": {"enum": ["red", "green", "blue"]}},
+                  "required": ["ok", "tag"], "additionalProperties": False}
+
+
+def sse_post(port, body):
+    """POST /generate as a stream; returns (events, seconds to the first
+    token event, total seconds), both on the client's clock."""
+    import http.client
+    from horovod_tpu_torch.serve.streaming import parse_sse
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.monotonic()
+    try:
+        conn.request("POST", "/generate", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise SystemExit(f"stream answered {resp.status}: "
+                             f"{resp.read()[:300]!r}")
+        raw, events, first = b"", [], None
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            raw += chunk
+            cut = raw.rfind(b"\n\n")
+            events = parse_sse(raw[:cut + 2]) if cut >= 0 else []
+            if first is None and any(e[0] == "token" for e in events):
+                first = time.monotonic() - t0
+            if events and events[-1][0] in ("done", "error"):
+                break
+        return events, first, time.monotonic() - t0
+    finally:
+        conn.close()
+
+
+def http_status(port, path, body):
+    """POST ``body``; returns (status, parsed JSON body) on any status."""
+    import urllib.error
+    try:
+        return 200, http_json(port, path, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def surface_checkpoint(torch, device, rehearsal, cfg, model, tmp):
+    """``checkpoint.save_model`` of the serving model, then the CLI's
+    factory with ``--checkpoint``: its adapter's ``prompt_logits`` must
+    equal the in-memory model's bit for bit.  Returns the factory."""
+    import argparse
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, models
+    from horovod_tpu_torch.serve import TransformerAdapter
+    from horovod_tpu_torch.serve import server as srv
+    hvd.init(device="cpu" if rehearsal else None)
+    try:
+        t0 = time.monotonic()
+        checkpoint.save_model(tmp, model)
+        save_s = time.monotonic() - t0
+    finally:
+        hvd.shutdown()   # the replicas serve without a world
+    saved = models.GPT2_SMALL
+    if rehearsal:
+        models.GPT2_SMALL = cfg   # the factory's gpt2-small, cut to size
+    try:
+        t0 = time.monotonic()
+        factory = srv._build_adapter_factory(argparse.Namespace(
+            model="gpt2-small", checkpoint=tmp, device=str(device),
+            seed=0, max_len=cfg.max_len))
+        ad = factory()
+        load_s = time.monotonic() - t0
+    finally:
+        models.GPT2_SMALL = saved
+    prompt = [i % cfg.vocab_size for i in range(1, 1 + min(64,
+                                                          cfg.max_len))]
+    got = ad.prompt_logits(prompt)
+    want = TransformerAdapter(cfg, model, device=device).prompt_logits(prompt)
+    log(f"  checkpoint: save_model {save_s:.2f} s, the CLI factory's load "
+        f"{load_s:.2f} s; prompt_logits "
+        f"{'equal bit for bit' if np.array_equal(got, want) else 'DIFFER'}")
+    if not np.array_equal(got, want):
+        raise SystemExit("--checkpoint serves other weights")
+    return factory, {"save_s": round(save_s, 3), "load_s": round(load_s, 3)}
+
+
+def surface_warmup(torch, factory, prompt, failures):
+    """The first request's TTFT of a fresh engine started cold (warmup
+    off) and of one started warm, in this process; the warm engine must
+    have warmed once (a warmup that failed serves cold and reads 0 ms),
+    the cold one never.  Returns the numbers."""
+    from horovod_tpu_torch.serve import InferenceEngine, Request
+    out = {}
+    for warm in (False, True):
+        eng = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                              warmup=warm, replica_id=f"warmup-{warm}")
+        t0 = time.monotonic()
+        eng.start()
+        start_s = time.monotonic() - t0
+        try:
+            r = Request(prompt, max_new_tokens=4)
+            eng.batcher.submit(r)
+            r.result(timeout=600)
+            ttft = (r.first_token_at - r.submitted_at) * 1e3
+        finally:
+            eng.stop()
+        key = "warm" if warm else "cold"
+        out[key] = {"first_ttft_ms": round(ttft, 3),
+                    "start_ms": round(start_s * 1e3, 3)}
+        runs = (eng.warmup_runs, eng.last_warmup_ms)
+        if (warm and (runs[0] != 1 or runs[1] <= 0)) or \
+                (not warm and runs[0] != 0):
+            failures.append(f"{key} engine: warmup runs {runs[0]}, last "
+                            f"{runs[1]:.3f} ms")
+        if warm:
+            out[key]["warmup_ms"] = round(eng.last_warmup_ms, 3)
+    log(f"  first request's TTFT: cold {out['cold']['first_ttft_ms']:.1f} "
+        f"ms, warm {out['warm']['first_ttft_ms']:.1f} ms (warmup "
+        f"{out['warm']['warmup_ms']:.1f} ms); both engines fresh, in a "
+        f"process whose earlier phases already loaded the kernels")
+    return out
+
+
+def surface_logprobs(torch, port, plain, prompt, max_new, failures):
+    """Greedy and sampled requests with ``logprobs: 5``: each chosen
+    token's logprob against log_softmax of the plain route's logits of
+    that row (``score_logits`` of prompt + answer, 1e-4), and the tokens
+    of each against the same request without logprobs (the host-mode
+    draw is the fused step's, so a seeded answer does not change)."""
+    worst = 0.0
+    for extra in ({}, dict(SAMPLING, seed=7)):
+        body = dict({"tokens": prompt, "max_new_tokens": max_new},
+                    **extra)
+        got = http_json(port, "/generate", dict(body, logprobs=5))
+        toks, entries = got["tokens"], got["logprobs"]
+        rows = plain.score_logits(prompt + toks[:-1]).astype(np.float64)
+        rows = rows[len(prompt) - 1:]
+        lse = rows.max(-1) + np.log(np.exp(
+            rows - rows.max(-1, keepdims=True)).sum(-1))
+        want = rows[np.arange(len(toks)), toks] - lse
+        lps = np.array([e["logprob"] for e in entries])
+        err = float(np.abs(lps - want).max())
+        worst = max(worst, err)
+        if [e["token"] for e in entries] != toks or err > 1e-4 or \
+                any(len(e["top"]) != 5 for e in entries):
+            failures.append(f"logprobs {extra or 'greedy'}: max error "
+                            f"{err:.3g} (limit 1e-4)")
+        if http_json(port, "/generate", body)["tokens"] != toks:
+            failures.append(f"{'sampled' if extra else 'greedy'} tokens "
+                            f"change when logprobs are asked")
+    log(f"  logprobs: greedy and sampled, logprob - log_softmax(plain "
+        f"route) max |err| {worst:.3g} (limit 1e-4)")
+    return worst
+
+
+def surface_score(torch, port, kernel_ad, plain, n, rng, failures):
+    """``/score`` over ``n`` tokens against ``score_logits`` of the plain
+    route (2e-4 / 2e-5); returns the numbers."""
+    toks = rng.randint(0, kernel_ad.vocab_size, (n,)).tolist()
+    t0 = time.monotonic()
+    body = http_json(port, "/score", {"tokens": toks, "top_logprobs": 5})
+    http_ms = (time.monotonic() - t0) * 1e3
+    want = plain.score_logits(toks)
+    t0 = time.monotonic()
+    got = kernel_ad.score_logits(toks)
+    direct_ms = (time.monotonic() - t0) * 1e3
+    err = float(np.abs(got - want).max())
+    w64 = want.astype(np.float64)
+    lse = w64.max(-1) + np.log(np.exp(
+        w64 - w64.max(-1, keepdims=True)).sum(-1))
+    lp_want = w64[np.arange(n - 1), toks[1:]] - lse[:-1]
+    lp_got = np.array([e["logprob"] for e in body["logprobs"][1:]])
+    if body["logprobs"][0] is not None or len(lp_got) != n - 1 or \
+            not np.allclose(got, want, rtol=RTOL, atol=ATOL) or \
+            not np.allclose(lp_got, lp_want, rtol=RTOL, atol=ATOL):
+        failures.append(f"/score over {n} tokens disagrees with the plain "
+                        f"route (logits max |err| {err:.3g})")
+    log(f"  /score over {n} tokens: {http_ms:.1f} ms over HTTP, "
+        f"score_logits {direct_ms:.1f} ms; logits max |err| {err:.3g} "
+        f"against the plain route")
+    return {"tokens": n, "http_ms": round(http_ms, 3),
+            "score_logits_ms": round(direct_ms, 3), "max_abs_err": err}
+
+
+def surface_stream(port, prompt, max_new, failures):
+    """``stream: true`` against the buffered answer of the same request:
+    the same tokens in order, no duplicate; the first SSE token's time
+    beside the buffered TTFT."""
+    body = {"tokens": prompt, "max_new_tokens": max_new}
+    t0 = time.monotonic()
+    buffered = http_json(port, "/generate", body)
+    buffered_s = time.monotonic() - t0
+    events, first_s, total_s = sse_post(port, dict(body, stream=True))
+    toks = [t for e in events if e[0] == "token" for t in e[1]["tokens"]]
+    done = events[-1][1] if events and events[-1][0] == "done" else None
+    if done is None or toks != buffered["tokens"] or \
+            done["stream"]["duplicates"] != 0 or \
+            done["stream"]["published"] != len(toks):
+        failures.append("the stream's tokens differ from the buffered "
+                        "answer's")
+    out = {"first_sse_token_ms": round(first_s * 1e3, 3),
+           "stream_total_ms": round(total_s * 1e3, 3),
+           "stream_server_ttft_ms": done and done["ttft_ms"],
+           "buffered_ttft_ms": buffered["ttft_ms"],
+           "buffered_total_ms": round(buffered_s * 1e3, 3),
+           "token_events": sum(1 for e in events if e[0] == "token")}
+    log(f"  stream: first SSE token {out['first_sse_token_ms']:.1f} ms "
+        f"(client clock; server TTFT {out['stream_server_ttft_ms']} ms), "
+        f"buffered TTFT {out['buffered_ttft_ms']} ms and answer "
+        f"{out['buffered_total_ms']:.1f} ms; {len(toks)} tokens in "
+        f"{out['token_events']} events")
+    return out
+
+
+def surface_schema(torch, device, rehearsal, port, seed, failures):
+    """Grammar-constrained decoding on a model of GPT-2 small's widths
+    and a byte vocabulary (256): every greedy and sampled document
+    parses and ``matches``; a ``schema`` request to gpt2-small (no token
+    strings) gets the JAX server's answers (400 streamed, 500 buffered)."""
+    from horovod_tpu_torch.models import TransformerConfig, create_gpt2
+    from horovod_tpu_torch.models.transformer import Transformer, init_gpt2_
+    from horovod_tpu_torch.serve import (InferenceEngine, Request,
+                                         TransformerAdapter)
+    from horovod_tpu_torch.serve.structured import TokenGrammar
+    if rehearsal:
+        cfg = TransformerConfig(vocab_size=256, num_layers=2, num_heads=2,
+                                d_model=32, d_ff=64, max_len=128,
+                                dtype=torch.float32)
+        model = init_gpt2_(Transformer(cfg, device=device),
+                           torch.Generator(device=device).manual_seed(seed))
+    else:
+        model = create_gpt2("small", device=device, seed=seed,
+                            vocab_size=256, dtype=torch.float32)
+        cfg = model.cfg
+    eng = InferenceEngine(TransformerAdapter(cfg, model, device=device),
+                          max_batch=8, prefill_chunk=64,
+                          replica_id="schema").start()
+    grammar = TokenGrammar(SURFACE_SCHEMA, [chr(i) for i in range(256)],
+                           eos_id=0)
+    docs = []
+    try:
+        reqs = [Request([ord(c) for c in "Answer in JSON: "],
+                        max_new_tokens=48, eos_id=0, schema=SURFACE_SCHEMA,
+                        **({} if i == 0 else dict(SAMPLING, seed=seed + i)))
+                for i in range(5)]
+        for r in reqs:
+            eng.batcher.submit(r)
+        for r in reqs:
+            toks = r.result(timeout=600)
+            body = toks[:-1] if toks and toks[-1] == 0 else toks
+            text = bytes(body).decode("latin-1")
+            try:
+                doc = json.loads(text)
+            except ValueError:
+                doc = None
+            if doc is None or not grammar.matches(body) or \
+                    r.finish_reason not in ("grammar", "stop"):
+                failures.append(f"schema answer {text!r} "
+                                f"({r.finish_reason}) does not conform")
+            docs.append(text)
+    finally:
+        eng.stop()
+    codes = {}
+    for stream in (True, False):
+        code, body = http_status(port, "/generate", {
+            "tokens": [1, 2, 3], "max_new_tokens": 4, "eos_id": 0,
+            "schema": SURFACE_SCHEMA, "stream": stream})
+        codes["stream" if stream else "buffered"] = code
+        if "token strings" not in body.get("error", ""):
+            failures.append(f"gpt2-small schema answer: {body}")
+    if codes != {"stream": 400, "buffered": 500}:
+        failures.append(f"gpt2-small schema statuses {codes}, the JAX "
+                        f"server's are 400 streamed and 500 buffered")
+    log(f"  schema on a GPT-2-small-width model with vocab 256: "
+        f"{docs[0]!r} greedy, {len(docs) - 1} sampled documents all "
+        f"conform; gpt2-small's schema request answered {codes}")
+    return {"documents": docs, "gpt2_small_statuses": codes}
+
+
+def query_delta(torch, rng, cfg, scale=0.1):
+    """A rank-8 delta on every block's query projection: A [d, 8] and
+    B [8, 3, H, Dh] with the key and value parts of B zero."""
+    H, Dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    delta = {}
+    for i in range(cfg.num_layers):
+        b = np.zeros((8, 3, H, Dh), np.float32)
+        b[:, 0] = scale * rng.randn(8, H, Dh)
+        delta[f"blocks.{i}.attn.qkv.kernel"] = {
+            "a": (scale * rng.randn(cfg.d_model, 8)).astype(np.float32),
+            "b": b}
+    return delta
+
+
+def surface_roll(torch, device, port, sched, reg, base, cfg, prompts,
+                 max_new, rng, failures):
+    """A rank-8 query delta resident beside the default model; its roll
+    to version 1 across both replicas while 16 mixed requests are in
+    flight: no request fails, swap progress ends at done == total, and
+    the variant's answers after it equal the new weights served cold."""
+    from horovod_tpu_torch.serve import (InferenceEngine, TransformerAdapter,
+                                         apply_delta)
+    reg.register("tuned", delta=query_delta(torch, rng, cfg))
+    before = [http_json(port, "/generate", {
+        "tokens": p, "max_new_tokens": max_new, "model": "tuned"})["tokens"]
+        for p in prompts[:2]]
+    delta2 = query_delta(torch, rng, cfg)
+    warmed = {r.replica_id: r.engine.warmup_runs for r in sched.fleet()}
+    results = [None] * 16
+
+    def post(i):
+        body = {"tokens": prompts[i % len(prompts)],
+                "max_new_tokens": max_new}
+        if i % 2:
+            body["model"] = "tuned"
+        if i % 4 == 3:
+            body.update(SAMPLING, seed=i)
+        try:
+            if i % 8 == 5:
+                events, _, _ = sse_post(port, dict(body, stream=True))
+                results[i] = 200 if events[-1][0] == "done" else 500
+            else:
+                results[i] = http_status(port, "/generate", body)[0]
+        except BaseException as e:  # noqa: BLE001 - counted as failed
+            results[i] = repr(e)
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    time.sleep(0.05)
+    t0 = time.monotonic()
+    moved = reg.roll("tuned", delta=delta2)
+    roll_s = time.monotonic() - t0
+    for t in threads:
+        t.join(timeout=600)
+    failed = [r for r in results if r != 200]
+    swap = sched.metrics.snapshot()["swap"]["tuned"]
+    after = [http_json(port, "/generate", {
+        "tokens": p, "max_new_tokens": max_new, "model": "tuned"})["tokens"]
+        for p in prompts[:2]]
+    cold = InferenceEngine(
+        TransformerAdapter(cfg, apply_delta(base, delta2), device=device),
+        max_batch=8, prefill_chunk=64, replica_id="cold").start()
+    try:
+        want = [cold.generate(p, max_new_tokens=max_new)
+                for p in prompts[:2]]
+    finally:
+        cold.stop()
+    if failed:
+        failures.append(f"{len(failed)} of 16 requests failed across the "
+                        f"roll: {failed}")
+    if swap != {"done": 2, "total": 2} or moved != 2:
+        failures.append(f"roll moved {moved}, swap progress {swap}")
+    if after != want:
+        failures.append("after the roll the variant's answers differ from "
+                        "the new weights served cold")
+    rewarmed = {r.replica_id: r.engine.warmup_runs for r in sched.fleet()}
+    if any(rewarmed[k] <= v for k, v in warmed.items()):
+        failures.append(f"the roll's mark_alive did not warm every replica: "
+                        f"warmup runs {warmed} before, {rewarmed} after")
+    log(f"  roll of the rank-8 delta to version 1: {roll_s:.2f} s over "
+        f"{moved} replicas ({roll_s / max(moved, 1):.2f} s each, warmup "
+        f"included), 16 mixed requests in flight, {len(failed)} failed; "
+        f"swap progress {swap}; answers {'changed' if after != before else 'unchanged'} "
+        f"by the roll and equal the new weights served cold")
+    return {"roll_s": round(roll_s, 3), "replicas": moved,
+            "roll_s_per_replica": round(roll_s / max(moved, 1), 3),
+            "in_flight": 16, "failed": len(failed), "swap_progress": swap,
+            "warmup_runs": {"before": warmed, "after": rewarmed}}
+
+
+def host_mode_step_timing(torch, device, ad, rng, iters=20):
+    """A B = 8 decode step at contexts of 256 tokens: the fused greedy
+    step (argmax on the card), the step with the [8, V] logits to the
+    host (``decode_paged_logits``), and the engine's host-mode step: the
+    logits kept on the card, one sampled draw of the 8 rows there, the
+    rows to the host for their 8 logprob entries (top 5); host clock
+    around synchronized calls, in turns."""
+    from horovod_tpu_torch.serve import InferenceEngine
+    from horovod_tpu_torch.serve import sampling as sm
+    B, ctx = 8, 256
+    prompts = [rng.randint(0, ad.vocab_size, (ctx,)).tolist()
+               for _ in range(B)]
+    MB = ad.max_blocks_per_seq
+    need = -(-(ctx + 1) // ad.block_tokens)
+    tables = [list(range(b * need, (b + 1) * need)) for b in range(B)]
+    pool = ad.init_paged_cache(B * need, B)
+    pool, _ = ad.prefill_chunk(pool, prompts, [0] * B, tables)
+    tab = np.array([t + [B * need] * (MB - need) for t in tables])
+    tokens = rng.randint(0, ad.vocab_size, (B,))
+    positions = np.full((B,), ctx)
+    packed = sm.pack_params(
+        sm.base_keys_array([sm.seq_key(5)] * B, B), positions + 1,
+        np.full((B,), 0.8, np.float32), np.full((B,), 40),
+        np.full((B,), 0.95, np.float32))
+
+    def fused():
+        ad.decode_paged(pool, tokens, positions, tab)
+
+    def host():
+        ad.decode_paged_logits(pool, tokens, positions, tab)
+
+    def host_rows():
+        ops = torch.as_tensor(packed, device=ad.device)
+        _, logits = ad.decode_paged_logits(pool, tokens, positions, tab,
+                                           on_device=True)
+        nxt = sm.sample_batched(logits, ops).cpu().numpy()
+        rows = logits.cpu().numpy()
+        for b in range(B):
+            InferenceEngine._logprob_entry(rows[b], int(nxt[b]), 5)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / iters
+
+    order = [("fused", fused), ("host", host), ("host_rows", host_rows)]
+    runs = {name: [] for name, _ in order}
+    for seq in (order, order[::-1]):
+        for name, fn in seq:
+            runs[name].append(round(ms(fn), 3))
+    log(f"  B = 8 decode step at 256 tokens of context (ms, two turns): "
+        f"fused greedy {runs['fused']}, logits to the host {runs['host']}, "
+        f"host-mode (draws on the card, 8 logprob entries) "
+        f"{runs['host_rows']}")
+    return runs
+
+
+def surface_phase(torch, device, rehearsal, seed):
+    """Phase 13: the serving request surface on gpt2-small f32 at full
+    width, random weights from ``seed``, served from a checkpoint by the
+    CLI's factory, two replicas on the card without process sets.
+    Returns the paged routes' launches of the phase's drives (counted
+    from 0 after the checkpoint and warm/cold checks) and its numbers."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.serve import (ModelRegistry, ServeServer,
+                                         TransformerAdapter, build_replicas)
+    from horovod_tpu_torch.serve import paged_attention as pa
+    cfg, model, prompts, max_new = serving_model(torch, device, rehearsal,
+                                                 seed)
+    if rehearsal:
+        # Past 256 tokens, as GPT-2's: no token strings, no grammars.
+        import dataclasses
+        from horovod_tpu_torch.models.transformer import (Transformer,
+                                                          init_gpt2_)
+        cfg = dataclasses.replace(cfg, vocab_size=300)
+        model = init_gpt2_(Transformer(cfg, device=device),
+                           torch.Generator(device=device).manual_seed(seed))
+    rng = np.random.RandomState(seed + 13)
+    failures = []
+    out = {"card": None if rehearsal else card_tag()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        factory, out["checkpoint"] = surface_checkpoint(
+            torch, device, rehearsal, cfg, model, tmp)
+        out["warmup"] = surface_warmup(torch, factory, prompts[3],
+                                       failures)
+        reset_launches(pa)
+        sched = build_replicas(factory, num_replicas=2, max_batch=8,
+                               prefill_chunk=64, warmup=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    base = model.state_dict()
+    reg = ModelRegistry(
+        sched, base_params=base,
+        adapter_builder=lambda p: TransformerAdapter(cfg, p, device=device))
+    server = ServeServer(sched, registry=reg)
+    port = server.start(port=0, host="127.0.0.1")
+    try:
+        reg.adopt("default")
+        out["warmup"]["replicas_ms"] = {
+            r.replica_id: round(r.engine.last_warmup_ms, 3)
+            for r in sched.fleet()}
+        cold = [r.replica_id for r in sched.fleet()
+                if r.engine.warmup_runs < 1 or r.engine.last_warmup_ms <= 0]
+        if cold:
+            failures.append(f"replicas {cold} started without a warmup")
+        log(f"  warmup per replica (ms): {out['warmup']['replicas_ms']}")
+        plain = TransformerAdapter(cfg, model, attn_impl="gather",
+                                   device=device)
+        kernel_ad = sched.fleet()[0].engine.adapter
+        out["logprobs_max_abs_err"] = surface_logprobs(
+            torch, port, plain, prompts[2], max_new, failures)
+        out["score"] = surface_score(torch, port, kernel_ad, plain,
+                                     cfg.max_len, rng, failures)
+        out["stream"] = surface_stream(port, prompts[3], max_new, failures)
+        out["schema"] = surface_schema(torch, device, rehearsal, port, seed,
+                                       failures)
+        out["roll"] = surface_roll(torch, device, port, sched, reg, base,
+                                   cfg, prompts, max_new, rng, failures)
+    finally:
+        server.stop()
+    launches = {"decode": pa.LAUNCHES["paged_attention_decode"],
+                "prefill": pa.LAUNCHES["paged_attention_prefill"]}
+    log(f"  launches of the phase's drives: decode route "
+        f"{launches['decode']}, prefill route {launches['prefill']}")
+    if not rehearsal and min(launches.values()) <= 0:
+        failures.append("a paged route was never launched in phase 13")
+    if not rehearsal:
+        out["decode_step_ms"] = host_mode_step_timing(torch, device,
+                                                      kernel_ad, rng)
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("request surface failed")
+    out["launches"] = launches
+    return launches, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -3259,6 +3798,13 @@ def main(argv=None) -> int:
     elastic = elastic_phase(torch, device, rehearsal)
     log(f"  phase 12 took {time.monotonic() - t12:.1f} s")
 
+    log("phase 13: the serving request surface (checkpoint, warmup, "
+        "logprobs, /score, streaming, grammars, a model roll)")
+    t13 = time.monotonic()
+    surface_launches, surface = surface_phase(torch, device, rehearsal,
+                                              args.seed)
+    log(f"  phase 13 took {time.monotonic() - t13:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -3269,20 +3815,27 @@ def main(argv=None) -> int:
     print(json.dumps({"eager": dict(eager_numbers, card=card_tag())}))
     print(json.dumps({"moe": dict(moe_numbers, card=card_tag())}))
     print(json.dumps({"elastic": dict(elastic, card=card_tag())}))
+    print(json.dumps({"serve_surface": surface}))
     kernels = []
-    for name, source, launches, shape, what in (
+    for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
-             decode_launches, "decode B=8 ctx=1024 f32",
+             decode_launches, "decode", "decode B=8 ctx=1024 f32",
              "decode B=8 H=12 Dh=64 BT=16 ctx=1024 f32 pool, cold L2"),
             ("paged_attention_prefill", "paged_attention_prefill_sm90.cu",
-             prefill_launches, "prefill C=64 f32",
+             prefill_launches, "prefill", "prefill C=64 f32",
              "prefill B=4 C=64 H=12 Dh=64 BT=16 f32 pool, causal, cold L2")):
         r = rec[shape]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/" + source,
             "replaces": "horovod_tpu/serve/paged_attention.py:156",
-            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            # Phase 4's drives and phase 13's (host-mode decode rows,
+            # /score, warmup, the roll), each counted from 0.
+            "launches": launches + surface_launches[route],
+            "launches_by_phase": {"serving": launches,
+                                  "request_surface":
+                                      surface_launches[route]},
+            "max_abs_err": rec["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": what})

@@ -25,7 +25,18 @@ and Sarathi-Serve's chunked prefill.
   prefill the prompt once and decode through copy-on-write block tables
   (``_ForkGroup``), and speculative decoding (``spec_k`` /
   ``HVD_SERVE_SPEC_K``: a truncated-stack draft proposes k tokens, the
-  target verifies k + 1 positions in one chunk step, ``_spec_once``).
+  target verifies k + 1 positions in one chunk step, ``_spec_once``);
+* **the request surface** (paged mode) — per-token logprobs and
+  ``score_tokens`` (``/score``), streamed tokens (``Request.sink``,
+  ``serve/streaming.py``), grammar-constrained decoding
+  (``serve/structured.py``), several resident models sharing the slots
+  and the pool (``add_model`` / ``swap_model``, ``serve/registry.py``),
+  warmup at every start, and the ``engine.step`` fault-injection point
+  (``faultline``).  Rows with a grammar or logprobs decode in host
+  mode: a prefill step brings their raw logits to the host
+  (``prefill_chunk_logits``) for the mask and the logprob entry; a
+  decode step keeps them on the device (``decode_paged_logits``), draws
+  there under the masks and brings only the logprob rows to the host.
 
 Exactness: every per-sequence computation is row-independent —
 positions past a sequence's length are masked to weight 0 and
@@ -41,14 +52,13 @@ greedy decoding.
 ``MLPAdapter`` is the engine-mechanics model: next token =
 argmax MLP(one_hot(token)), no cache, and its own perfect draft.
 
-Not ported yet (later slices): grammars, logprobs, streaming, tiering,
-sequence-parallel prefill, warmup, multi-model residency, faultline
-injection and request tracing.  A request that asks for one of these
-fails with a ValueError naming it (HTTP 400).
+Not ported yet (later slices): tiering, sequence-parallel prefill and
+request tracing.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import threading
@@ -59,6 +69,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..faultline import runtime as _faultline
+from ..faultline.plan import FaultInjected
 from ..models.transformer import layer_norm
 from ..utils import get_logger
 from ..utils.device import resolve_device
@@ -77,6 +89,19 @@ def _next_pow2(n: int, floor: int = 1) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def byte_token_strings(vocab_size: int) -> Optional[List[str]]:
+    """Token id → emitted text, the vocabulary structured decoding
+    builds its grammar masks over (``serve/structured.py``): a
+    byte-level vocabulary (``vocab_size <= 256``) maps each id to its
+    character, as JAX's ``ModelAdapter.token_strings``
+    (``horovod_tpu/serve/engine.py:136``); a larger vocabulary has no
+    token strings here (None), so a ``schema`` request fails with HTTP
+    400 rather than constrain against a fictional mapping."""
+    if vocab_size <= 256:
+        return [chr(i) for i in range(vocab_size)]
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +549,31 @@ class TransformerAdapter:
             np.asarray([len(prompt)], np.int64), table)
         return logits[0].cpu().numpy()
 
+    @torch.no_grad()
+    def score_logits(self, tokens: Sequence[int]) -> np.ndarray:
+        """``prompt_logits`` at every position: the LM logits ``[T, V]``
+        of ``tokens`` through the paged pipeline on a throwaway pool
+        (``logits[p]`` is the distribution of the token at position
+        ``p + 1``) — ``/score``'s forward.  It runs ``_chunk_body``, as
+        ``verify_chunk`` does, so on a card the whole prompt is one
+        chunk of the paged prefill kernel (JAX ``score_logits``,
+        ``horovod_tpu/serve/engine.py:635``)."""
+        if not 0 < len(tokens) <= self.max_len:
+            raise ValueError(f"token count {len(tokens)} outside "
+                             f"(0, {self.max_len}]")
+        MB = self.max_blocks_per_seq
+        need = -(-len(tokens) // self.block_tokens)
+        pool = self._pool_arrays(need)
+        table = np.full((1, MB), need, np.int64)
+        table[0, :need] = np.arange(need)
+        x = self._chunk_body(
+            pool, np.asarray(tokens, np.int64)[None], np.zeros(1, np.int64),
+            np.asarray([len(tokens)], np.int64), table)
+        return self._logits(x)[0].cpu().numpy()
+
+    def token_strings(self) -> Optional[List[str]]:
+        return byte_token_strings(self.vocab_size)
+
     # -- paged decode -------------------------------------------------------
 
     def _paged_step_body(self, cache, tokens, positions, tables,
@@ -556,6 +606,17 @@ class TransformerAdapter:
         """One greedy token step for the whole (fixed-width) batch."""
         logits = self._paged_step_body(cache, tokens, positions, tables)
         return cache, logits.argmax(dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_paged_logits(self, cache, tokens, positions, tables,
+                            on_device: bool = False):
+        """``decode_paged`` returning each row's raw LM logits ``[B, V]``
+        on the host instead of their argmax (JAX ``decode_paged_logits``,
+        ``horovod_tpu/serve/engine.py:1019``); ``on_device`` keeps them
+        on the adapter's device, where the engine's host-mode decode
+        step (rows with a grammar mask or a logprobs request) draws."""
+        logits = self._paged_step_body(cache, tokens, positions, tables)
+        return cache, logits if on_device else logits.cpu().numpy()
 
     @torch.no_grad()
     def decode_paged_sampled(self, cache, tokens, positions, tables, keys,
@@ -675,6 +736,25 @@ class MLPAdapter:
     def decode_paged(self, cache, tokens, positions, tables):
         return self.decode(cache, tokens, positions)
 
+    def decode_paged_logits(self, cache, tokens, positions, tables,
+                            on_device: bool = False):
+        logits = self._logits_of(tokens)
+        return cache, logits if on_device else logits.cpu().numpy()
+
+    def prompt_logits(self, prompt) -> np.ndarray:
+        # Markov chain: the final-position distribution depends only on
+        # the last prompt token.
+        return self._logits_of([prompt[-1]])[0].cpu().numpy()
+
+    def score_logits(self, tokens) -> np.ndarray:
+        if not 0 < len(tokens) <= self.max_len:
+            raise ValueError(f"token count {len(tokens)} outside "
+                             f"(0, {self.max_len}]")
+        return self._logits_of(tokens).cpu().numpy()
+
+    def token_strings(self) -> Optional[List[str]]:
+        return byte_token_strings(self.vocab_size)
+
     def decode_paged_sampled(self, cache, tokens, positions, tables, keys,
                              temps, top_ks, top_ps):
         packed = torch.as_tensor(_sampling.pack_params(
@@ -712,7 +792,7 @@ class _Seq:
     still prefilling through the family's primary)."""
     __slots__ = ("request", "length", "prompt_pos", "table", "hashes",
                  "admit_seq", "published", "generated", "group",
-                 "sample_index", "base_key", "parked")
+                 "sample_index", "base_key", "parked", "gstate")
 
     def __init__(self, request: Request, cached_tokens: int,
                  table: List[int], hashes: List[int], admit_seq: int):
@@ -728,6 +808,11 @@ class _Seq:
         self.sample_index = 0
         self.base_key: Optional[np.ndarray] = None  # sampled only
         self.parked = False              # reserved fork slot, pre-activation
+        # Structured decoding: the grammar automaton's state AFTER the
+        # tokens in ``generated``.  A requeue builds a fresh _Seq, so a
+        # replay restarts from the grammar's start with its empty list.
+        self.gstate = (request.grammar.start
+                       if request.grammar is not None else None)
 
     @property
     def decoding(self) -> bool:
@@ -759,20 +844,6 @@ class _ForkGroup:
         self.reserve_cap = 0  # admission-time value; refunds never exceed it
 
 
-def unported_feature(r: Request) -> Optional[str]:
-    """The first feature ``r`` asks for that the port does not serve yet,
-    or None."""
-    if r.stream:
-        return "stream (token streaming, serve/streaming.py)"
-    if r.schema is not None:
-        return "schema (grammar-constrained decoding, serve/structured.py)"
-    if r.logprobs is not None:
-        return "logprobs (per-token logprobs)"
-    if r.model is not None:
-        return "model (multi-model residency, serve/registry.py)"
-    return None
-
-
 class InferenceEngine:
     """One continuous-batching decode loop (one per serving replica).
 
@@ -791,8 +862,17 @@ class InferenceEngine:
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
-                 spec_k: Optional[int] = None):
+                 spec_k: Optional[int] = None,
+                 warmup: Optional[bool] = None):
         self.adapter = adapter
+        # Multi-model residency (serve/registry.py): named variants
+        # sharing this engine's slots and paged pool.  ``adapter`` stays
+        # the default variant's; a request's ``model`` resolves through
+        # _adapter_for.  Versions salt the prefix hashes, so cached K/V
+        # never crosses a weight boundary.
+        self.default_model = "default"
+        self._adapters: Dict[str, object] = {self.default_model: adapter}
+        self._model_versions: Dict[str, int] = {self.default_model: 0}
         self.max_batch = max_batch if max_batch is not None else int(
             os.environ.get("HVD_SERVE_MAX_BATCH", "8"))
         self.batcher = batcher or DynamicBatcher()
@@ -844,7 +924,7 @@ class InferenceEngine:
             # iteration.
             self._chunk_budget = chunk if chunk > 0 else None
             self._cache = adapter.init_paged_cache(nb, self.max_batch)
-            self.pool_bytes = (bpb or 0) * nb
+            self._verify_pool_budget(nb)
         else:
             # Slot mode ignores both adapter knobs (dense attention over
             # the compute-dtype slot cache): report what runs.
@@ -853,6 +933,7 @@ class InferenceEngine:
             self._mb = 0
             self._cache = adapter.init_cache(self.max_batch)
             self.pool_bytes = 0
+            self.kv_headroom_bytes = None
         # The decode-algorithm layer: seeded sampling and n>1 forks need
         # the logits / sampled adapter programs and the paged engine
         # (fork tables are CoW block tables); speculative decoding also
@@ -884,6 +965,20 @@ class InferenceEngine:
         # family) and requests that forked at all.
         self.seq_forks = 0
         self.forked_requests = 0
+        # Compiled token grammars (serve/structured.py), keyed by (model,
+        # vocab size, canonical schema JSON, eos): compiling is pure, so
+        # equal schemas against one resident model share an automaton.
+        self._grammar_cache: Dict[tuple, object] = {}
+        # Warmup at every start (construction and mark_alive alike): the
+        # prefill bucket lattice and one decode step, before the loop
+        # runs, so the first real request finds the kernel libraries
+        # built and loaded.  Off by default (HVD_SERVE_WARMUP).
+        self._warmup_enabled = (
+            warmup if warmup is not None
+            else os.environ.get("HVD_SERVE_WARMUP", "0")
+            not in ("0", "false"))
+        self.warmup_runs = 0
+        self.last_warmup_ms = 0.0
         self._slots: List[Optional[object]] = [None] * self.max_batch
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -894,6 +989,178 @@ class InferenceEngine:
         self.prefill_steps = 0   # prefill chunk calls (one per iteration)
         self.spec_steps = 0      # speculative iterations (one verify each)
         self.draft_steps = 0     # draft_decode calls
+        # Fault injection: an env-configured plan installs at the first
+        # engine; the per-iteration guard is a None check.
+        _faultline.maybe_install_from_env()
+
+    def _verify_pool_budget(self, num_blocks: int) -> None:
+        """The pool's and the resident weights' device bytes against the
+        memory budget, at construction and after each ``add_model`` /
+        ``swap_model`` (JAX ``_verify_pool_budget``,
+        ``horovod_tpu/serve/engine.py:1612``).  The budget is
+        ``HVD_MEM_BUDGET_BYTES``, else the card's memory (none on the
+        CPU); ``kv_headroom_bytes`` is what remains, and an overshoot is
+        logged.  Weight bytes sum over the distinct resident adapters (a
+        delta variant shares its untouched tensors with the base, so the
+        sum is an upper bound)."""
+        self.pool_bytes = (self.blocks.bytes_per_block or 0) * num_blocks
+        distinct = {id(ad): ad for ad in self._adapters.values()}
+        self.weight_bytes = sum(ad.weight_bytes()
+                                for ad in distinct.values())
+        budget = os.environ.get("HVD_MEM_BUDGET_BYTES")
+        device = getattr(self.adapter, "device", None)
+        if budget is not None:
+            budget = int(budget)
+        elif device is not None and torch.device(device).type == "cuda":
+            budget = torch.cuda.get_device_properties(
+                torch.device(device)).total_memory
+        self.kv_headroom_bytes = (
+            None if budget is None
+            else int(budget) - self.pool_bytes - self.weight_bytes)
+        if self.kv_headroom_bytes is not None and self.kv_headroom_bytes < 0:
+            get_logger().warning(
+                "%s: KV pool %d B + weights %d B exceed the memory budget "
+                "%d B", self.replica_id, self.pool_bytes, self.weight_bytes,
+                budget)
+
+    # -- multi-model residency (serve/registry.py) ---------------------------
+
+    def _check_geometry(self, adapter) -> None:
+        """A co-resident variant shares this engine's slot table and paged
+        pool, so every shape they bake in must match the default
+        adapter's — checked at add/swap time, not at the first gather."""
+        base = self.adapter
+        if not all(hasattr(adapter, m) for m in
+                   ("init_paged_cache", "prefill_chunk", "decode_paged")):
+            raise ValueError(
+                f"{type(adapter).__name__} has no paged interface; "
+                f"multi-model residency is paged-only")
+        for attr in ("max_len", "block_tokens", "max_blocks_per_seq",
+                     "kv_token_cost"):
+            a, b = getattr(adapter, attr, None), getattr(base, attr, None)
+            if a is not None and b is not None and a != b:
+                raise ValueError(
+                    f"variant adapter {attr}={a} != resident {attr}={b}")
+        a_bpb = getattr(adapter, "paged_block_bytes", None)
+        b_bpb = getattr(base, "paged_block_bytes", None)
+        if callable(a_bpb) and callable(b_bpb) and a_bpb() != b_bpb():
+            raise ValueError(
+                f"variant paged_block_bytes {a_bpb()} != resident "
+                f"{b_bpb()} — the pool layout cannot serve both")
+        a_cfg, b_cfg = getattr(adapter, "cfg", None), getattr(base, "cfg",
+                                                             None)
+        if a_cfg is not None and b_cfg is not None:
+            for attr in ("num_layers", "num_heads", "d_model"):
+                if getattr(a_cfg, attr) != getattr(b_cfg, attr):
+                    raise ValueError(
+                        f"variant cfg.{attr}={getattr(a_cfg, attr)} != "
+                        f"resident {getattr(b_cfg, attr)}")
+        sample_capable = (hasattr(adapter, "decode_paged_sampled")
+                          and hasattr(adapter, "prefill_chunk_logits"))
+        if self._sample_capable and not sample_capable:
+            raise ValueError(
+                f"{type(adapter).__name__} lacks the sampled programs "
+                f"this engine advertises (decode_paged_sampled/"
+                f"prefill_chunk_logits)")
+
+    def add_model(self, name: str, adapter, version: int = 0) -> None:
+        """Make variant ``name`` resident: it shares the slot table and
+        the paged pool with the default model (each prefill and decode
+        step runs one call per model present, threading the one pool).
+
+        Paged-only: the slot-mode decode writes K/V at position 0 of
+        every INACTIVE row (harmless with one model, since reads are
+        masked), so a second model's decode would corrupt the other's
+        live rows.  The paged steps address only through block tables,
+        and an all-hole row touches nothing."""
+        if self.kv_mode != "paged":
+            raise ValueError(
+                "multi-model residency requires kv_mode='paged' "
+                "(slot-mode decode clobbers inactive rows)")
+        if name == self.default_model or name in self._adapters:
+            raise ValueError(f"model {name!r} already resident; use "
+                             "swap_model to change its weights")
+        self._check_geometry(adapter)
+        with self._lock:
+            self._adapters[name] = adapter
+            self._model_versions[name] = int(version)
+        self._verify_pool_budget(self.blocks.num_blocks)
+
+    def swap_model(self, name: str, adapter, version: int) -> None:
+        """Install new weights for resident variant ``name`` (the
+        registry's roll).  Only on a STOPPED engine: the roll drains the
+        replica first (mark_dead), so no iteration runs over the old
+        adapter; the following start() re-runs warmup."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError(
+                f"{self.replica_id}: swap_model requires a stopped "
+                f"engine (drain it first — registry.roll does)")
+        if name not in self._adapters:
+            raise KeyError(f"model {name!r} not resident")
+        self._check_geometry(adapter)
+        self._adapters[name] = adapter
+        self._model_versions[name] = int(version)
+        if name == self.default_model:
+            self.adapter = adapter
+        if self.kv_mode == "paged":
+            self._verify_pool_budget(self.blocks.num_blocks)
+
+    def _adapter_for(self, model: Optional[str]):
+        return self._adapters[model or self.default_model]
+
+    def _grammar_for(self, ad, r: Request):
+        """The (cached) token grammar of ``r.schema`` over adapter
+        ``ad``'s vocabulary.  Raises ValueError (a 400) on an unsupported
+        schema keyword, a missing eos_id or a vocabulary without token
+        strings."""
+        from .structured import TokenGrammar
+        if r.eos_id is None:
+            raise ValueError(
+                "structured decoding needs eos_id (the grammar allows "
+                "EOS exactly at accepting states)")
+        vocab = ad.token_strings()
+        if vocab is None:
+            raise ValueError(
+                f"structured decoding needs a byte-transparent "
+                f"vocabulary; {type(ad).__name__} (vocab_size="
+                f"{ad.vocab_size}) does not expose token strings")
+        key = (r.model or self.default_model, int(ad.vocab_size),
+               json.dumps(r.schema, sort_keys=True), int(r.eos_id))
+        g = self._grammar_cache.get(key)
+        if g is None:
+            g = TokenGrammar(r.schema, vocab, int(r.eos_id))
+            self._grammar_cache[key] = g
+        return g
+
+    def score_tokens(self, tokens: Sequence[int],
+                     model: Optional[str] = None,
+                     top: int = 0) -> List[Optional[dict]]:
+        """Per-token logprobs of ``tokens`` under the resident model —
+        the ``/score`` endpoint.  The adapter's ``score_logits`` runs on a
+        throwaway pool WITHOUT the engine lock (a pure forward: no slot
+        or pool state is touched).  Entry ``p`` is None at position 0
+        and otherwise ``{"token", "logprob"[, "top"]}`` with ``logprob``
+        = ``log_softmax(logits[p-1])[token]``."""
+        ad = self._adapter_for(model)
+        if not hasattr(ad, "score_logits"):
+            raise ValueError(
+                f"{type(ad).__name__} has no score_logits program; "
+                f"/score needs a paged-capable adapter")
+        tokens = [int(t) for t in tokens]
+        for t in tokens:
+            if not 0 <= t < ad.vocab_size:
+                raise ValueError(
+                    f"token {t} out of range [0, {ad.vocab_size})")
+        logits = ad.score_logits(tokens)  # each row to f64 in the entry
+        out: List[Optional[dict]] = [None]
+        for p in range(1, len(tokens)):
+            out.append(self._logprob_entry(logits[p - 1], tokens[p], top))
+        return out
+
+    def _prefix_salt(self, model: Optional[str]) -> int:
+        from .registry import model_salt
+        name = model or self.default_model
+        return model_salt(name, self._model_versions.get(name, 0))
 
     # -- introspection -------------------------------------------------------
 
@@ -920,7 +1187,112 @@ class InferenceEngine:
         stats["spec_k"] = self.spec_k
         stats["pool_bytes"] = self.pool_bytes
         stats["weight_bytes"] = self.weight_bytes
+        if self.kv_headroom_bytes is not None:
+            stats["kv_headroom_bytes"] = self.kv_headroom_bytes
         return stats
+
+    # -- warmup --------------------------------------------------------------
+
+    def _warmup_counts(self) -> List[int]:
+        """Every reachable batch-count bucket: the power-of-two ladder up
+        to ``max_batch``, plus ``max_batch`` itself."""
+        counts: List[int] = []
+        n = 1
+        while n <= self.max_batch:
+            counts.append(n)
+            n *= 2
+        if counts[-1] != self.max_batch:
+            counts.append(self.max_batch)
+        return counts
+
+    def warmup(self) -> float:
+        """Run every (count, length) prefill bucket and one decode step
+        of every resident adapter before the loop serves (JAX
+        ``warmup``, ``horovod_tpu/serve/engine.py:1921``).  On a card
+        this is the first use of each kernel library: the ``nvcc`` build,
+        its ``ctypes`` load, cuBLAS's handles and the allocator's first
+        blocks land here instead of in the first request's TTFT.  Only
+        against an empty slot table (a busy engine skips: its live pool
+        must not see warmup writes).  Returns wall milliseconds; 0.0
+        when skipped or failed — a failure leaves the engine serving
+        cold, and a kernel that failed to build raises again out of the
+        request that needs it."""
+        with self._lock:
+            if any(s is not None for s in self._slots):
+                get_logger().warning(
+                    "%s: warmup skipped — slots busy", self.replica_id)
+                return 0.0
+        t0 = time.monotonic()
+        try:
+            if self.kv_mode == "paged":
+                self._warmup_paged()
+            else:
+                self._warmup_slot()
+            device = getattr(self.adapter, "device", None)
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+        except Exception as exc:
+            get_logger().warning(
+                "%s: warmup failed (%s: %s); serving cold",
+                self.replica_id, type(exc).__name__, exc)
+            return 0.0
+        ms = (time.monotonic() - t0) * 1e3
+        self.warmup_runs += 1
+        self.last_warmup_ms = ms
+        self.metrics.observe_warmup(self.replica_id, ms)
+        get_logger().info("%s: warmup #%d done in %.1f ms",
+                          self.replica_id, self.warmup_runs, ms)
+        return ms
+
+    def _warmup_paged(self) -> None:
+        """Every distinct resident adapter through the paged bucket
+        lattice.  Chunks carry ALL-HOLE tables, so every K/V write drops
+        and retained prefix blocks and pool accounting are untouched;
+        decode runs at its one shape (``max_batch`` rows, all holes)."""
+        nb = self.blocks.capacity
+        distinct = {id(ad): ad for ad in self._adapters.values()}
+        for ad in distinct.values():
+            cap = min(self._chunk_budget or ad.max_len, ad.max_len)
+            lens: List[int] = []
+            c = prompt_bucket(1, cap=ad.max_len)
+            top = prompt_bucket(cap, cap=ad.max_len)
+            while True:
+                lens.append(c)
+                if c >= top:
+                    break
+                c = min(c * 2, top)
+            for n in self._warmup_counts():
+                for c in lens:
+                    self._cache, _ = ad.prefill_chunk(
+                        self._cache, [[0] * c for _ in range(n)],
+                        [0] * n, [[] for _ in range(n)])
+            tokens = np.zeros((self.max_batch,), np.int64)
+            positions = np.zeros((self.max_batch,), np.int64)
+            tables = np.full((self.max_batch, self._mb), nb, np.int64)
+            self._cache, _ = ad.decode_paged(
+                self._cache, tokens, positions, tables)
+
+    def _warmup_slot(self) -> None:
+        """The slot-mode ladder (one adapter: add_model refuses slot
+        engines).  Its writes land in real cache rows, which is safe
+        only behind warmup()'s empty-slot guard: a real prefill into a
+        slot overwrites every position it will read."""
+        ad = self.adapter
+        lens: List[int] = []
+        c = prompt_bucket(1, cap=ad.max_len)
+        while True:
+            lens.append(c)
+            if c >= ad.max_len:
+                break
+            c = min(c * 2, ad.max_len)
+        for n in self._warmup_counts():
+            slots = list(range(n))
+            for c in lens:
+                self._cache, _ = ad.prefill(
+                    self._cache, [[0] * c for _ in range(n)], slots)
+        self._cache, _ = ad.decode(
+            self._cache, np.zeros((self.max_batch,), np.int64),
+            np.zeros((self.max_batch,), np.int64))
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -937,6 +1309,10 @@ class InferenceEngine:
                     f"exited; cannot restart")
             self._thread = None
         self._stop.clear()
+        # Warmup at EVERY start, construction and mark_alive revival
+        # alike, before the loop spawns: "healthy" then means "warm".
+        if self._warmup_enabled:
+            self.warmup()
         self._thread = threading.Thread(
             target=self._run, daemon=True,
             name=f"hvd-serve-engine-{self.replica_id}")
@@ -971,6 +1347,10 @@ class InferenceEngine:
                     continue  # another member of the same fork family
                 seen.add(id(r))
                 r.generated = []
+                if r.token_logprobs is not None:
+                    # The replay regenerates them from position 0; the
+                    # stream's position dedupe keeps delivery once.
+                    r.token_logprobs = []
                 if r.samples is not None:
                     r.samples = [None] * r.n
                 group = getattr(s, "group", None)  # slot mode holds _Slot
@@ -1002,7 +1382,9 @@ class InferenceEngine:
     @staticmethod
     def _seq_finished(s: _Seq, token: int) -> bool:
         """Paged-mode finish check: a fork finishes on its OWN stream;
-        only an n == 1 request records its finish reason."""
+        only an n == 1 request records its finish reason: ``stop`` (EOS,
+        inclusive), ``length`` (max_new_tokens) or ``grammar`` (the
+        automaton accepts and admits no continuation)."""
         r = s.request
         solo = s.group is None
         if r.eos_id is not None and token == r.eos_id:
@@ -1013,7 +1395,41 @@ class InferenceEngine:
             if solo:
                 r.finish_reason = "length"
             return True
+        if (r.grammar is not None and s.gstate is not None
+                and r.grammar.exhausted(s.gstate)):
+            r.finish_reason = "grammar"
+            return True
         return False
+
+    @staticmethod
+    def _publish_stream(r: Request, generated: List[int],
+                        logprob=None) -> None:
+        """Offer the last token of ``generated`` to the request's stream
+        (``serve/streaming.py``).  Publishing never blocks and never
+        does IO, so the engine lock is never held across a socket write;
+        the stream's position dedupe hides replays from the client."""
+        if r.sink is not None:
+            r.sink.publish(len(generated) - 1, generated[-1], logprob)
+
+    @staticmethod
+    def _logprob_entry(raw, tok: int, k: int) -> dict:
+        """One ``token_logprobs`` record: the chosen token's
+        log-probability under the RAW logits (before any grammar mask or
+        temperature / top-k / top-p filter: the model's own belief), and
+        the top-``k`` tokens of the same distribution."""
+        row = np.asarray(raw, np.float64)
+        m = float(np.max(row))
+        lse = m + math.log(float(np.sum(np.exp(row - m))))
+        entry = {"token": int(tok), "logprob": float(row[tok] - lse)}
+        if k > 0:
+            # The k largest by a partition, then sorted: JAX sorts the
+            # whole row (argsort), the same tokens up to ties.
+            idx = np.argpartition(row, -k)[-k:]
+            idx = idx[np.argsort(-row[idx], kind="stable")]
+            entry["top"] = [{"token": int(i),
+                             "logprob": float(row[i] - lse)}
+                            for i in idx]
+        return entry
 
     def _retire_seq(self, i: int, s: _Seq) -> None:
         """Free one finished sequence's slot + block refs and complete its
@@ -1123,16 +1539,20 @@ class InferenceEngine:
             return self._fail(r, RuntimeError(
                 f"{r.request_id} client disconnected before prefill"),
                 r.cancel_reason or "client_gone")
-        feature = unported_feature(r)
-        if feature is not None:
+        # Unknown model: routing filters on residency, so this fires for
+        # direct submits or a variant that left between routing and
+        # admission — never silently served by the default model.
+        if r.model is not None and r.model not in self._adapters:
             return self._fail(r, ValueError(
-                f"{r.request_id}: {feature} is not supported by "
-                f"horovod_tpu_torch yet"), "error")
+                f"{r.request_id}: unknown model {r.model!r} on "
+                f"{self.replica_id} (resident: "
+                f"{sorted(self._adapters)})"), "error")
+        ad = self._adapter_for(r.model)
         total = len(r.prompt) + r.max_new_tokens
-        if total > self.adapter.max_len:
+        if total > ad.max_len:
             return self._fail(r, ValueError(
                 f"{r.request_id}: prompt+max_new_tokens {total} exceeds "
-                f"max_len {self.adapter.max_len}"), "error")
+                f"max_len {ad.max_len}"), "error")
         # Sampling / n>1 need the paged engine and the sampled adapter
         # programs: fail loudly rather than serve a greedy single answer
         # to a sampled n-best request.
@@ -1146,6 +1566,23 @@ class InferenceEngine:
             return self._fail(r, ValueError(
                 f"{r.request_id}: n={r.n} exceeds the engine's "
                 f"max_batch {self.max_batch} decode slots"), "error")
+        # Structured decoding and logprobs need the host-mode steps
+        # (raw logits on the host): fail rather than drop the mask or
+        # the logprobs.
+        if r.schema is not None or r.logprobs is not None:
+            if (self.kv_mode != "paged" or not self._sample_capable
+                    or not hasattr(ad, "decode_paged_logits")):
+                return self._fail(r, ValueError(
+                    f"{r.request_id}: schema/logprobs need a paged "
+                    f"engine and an adapter with decode_paged_logits + "
+                    f"prefill_chunk_logits (kv_mode={self.kv_mode}, "
+                    f"adapter {type(ad).__name__})"), "error")
+        if r.schema is not None and r.grammar is None:
+            try:
+                r.grammar = self._grammar_for(ad, r)
+            except ValueError as e:
+                return self._fail(r, ValueError(f"{r.request_id}: {e}"),
+                                  "error")
         # The admission cost formula itself (n>1 shape included): a
         # mismatch with get_admission's hard_cap would requeue forever.
         if self._mb and self._request_cost_blocks(r) > self.blocks.capacity:
@@ -1190,6 +1627,29 @@ class InferenceEngine:
                 expired += 1
         return expired
 
+    def _faultline_step(self) -> None:
+        """The ``engine.step`` injection point, at the top of every loop
+        iteration (JAX ``horovod_tpu/serve/engine.py:2522``):
+        ``poison-step`` raises into the loop's recovery path as an
+        organic failure would, ``slow-decode`` stalls the iteration,
+        ``pool-corrupt-block`` drops retained prefix blocks (their
+        contents are suspect: they leave the registry rather than serve
+        stale K/V to a later prefix hit)."""
+        for f in _faultline.fire("engine.step", self.replica_id):
+            if f.kind == "slow-decode":
+                time.sleep(f.param or 0.02)
+            elif f.kind == "pool-corrupt-block":
+                if self.blocks is not None:
+                    n = self.blocks.invalidate_retained(
+                        max(int(f.param), 1))
+                    get_logger().warning(
+                        "%s: faultline scrubbed %d retained KV block(s)",
+                        self.replica_id, n)
+            elif f.kind == "poison-step":
+                raise FaultInjected(
+                    f"faultline: poisoned step on {self.replica_id} "
+                    f"(step {self.steps})")
+
     # -- slot-mode loop ------------------------------------------------------
 
     def _admit(self, block_s: float) -> int:
@@ -1219,6 +1679,7 @@ class InferenceEngine:
                     r.replica_id = self.replica_id
                     r.first_token_at = now
                     r.generated.append(int(tok))
+                    self._publish_stream(r, r.generated)
                     r.stage_add("prefill", now)
                     self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
                     if self._finished(r, int(tok)):
@@ -1254,6 +1715,7 @@ class InferenceEngine:
                     continue  # drained concurrently
                 tok = int(nxt[i])
                 s.request.generated.append(tok)
+                self._publish_stream(s.request, s.request.generated)
                 s.length += 1
                 if self._finished(s.request, tok) \
                         or s.length >= self.adapter.max_len:
@@ -1331,7 +1793,11 @@ class InferenceEngine:
             fresh: List[int] = []
             if use_blocks:
                 if self.blocks.prefix_cache_enabled:
-                    hashes = chain_hashes(r.prompt, bt)
+                    # Salted per (model, version): equal tokens under
+                    # other weights never share K/V; (default, v0)
+                    # salts to 0, the unsalted hashes.
+                    hashes = chain_hashes(r.prompt, bt,
+                                          salt=self._prefix_salt(r.model))
                     cached_ids, cached_tokens = \
                         self.blocks.lookup_prefix(r.prompt, hashes=hashes)
                 need = self._blocks_for_tokens(
@@ -1404,18 +1870,29 @@ class InferenceEngine:
                   for _, s, take in sel]
         starts = [s.prompt_pos for _, s, _ in sel]
         tables = [list(s.table) for _, s, _ in sel]
-        # A batch with any sampled or n>1 row runs the logits variant:
-        # first tokens are drawn on the host (an n-way fork draws n
-        # tokens from ONE logit row).  Greedy-only batches keep the
-        # token-only step, bit for bit.
+        # A batch with any sampled, n>1, grammar or logprobs row runs the
+        # logits variant: first tokens are drawn on the host (an n-way
+        # fork draws n tokens from ONE logit row).  Greedy-only batches
+        # keep the token-only step, bit for bit.
         use_logits = self._sample_capable and any(
-            s.request.sampled or s.request.n > 1 for _, s, _ in sel)
-        if use_logits:
-            self._cache, first = self.adapter.prefill_chunk_logits(
-                self._cache, chunks, starts, tables)
-        else:
-            self._cache, first = self.adapter.prefill_chunk(
-                self._cache, chunks, starts, tables)
+            s.request.sampled or s.request.n > 1
+            or s.request.grammar is not None
+            or s.request.logprobs is not None for _, s, _ in sel)
+        # One chunk-prefill call per resident model in the selection,
+        # threading the one pool; a single-model batch is one call over
+        # every row.
+        by_model: Dict[Optional[str], List[int]] = {}
+        for j, (_, s, _) in enumerate(sel):
+            by_model.setdefault(s.request.model, []).append(j)
+        first: List = [None] * len(sel)
+        for model, idxs in by_model.items():
+            ad = self._adapter_for(model)
+            step = ad.prefill_chunk_logits if use_logits else ad.prefill_chunk
+            self._cache, g_first = step(
+                self._cache, [chunks[j] for j in idxs],
+                [starts[j] for j in idxs], [tables[j] for j in idxs])
+            for j, tok in zip(idxs, g_first):
+                first[j] = tok
         self.prefill_steps += 1
         now = time.monotonic()
         total = 0
@@ -1441,14 +1918,27 @@ class InferenceEngine:
                     # this row's logits, activate the parked forks.
                     self._fork_group(s, tok, now)
                     continue
+                entry = None
                 if use_logits:
-                    tok = (_sampling.sample_host(
-                        tok, s.base_key, len(r.prompt), r.temperature,
-                        r.top_k, r.top_p) if r.sampled
-                        else int(np.argmax(tok)))
+                    # Host rows: the grammar mask rides sample_host's
+                    # ``allowed`` (greedy = masked argmax, sampled =
+                    # mask then filters); a logprob entry reads the RAW
+                    # row before either.
+                    raw = tok
+                    mask = (r.grammar.allowed_mask(s.gstate)
+                            if r.grammar is not None else None)
+                    tok = _sampling.sample_host(
+                        raw, s.base_key, len(r.prompt), r.temperature,
+                        r.top_k, r.top_p, allowed=mask)
+                    if r.logprobs is not None:
+                        entry = self._logprob_entry(raw, tok, r.logprobs)
+                        r.token_logprobs.append(entry)
                 tok = int(tok)
+                if r.grammar is not None and tok != r.eos_id:
+                    s.gstate = r.grammar.advance_token(s.gstate, tok)
                 r.first_token_at = now
                 s.generated.append(tok)
+                self._publish_stream(r, s.generated, entry)
                 r.stage_add("prefill", now)
                 self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
                 if self._seq_finished(s, tok):
@@ -1479,6 +1969,8 @@ class InferenceEngine:
             s.group.forked = False
             r.samples = [None] * r.n
         r.generated = []
+        if r.token_logprobs is not None:
+            r.token_logprobs = []
         r.requeues += 1
         r.resubmitted_at = time.monotonic()
         self.metrics.count_request("preempted", tenant=r.tenant)
@@ -1561,6 +2053,83 @@ class InferenceEngine:
             tables[i, :len(s.table)] = s.table
         return tokens, positions, tables
 
+    def _draw_params(self, rows):
+        """The sampled step's per-row operands at ``max_batch`` width:
+        base keys, temperatures, top-k and top-p of the sampled rows in
+        ``rows``; every other row draws greedily (temperature 0)."""
+        keys = _sampling.base_keys_array([None] * self.max_batch,
+                                         self.max_batch)
+        temps = np.zeros((self.max_batch,), np.float32)
+        top_ks = np.zeros((self.max_batch,), np.int64)
+        top_ps = np.ones((self.max_batch,), np.float32)
+        for i, s in rows:
+            r = s.request
+            if r.sampled:
+                keys[i] = s.base_key
+                temps[i] = r.temperature
+                top_ks[i] = r.top_k or 0
+                top_ps[i] = r.top_p
+        return keys, temps, top_ks, top_ps
+
+    def _decode_group(self, ad, members, nxt_by_slot, entry_by_slot):
+        """One model's share of a decode step.  Rows with a grammar or
+        logprobs run one ``decode_paged_logits`` call whose logits stay
+        on the adapter's device: one ``sample_batched`` call draws them
+        all under their grammar masks (an unmasked row draws as the
+        fused step does), and only the rows that asked for logprobs
+        come to the host for their entry.  The other rows run the fused
+        greedy or sampled step, so a request pays for the logits only
+        when it asked for one of the two features.  Rows outside each
+        call are inactive (all-hole tables): they write and read
+        nothing."""
+        host = [(i, s) for i, s in members
+                if s.request.grammar is not None
+                or s.request.logprobs is not None]
+        if host:
+            members = [(i, s) for i, s in members
+                       if s.request.grammar is None
+                       and s.request.logprobs is None]
+            tokens, positions, tables = self._decode_rows(host)
+            keys, temps, top_ks, top_ps = self._draw_params(host)
+            # The operands go to the device before the forward is queued,
+            # as in ``decode_paged_sampled``.
+            packed = torch.as_tensor(_sampling.pack_params(
+                keys, positions + 1, temps, top_ks, top_ps),
+                device=ad.device)
+            allowed = None
+            if any(s.request.grammar is not None for _, s in host):
+                mask = np.ones((self.max_batch, ad.vocab_size), bool)
+                for i, s in host:
+                    if s.request.grammar is not None:
+                        mask[i] = s.request.grammar.allowed_mask(s.gstate)
+                allowed = torch.as_tensor(mask, device=ad.device)
+            self._cache, logits = ad.decode_paged_logits(
+                self._cache, tokens, positions, tables, on_device=True)
+            nxt = _sampling.sample_batched(logits, packed,
+                                           allowed).cpu().numpy()
+            asked = [i for i, s in host if s.request.logprobs is not None]
+            raw = dict(zip(asked, logits[asked].cpu().numpy()))
+            for i, s in host:
+                nxt_by_slot[i] = int(nxt[i])
+                if i in raw:
+                    entry_by_slot[i] = self._logprob_entry(
+                        raw[i], int(nxt[i]), s.request.logprobs)
+        if not members:
+            return
+        tokens, positions, tables = self._decode_rows(members)
+        if any(s.request.sampled for _, s in members):
+            # Any sampled row switches the call to the sampled step
+            # (greedy rows ride along at temperature 0 and get the same
+            # argmax); each row folds only its own key.
+            self._cache, nxt = ad.decode_paged_sampled(
+                self._cache, tokens, positions, tables,
+                *self._draw_params(members))
+        else:
+            self._cache, nxt = ad.decode_paged(
+                self._cache, tokens, positions, tables)
+        for i, _ in members:
+            nxt_by_slot[i] = int(nxt[i])
+
     def _decode_once_paged(self) -> int:
         with self._lock:
             active = [(i, s) for i, s in enumerate(self._slots)
@@ -1570,30 +2139,17 @@ class InferenceEngine:
         if not active:
             self._step_anchor = None
             return 0
-        tokens, positions, tables = self._decode_rows(active)
+        # One decode call per resident model with decoding rows,
+        # threading the one pool (the prefill step's discipline).
+        groups: Dict[Optional[str], List[Tuple[int, _Seq]]] = {}
+        for i, s in active:
+            groups.setdefault(s.request.model, []).append((i, s))
         t0 = time.monotonic()
-        if any(s.request.sampled for _, s in active):
-            # Any sampled row switches the whole step to the sampled
-            # program (greedy rows ride along at temperature 0 and get
-            # the same argmax); each row folds only its own key.
-            keys = _sampling.base_keys_array([None] * self.max_batch,
-                                             self.max_batch)
-            temps = np.zeros((self.max_batch,), np.float32)
-            top_ks = np.zeros((self.max_batch,), np.int64)
-            top_ps = np.ones((self.max_batch,), np.float32)
-            for i, s in active:
-                r = s.request
-                if r.sampled:
-                    keys[i] = s.base_key
-                    temps[i] = r.temperature
-                    top_ks[i] = r.top_k or 0
-                    top_ps[i] = r.top_p
-            self._cache, nxt = self.adapter.decode_paged_sampled(
-                self._cache, tokens, positions, tables, keys, temps,
-                top_ks, top_ps)
-        else:
-            self._cache, nxt = self.adapter.decode_paged(
-                self._cache, tokens, positions, tables)
+        nxt_by_slot: Dict[int, int] = {}
+        entry_by_slot: Dict[int, dict] = {}
+        for model, members in groups.items():
+            self._decode_group(self._adapter_for(model), members,
+                               nxt_by_slot, entry_by_slot)
         now = time.monotonic()
         # Inter-decode-step latency: prefill chunks between two decode
         # steps land in this statistic by design.
@@ -1604,8 +2160,16 @@ class InferenceEngine:
             for i, s in active:
                 if self._slots[i] is not s:
                     continue  # drained/preempted concurrently
-                tok = int(nxt[i])
+                tok = nxt_by_slot[i]
+                r = s.request
                 s.generated.append(tok)
+                entry = entry_by_slot.get(i)
+                if entry is not None and r.token_logprobs is not None:
+                    r.token_logprobs.append(entry)
+                if r.grammar is not None and tok != r.eos_id:
+                    s.gstate = r.grammar.advance_token(s.gstate, tok)
+                if s.group is None:
+                    self._publish_stream(r, s.generated, entry)
                 s.length += 1
                 if self._seq_finished(s, tok) \
                         or s.length >= self.adapter.max_len:
@@ -1735,6 +2299,8 @@ class InferenceEngine:
                 finished = False
                 for tok in emit:
                     s.generated.append(tok)
+                    if s.group is None:
+                        self._publish_stream(r, s.generated)
                     emitted_total += 1
                     if self._seq_finished(s, tok):
                         finished = True
@@ -1769,6 +2335,23 @@ class InferenceEngine:
         self.metrics.observe_spec(drafted, accepted, rejected)
         return len(active)
 
+    def _spec_ok(self) -> bool:
+        """Speculate this iteration?  The draft is the default model's
+        and the draft/verify pair has no logits or mask seam, so a live
+        row of another model, with a grammar or with logprobs falls the
+        whole iteration back to the plain per-model step: the same
+        tokens, without the draft's amortization (JAX ``_run``,
+        ``horovod_tpu/serve/engine.py:4160``)."""
+        if self.spec_k <= 0:
+            return False
+        with self._lock:
+            return all(
+                (s.request.model in (None, self.default_model)
+                 or len(self._adapters) == 1)
+                and s.request.grammar is None
+                and s.request.logprobs is None
+                for s in self._slots if s is not None)
+
     # -- the loop ------------------------------------------------------------
 
     def _recover(self, e: BaseException) -> None:
@@ -1801,6 +2384,8 @@ class InferenceEngine:
         paged = self.kv_mode == "paged"
         while not self._stop.is_set():
             try:
+                if _faultline.PLAN is not None:
+                    self._faultline_step()
                 self._expire_inflight()
                 busy = self.active_count > 0
                 # Iteration-level scheduling: admission happens BETWEEN
@@ -1810,7 +2395,7 @@ class InferenceEngine:
                 if paged:
                     self._admit_paged(block)
                     pre = self._prefill_step()
-                    dec = (self._spec_once() if self.spec_k > 0
+                    dec = (self._spec_once() if self._spec_ok()
                            else self._decode_once_paged())
                     if pre or dec:
                         self.metrics.observe_iteration(pre, dec)
@@ -1829,6 +2414,7 @@ class InferenceEngine:
                  top_p: float = 1.0,
                  n: int = 1,
                  seed: Optional[int] = None,
+                 model: Optional[str] = None,
                  tenant: str = "default") -> List[int]:
         """Submit one request through the running loop and wait (n > 1:
         the returned list is sample 0; the full set is on the request's
@@ -1837,6 +2423,6 @@ class InferenceEngine:
             self.start()
         r = Request(prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
                     temperature=temperature, top_k=top_k, top_p=top_p,
-                    n=n, seed=seed, tenant=tenant)
+                    n=n, seed=seed, model=model, tenant=tenant)
         self.batcher.submit(r)
         return r.result(timeout=timeout_s)

@@ -6,9 +6,14 @@ per-stage and per-tier request latency, token / decode-step / request
 outcome counters (per tenant too), batch occupancy, queue depth, the
 prefill/decode token split, the speculative-decoding counters, and the
 paged-KV gauges (blocks, CoW copies, n>1 fork counters, prefix-cache
-hit rate, bytes per token, attention impl and KV dtype).  The families keep the JAX package's names and labels, so one
-dashboard reads both.  The timeline bridge (``set_timeline``,
-``maybe_emit_timeline``) comes with the port of ``timeline.py``.
+hit rate, bytes per token, attention impl and KV dtype), the request
+surface's families (warmup duration and runs per replica, a model
+roll's progress, the streamed-token counters) and the windowed
+histogram snapshots (``ttft_window``, ``request_window``).  The families
+keep the JAX package's names and labels, so one dashboard reads both.
+``set_timeline`` wires a ``timeline.Timeline`` that receives a roll's
+phase transitions (``swap_event``); the periodic counter emission
+(``maybe_emit_timeline``) is not ported.
 
 Everything is guarded by one lock: observers run on engine threads while
 ``/metrics`` renders on HTTP handler threads.
@@ -101,6 +106,19 @@ class ServeMetrics:
         self.tenant_stage_ms: Dict[Tuple[str, str], Histogram] = {}
         self.replica_events: Dict[str, int] = {"mark_dead": 0,
                                                "mark_alive": 0}
+        # A live weight roll's progress per model (serve/registry.py):
+        # (replicas at the target version, replicas holding the model).
+        self.swap_progress: Dict[str, Tuple[int, int]] = {}
+        # Engine warmup: wall ms of the last pass and the passes each
+        # replica ran (every engine start, mark_alive included).
+        self.warmup_ms: Dict[str, float] = {}
+        self.warmup_runs: Dict[str, int] = {}
+        # Streamed responses (serve/streaming.py TokenStream.counters):
+        # tokens published, merged into a pending event by a full
+        # queue, and replayed positions dropped.
+        self.stream_tokens: Dict[str, int] = {
+            "published": 0, "coalesced": 0, "duplicates": 0}
+        self._timeline = None
         self._service_ms: Optional[float] = None
         self.occupancy_last = 0
         self.occupancy_max = 0
@@ -195,6 +213,63 @@ class ServeMetrics:
         with self._lock:
             return (self._service_ms or 0.0) / 1e3
 
+    def request_window(self, tier: str):
+        """``(bounds, cumulative bucket counts, total count)`` snapshot
+        of one tier's request-latency histogram: two snapshots diff into
+        a windowed distribution."""
+        with self._lock:
+            h = self.request_ms.get(tier)
+            if h is None:
+                return ([], [], 0)
+            return (list(h.bounds), list(h.counts), h.count)
+
+    def ttft_window(self):
+        """The time-to-first-token histogram's snapshot, in
+        ``request_window``'s form (streamed clients feel TTFT)."""
+        with self._lock:
+            h = self.ttft_ms
+            return (list(h.bounds), list(h.counts), h.count)
+
+    def set_swap_progress(self, model: str, done: int,
+                          total: int) -> None:
+        """A roll's progress (serve/registry.py): ``done`` of ``total``
+        replicas serve the target version."""
+        with self._lock:
+            self.swap_progress[model] = (int(done), int(total))
+
+    def set_timeline(self, timeline) -> None:
+        """Register a ``timeline.Timeline`` for the roll's instants."""
+        with self._lock:
+            self._timeline = timeline
+
+    def swap_event(self, model: str, replica: str, phase: str,
+                   version: int) -> None:
+        """One roll phase transition (``drain``/``swap``/``alive``/
+        ``abort``) as a SWAP timeline instant; read the timeline under
+        the lock, emit outside it, and never let the trace break the
+        roll."""
+        with self._lock:
+            tl = self._timeline
+        if tl is None:
+            return
+        try:
+            tl.swap_event(model, replica, phase, version)
+        except Exception:
+            pass
+
+    def observe_warmup(self, replica_id: str, ms: float) -> None:
+        """One engine warmup pass: last duration and run count."""
+        with self._lock:
+            self.warmup_ms[replica_id] = float(ms)
+            self.warmup_runs[replica_id] = \
+                self.warmup_runs.get(replica_id, 0) + 1
+
+    def count_stream(self, counters: dict) -> None:
+        """Add one finished stream's ``TokenStream.counters()``."""
+        with self._lock:
+            for kind in self.stream_tokens:
+                self.stream_tokens[kind] += int(counters.get(kind, 0))
+
     def count_replica_event(self, event: str) -> None:
         with self._lock:
             self.replica_events[event] = \
@@ -284,6 +359,11 @@ class ServeMetrics:
                 "seq_forks": sum(s.get("seq_forks", 0)
                                  for s in kv.values()),
                 "kv_blocks": kv,
+                "swap": {m: {"done": d, "total": t}
+                         for m, (d, t) in self.swap_progress.items()},
+                "warmup": {"ms": dict(self.warmup_ms),
+                           "runs": dict(self.warmup_runs)},
+                "stream": dict(self.stream_tokens),
             }
 
     def render(self) -> str:
@@ -354,6 +434,26 @@ class ServeMetrics:
                 lines.append(
                     f'hvd_serve_tenant_requests_total{{tenant="{label}",'
                     f'outcome="{outcome}"}} {n}')
+            lines.append("# TYPE hvd_serve_swap_progress gauge")
+            for model, (done, total) in sorted(
+                    self.swap_progress.items()):
+                frac = done / total if total else 0.0
+                lines.append(
+                    f'hvd_serve_swap_progress{{model="{model}"}} '
+                    f'{frac:g}')
+            lines.append("# TYPE hvd_serve_warmup_ms gauge")
+            for rid, ms in sorted(self.warmup_ms.items()):
+                lines.append(
+                    f'hvd_serve_warmup_ms{{replica="{rid}"}} {ms:g}')
+            lines.append("# TYPE hvd_serve_warmup_runs_total counter")
+            for rid, n in sorted(self.warmup_runs.items()):
+                lines.append(
+                    f'hvd_serve_warmup_runs_total{{replica="{rid}"}} '
+                    f'{n}')
+            lines.append("# TYPE hvd_serve_stream_tokens_total counter")
+            for kind, n in sorted(self.stream_tokens.items()):
+                lines.append(
+                    f'hvd_serve_stream_tokens_total{{kind="{kind}"}} {n}')
             lines.append("# TYPE hvd_serve_replica_events_total counter")
             for event, n in sorted(self.replica_events.items()):
                 lines.append(

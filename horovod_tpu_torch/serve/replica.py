@@ -10,8 +10,12 @@ the survivors' queues (greedy decoding makes the eventual answer
 identical, and seeded sampling keys every draw by position);
 ``mark_alive`` re-admits it.  After ``hvd.init()`` the replicas are the
 world's ``partition_process_sets``; without it, an explicit count.
+Requests naming a ``model`` route only to replicas where it is resident
+(``serve/registry.py``), and a dead replica's orphans re-deal only to
+survivors holding their model.
 
-Not ported yet: the preemption watcher and the faultline/tracing hooks.
+Not ported yet: the preemption watcher, the ``replica.route`` fault
+point and the tracing hooks.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from ..utils import get_logger
 from .batcher import DynamicBatcher, QueueFullError, Request
@@ -42,6 +46,9 @@ class Replica:
         self.process_set = process_set
         self.engine = engine
         self.state = "healthy"  # healthy | dead
+        # True only while registry.roll() walks THIS replica through
+        # drain -> swap -> revive.
+        self.rolling = False
 
     @property
     def ranks(self) -> List[int]:
@@ -61,7 +68,10 @@ class Replica:
                "queued": self.engine.batcher.depth(),
                "kv_mode": self.engine.kv_mode,
                "attn_impl": self.engine.attn_impl,
-               "kv_dtype": self.engine.kv_dtype}
+               "kv_dtype": self.engine.kv_dtype,
+               "rolling": self.rolling,
+               "models": {name: self.engine._model_versions.get(name, 0)
+                          for name in sorted(self.engine._adapters)}}
         kv = self.engine.kv_stats()
         if kv is not None:
             # The fork counters and spec config ride healthz next to the
@@ -69,8 +79,9 @@ class Replica:
             out["kv_blocks"] = {k: kv[k] for k in
                                 ("total", "used", "free", "retained",
                                  "bytes_per_block", "pool_bytes",
-                                 "weight_bytes", "seq_forks",
-                                 "forked_requests", "spec_k") if k in kv}
+                                 "weight_bytes", "kv_headroom_bytes",
+                                 "seq_forks", "forked_requests", "spec_k")
+                                if k in kv}
         return out
 
 
@@ -104,9 +115,18 @@ class ReplicaScheduler:
         backpressures; the next-least-loaded healthy replica is tried
         before the request is shed."""
         candidates = sorted(self._healthy(), key=lambda r: r.load())
+        if request.model is not None:
+            # Only replicas where the model is resident.  A model known
+            # to SOME replicas while all of them are dead is a fleet
+            # condition (503); an unknown-everywhere model is the
+            # caller's error, answered 400 by the server before this.
+            candidates = [r for r in candidates
+                          if request.model in r.engine._adapters]
         if not candidates:
             self.metrics.count_request("error", tenant=request.tenant)
-            raise NoHealthyReplicaError("no healthy replicas")
+            raise NoHealthyReplicaError(
+                "no healthy replicas" if request.model is None else
+                f"no healthy replica holds model {request.model!r}")
         last_exc: Optional[Exception] = None
         for replica in candidates:
             try:
@@ -163,17 +183,31 @@ class ReplicaScheduler:
                 req.fail(NoHealthyReplicaError(
                     f"replica {replica_id} lost with no survivors"))
             return
+        # Dealt round-robin from the least loaded survivor; a request
+        # pinned to a model goes only to survivors holding it (during a
+        # roll, exactly the replicas still serving the variant).
         chunks = {s.replica_id: [] for s in survivors}
-        for i, req in enumerate(orphans):
+        rr: Dict[Optional[str], int] = {}  # per-model deal cursor
+        for req in orphans:
+            eligible = survivors if req.model is None else [
+                s for s in survivors if req.model in s.engine._adapters]
+            if not eligible:
+                self.metrics.count_request("error", tenant=req.tenant)
+                req.fail(NoHealthyReplicaError(
+                    f"no surviving replica holds model {req.model!r}"))
+                continue
+            i = rr.get(req.model, 0)
+            rr[req.model] = i + 1
             self.metrics.count_request("requeued", tenant=req.tenant)
-            chunks[survivors[i % len(survivors)].replica_id].append(req)
+            chunks[eligible[i % len(eligible)].replica_id].append(req)
         for s in survivors:
             s.engine.batcher.requeue_front(chunks[s.replica_id])
 
     def mark_alive(self, replica_id: str, reason: str = "") -> None:
-        """Re-admit a dead replica: reopen its batcher, restart its loop.
-        Safe on the existing pool: drain freed every block reference and
-        the attention masks everything past a live sequence's length."""
+        """Re-admit a dead replica: reopen its batcher, restart its loop
+        (which re-runs warmup when it is enabled).  Safe on the existing
+        pool: drain freed every block reference and the attention masks
+        everything past a live sequence's length."""
         with self._lock:
             replica = next((r for r in self.replicas
                             if r.replica_id == replica_id), None)

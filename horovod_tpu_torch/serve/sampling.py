@@ -221,15 +221,29 @@ def filter_logits(logits: torch.Tensor, temperature, top_k, top_p
     return masked.masked_fill(~(probs >= thr), float("-inf"))
 
 
+def _masked(logits, allowed):
+    """``logits`` with the tokens outside the boolean mask ``allowed``
+    at -inf (structured decoding's pre-mask); unchanged when ``allowed``
+    is None."""
+    logits = np.asarray(logits)
+    if allowed is None:
+        return logits
+    return np.where(np.asarray(allowed, bool), logits, -np.inf)
+
+
 def filtered_probs(logits: np.ndarray, temperature: float,
-                   top_k: Optional[int], top_p: float) -> np.ndarray:
+                   top_k: Optional[int], top_p: float,
+                   allowed: Optional[np.ndarray] = None) -> np.ndarray:
     """Host mirror of ``filter_logits`` as a probability vector, with the
     same support (``top_p >= 1`` included) — the target distribution
     ``p`` speculative rejection sampling must preserve (accept prob,
     residual resample) and the reference the chi-square distribution
     tests check against (``filtered_probs``,
-    ``horovod_tpu/serve/sampling.py:165``)."""
-    logits = np.asarray(logits, np.float32)
+    ``horovod_tpu/serve/sampling.py:165``).  ``allowed`` (a boolean
+    ``[V]`` mask, structured decoding) removes the disallowed tokens
+    BEFORE temperature, top-k and top-p, as JAX's ``_filter_logits_jnp``
+    does, so the filters act on the constrained distribution."""
+    logits = np.asarray(_masked(logits, allowed), np.float32)
     V = logits.shape[-1]
     scaled = logits / max(float(temperature), 1e-6)
     desc = np.sort(scaled)[::-1]
@@ -291,15 +305,23 @@ def pack_params(keys: np.ndarray, positions, temperatures, top_ks,
     return out
 
 
-def sample_batched(logits: torch.Tensor, packed) -> torch.Tensor:
+def sample_batched(logits: torch.Tensor, packed,
+                   allowed=None) -> torch.Tensor:
     """One token per row of ``logits`` [B, V], on their device (int64
     [B]).  ``packed`` is ``pack_params``'s ``[B, 5]`` array, as numpy or
     as a tensor already on the logits' device.  Each row's noise depends
     on its own row words and the vocab id only — nothing here depends on
     b itself or on B, which is the whole batched == single contract.
     Rows with temperature <= 0 return ``argmax(logits[b])``
-    bit-identically to the greedy step."""
+    bit-identically to the greedy step.  ``allowed`` (a [B, V] boolean
+    mask, structured decoding) puts the tokens outside it at -inf before
+    the filters, as ``sample_host``: greedy rows take the masked argmax,
+    and a row whose mask allows every token draws as with no mask."""
     packed = torch.as_tensor(packed, device=logits.device)
+    if allowed is not None:
+        allowed = torch.as_tensor(allowed, dtype=torch.bool,
+                                  device=logits.device)
+        logits = logits.masked_fill(~allowed, float("-inf"))
     temperatures = packed[:, 2].float()
     filtered = filter_logits(logits, temperatures, packed[:, 3].long(),
                              packed[:, 4].float())
@@ -321,31 +343,36 @@ def _draw_from_probs(probs: np.ndarray, u: float) -> int:
 
 def sample_host(logits: np.ndarray, base_key, position: int,
                 temperature: float, top_k: Optional[int],
-                top_p: float) -> int:
+                top_p: float, allowed: Optional[np.ndarray] = None) -> int:
     """One host-side token draw for the token occupying ``position`` —
     the first-token path after prefill (n>1 forks draw n tokens from one
     logit row with n different base keys), the speculative bonus token
     and test references: inverse CDF of ``filtered_probs`` at one
-    uniform."""
+    uniform.  ``allowed`` (structured decoding) constrains both arms:
+    greedy becomes the masked argmax, sampled applies the mask before
+    the filters (``horovod_tpu/serve/sampling.py:239``)."""
     if temperature <= 0:
-        return int(np.argmax(np.asarray(logits)))
-    probs = filtered_probs(logits, temperature, top_k, top_p)
+        return int(np.argmax(_masked(logits, allowed)))
+    probs = filtered_probs(logits, temperature, top_k, top_p,
+                           allowed=allowed)
     return _draw_from_probs(probs, _uniform(token_key(base_key, position)))
 
 
 def sample_host_fused(logits, base_key, position: int,
                       temperature: float, top_k: Optional[int],
-                      top_p: float) -> int:
+                      top_p: float, allowed=None) -> int:
     """The device draw (``sample_batched``) of one row on the CPU:
     Gumbel-max over the filtered logits under the token's key, the same
     formula the sampled decode step runs (``sample_host`` keeps the
-    inverse-CDF draw the first-token and speculative paths use)."""
+    inverse-CDF draw the first-token and speculative paths use).
+    ``allowed`` masks before the filters, as ``sample_host``."""
     if temperature <= 0:
-        return int(np.argmax(np.asarray(logits)))
+        return int(np.argmax(_masked(logits, allowed)))
     row = torch.as_tensor(np.asarray(logits, np.float32))[None]
     packed = pack_params(np.asarray(base_key, np.uint32)[None], [position],
                          [temperature], [int(top_k) if top_k else 0], [top_p])
-    return int(sample_batched(row, packed)[0])
+    mask = None if allowed is None else np.asarray(allowed, bool)[None]
+    return int(sample_batched(row, packed, mask)[0])
 
 
 def accept_draw(base_key, position: int) -> float:

@@ -1,25 +1,43 @@
-"""HTTP serving front-end: ``/generate``, ``/healthz``, ``/metrics``.
+"""HTTP serving front-end: ``/generate``, ``/score``, ``/healthz``,
+``/metrics``.
 
 Port of ``horovod_tpu/serve/server.py``: ``ThreadingHTTPServer`` with
-HTTP/1.1 keep-alive and an explicit Content-Length on every response,
-Nagle off, daemon handler threads, and a ``/generate`` handler thread
-that parks in ``Request.result()`` while the engine threads decode.
+HTTP/1.1 keep-alive and an explicit Content-Length on every buffered
+response, Nagle off, daemon handler threads, and a ``/generate`` handler
+thread that parks in ``Request.result()`` (or drains the request's
+token stream) while the engine threads decode.
+
+``/generate`` fields: ``tokens``, ``max_new_tokens``, ``eos_id``,
+``timeout_s`` (or ``X-Request-Timeout-S``), ``qos`` (or ``X-QoS-Tier``),
+``tenant`` (or ``X-Tenant-Id``), the sampling fields (``temperature``,
+``top_k``, ``top_p``, ``n``, ``seed``), ``model`` (a resident variant,
+``serve/registry.py``), ``logprobs: k`` (per-token logprobs with the
+top k), ``schema`` (grammar-constrained decoding, ``serve/structured.py``;
+needs ``eos_id``) and ``stream`` (or ``Accept: text/event-stream``):
+Server-Sent Events over chunked transfer, one ``token`` event per
+published token (``logprobs`` riding along when asked) and one terminal
+``done`` event carrying the buffered body's outcome fields, or ``error``.
+``POST /score`` answers the per-token logprobs of ``tokens`` under a
+model (teacher-forced, no decoding; ``top_logprobs`` up to 16).
 
 Status mapping:
 
 * 200 — tokens generated (buffered JSON): ``tokens``, and for n > 1
   ``n`` and ``completions`` (one token list per sample, sample 0 equal
   to ``tokens``); the effective ``seed`` is echoed on every response,
-  so replaying it reproduces a sampled answer;
-* 400 — malformed body, a sampling field that ``validate_params``
-  refuses (``temperature``, ``top_k``, ``top_p``, ``n``, ``seed``), or
-  a field that needs a module the port has not ported yet
-  (``stream``, ``schema``, ``logprobs``, ``model``; ``POST /score``) —
-  the error names the missing feature, the field is never silently
-  ignored;
+  so replaying it reproduces a sampled answer; ``finish_reason``
+  (``stop`` | ``length`` | ``grammar``) and ``logprobs`` when asked;
+* 400 — malformed body, a field the request or the engine refuses (a
+  sampling field ``validate_params`` refuses, an unsupported schema
+  keyword, a schema without ``eos_id``, ``logprobs`` below 1, an
+  unknown model, a prompt too long) — a streamed request that fails
+  before its first byte answers the same buffered 400;
 * 503 + ``Retry-After`` — shed: every healthy queue is full, no healthy
-  replica exists, or the server is draining;
-* 504 — the request's own deadline expired (queued or decoding).
+  replica (holding the model) exists, or the server is draining;
+* 504 — the request's own deadline expired (queued or decoding).  After
+  a stream's first byte, a failure is a terminal ``error`` event with
+  the same code; a client that hangs up mid-stream cancels its sequence
+  in the engine (outcome ``client_gone``).
 
 ``python -m horovod_tpu_torch.serve`` runs ``run_commandline``.
 """
@@ -29,14 +47,17 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..faultline import runtime as _faultline
 from ..utils import get_logger
 from .batcher import DeadlineExceededError, QueueFullError, Request
-from .engine import unported_feature
 from .metrics import ServeMetrics
 from .replica import NoHealthyReplicaError, ReplicaScheduler
+from .streaming import (CHUNK_TERMINATOR, TokenStream, chunk_frame,
+                        encode_sse, error_status_for, wants_stream)
 
 
 class DrainingThreadingHTTPServer(ThreadingHTTPServer):
@@ -94,13 +115,6 @@ def serve_until_signal(drain_fn, evt: threading.Event) -> int:
     finally:
         drain_fn()
     return 0
-
-
-def _wants_stream(payload: dict, headers) -> bool:
-    """The streaming opt-in: ``"stream": true`` in the body, or an
-    ``Accept: text/event-stream`` header."""
-    return (bool(payload.get("stream"))
-            or "text/event-stream" in (headers.get("Accept") or ""))
 
 
 class _ServeHandler(BaseHTTPRequestHandler):
@@ -177,14 +191,19 @@ class _ServeHandler(BaseHTTPRequestHandler):
             if path == "/generate":
                 self._handle_generate()
             elif path == "/score":
-                self._reply_json(400, {"error": (
-                    "/score (logprob scoring) is not supported by "
-                    "horovod_tpu_torch yet")})
+                self._handle_score()
             else:
                 self._reply_json(
-                    404, {"error": f"POST /generate, not {path}"})
+                    404, {"error": f"POST /generate or /score, not {path}"})
         finally:
             self.server.request_ended()
+
+    def _known_model(self, model: str) -> bool:
+        registry = self.server.registry
+        if registry is not None:
+            return registry.has(model)
+        return any(model in r.engine._adapters
+                   for r in self.server.scheduler.fleet())
 
     def _handle_generate(self) -> None:
         try:
@@ -205,7 +224,26 @@ class _ServeHandler(BaseHTTPRequestHandler):
             tenant = payload.get("tenant")
             if tenant is None:
                 tenant = self.headers.get("X-Tenant-Id") or "default"
+            # ``model`` selects a resident variant; a model unknown
+            # everywhere is the caller's error (400, here, before
+            # submit); known but with every holder dead is a 503 from
+            # routing.
             model = payload.get("model")
+            if model is not None:
+                model = str(model)
+                if not self._known_model(model):
+                    raise ValueError(f"unknown model {model!r}")
+            # The schema compiles here first, so an unsupported keyword
+            # answers 400 at once; the engine compiles it again against
+            # the model's vocabulary.
+            schema = payload.get("schema")
+            if schema is not None:
+                from .structured import parse_schema
+                parse_schema(schema)
+                if payload.get("eos_id") is None:
+                    raise ValueError(
+                        "schema requires eos_id (EOS marks document "
+                        "completion at accepting states)")
             request = Request(
                 prompt,
                 max_new_tokens=int(payload.get("max_new_tokens", 16)),
@@ -219,19 +257,23 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 seed=payload.get("seed"),
                 qos=str(qos).strip().lower(),
                 tenant=str(tenant),
-                model=None if model is None else str(model),
-                stream=_wants_stream(payload, self.headers),
+                model=model,
+                stream=wants_stream(payload, self.headers),
                 logprobs=payload.get("logprobs"),
-                schema=payload.get("schema"))
-            feature = unported_feature(request)
-            if feature is not None:
-                raise ValueError(f"{feature} is not supported by "
-                                 f"horovod_tpu_torch yet")
+                schema=schema)
         except (KeyError, TypeError, ValueError) as e:
             self._reply_json(400, {"error": str(e)})
             return
+        if request.stream:
+            # The sink attaches BEFORE submit: the engine's first
+            # publish may beat this thread back from submit().
+            request.sink = TokenStream(
+                logprobs=request.logprobs is not None)
         try:
             self.server.scheduler.submit(request)
+            if request.stream:
+                self._stream_response(request)
+                return
             tokens = request.result(timeout=self.server.request_timeout_s)
         except (QueueFullError, NoHealthyReplicaError) as e:
             self._reply_json(503, {"error": str(e)},
@@ -244,12 +286,23 @@ class _ServeHandler(BaseHTTPRequestHandler):
         except Exception as e:  # engine-side failure — surfaced, not hung
             self._reply_json(500, {"error": str(e)})
             return
+        body = self._outcome_body(request)
+        body["tokens"] = tokens
+        if request.n > 1:
+            body["n"] = request.n
+            body["completions"] = request.samples
+        self._reply_json(200, body)
+
+    @staticmethod
+    def _outcome_body(request: Request) -> dict:
+        """The outcome fields shared verbatim by the buffered 200 body and
+        the streamed ``done`` event: one builder, so "token events +
+        done event == buffered response" holds by construction."""
         ttft_ms = None
         if request.first_token_at is not None:
             ttft_ms = round(
                 (request.first_token_at - request.submitted_at) * 1e3, 3)
         body = {
-            "tokens": tokens,
             "request_id": request.request_id,
             "replica": request.replica_id,
             "requeues": request.requeues,
@@ -260,13 +313,167 @@ class _ServeHandler(BaseHTTPRequestHandler):
             "finish_reason": request.finish_reason,
             "usage": {
                 "prompt_tokens": len(request.prompt),
-                "completion_tokens": len(tokens),
-                "total_tokens": len(request.prompt) + len(tokens),
+                "completion_tokens": len(request.generated),
+                "total_tokens":
+                    len(request.prompt) + len(request.generated),
             },
         }
-        if request.n > 1:
-            body["n"] = request.n
-            body["completions"] = request.samples
+        if request.model is not None:
+            body["model"] = request.model
+        if request.token_logprobs is not None:
+            body["logprobs"] = request.token_logprobs
+        return body
+
+    # -- streaming (serve/streaming.py) --------------------------------------
+
+    def _write_stream_frame(self, request: Request, data: bytes) -> bool:
+        """One chunked-transfer write, the ``stream.emit`` fault point
+        consulted first: ``slow-client`` stalls this handler (the sink's
+        bounded queue coalesces upstream), ``stream-disconnect`` raises
+        the BrokenPipeError a real hangup gives.  False on a dead socket
+        — the caller cancels the request in the engine."""
+        try:
+            for f in _faultline.fire("stream.emit", request.request_id):
+                if f.kind == "slow-client":
+                    time.sleep(f.param or 0.05)
+                elif f.kind == "stream-disconnect":
+                    raise BrokenPipeError(
+                        "faultline: stream-disconnect injected")
+            self.wfile.write(data)
+            self.wfile.flush()
+            return True
+        except OSError as e:  # BrokenPipeError, ConnectionResetError
+            get_logger().debug("serve: %s client gone (%s)",
+                               request.request_id, e)
+            return False
+
+    def _stream_response(self, request: Request) -> None:
+        """The /generate answer as SSE over chunked transfer.  A failure
+        BEFORE the first byte answers buffered JSON (400/503/504/500, as
+        the buffered path); after it, the stream ends with a terminal
+        ``error`` event carrying the same code.  A dead client socket at
+        any write cancels the sequence (``Request.cancel``: slot and
+        blocks freed, outcome ``client_gone``).  The engine lock is
+        never held here: events come from the request's TokenStream."""
+        sink = request.sink
+        deadline = time.monotonic() + self.server.request_timeout_s
+        first = sink.next_event(timeout=self.server.request_timeout_s)
+        if first is None:
+            first = ("error", TimeoutError(
+                f"{request.request_id} server cap "
+                f"({self.server.request_timeout_s:.0f}s) expired before "
+                f"the first token"))
+        if first[0] == "error":
+            exc = first[1]
+            status = error_status_for(exc)
+            if status == 504 and not isinstance(exc, DeadlineExceededError):
+                request.cancel("server_cap")
+            extra = (self._budget_headers(request)
+                     if status in (503, 504) else ())
+            self._reply_json(status, {"error": str(exc)},
+                             extra_headers=extra)
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        # A body of unknown length owns its connection: no keep-alive.
+        self.send_header("Connection", "close")
+        self.end_headers()
+        ev = first
+        try:
+            while True:
+                kind, data = ev
+                if kind == "token":
+                    if not self._write_stream_frame(
+                            request, chunk_frame(encode_sse("token", data))):
+                        request.cancel()
+                        return
+                elif kind == "done":
+                    body = self._outcome_body(request)
+                    body["stream"] = sink.counters()
+                    self._write_stream_frame(
+                        request, chunk_frame(encode_sse("done", body))
+                        + CHUNK_TERMINATOR)
+                    return
+                else:  # ("error", exc): a terminal failure mid-stream
+                    self._write_stream_frame(request, chunk_frame(
+                        encode_sse("error", {"error": str(data),
+                                             "code": error_status_for(
+                                                 data)}))
+                        + CHUNK_TERMINATOR)
+                    return
+                remaining = deadline - time.monotonic()
+                ev = (sink.next_event(timeout=remaining)
+                      if remaining > 0 else None)
+                if ev is None:
+                    # The server's cap expired mid-stream: a terminal 504
+                    # event, and the engine reaps the sequence.
+                    request.cancel("server_cap")
+                    exc = TimeoutError(
+                        f"{request.request_id} server cap "
+                        f"({self.server.request_timeout_s:.0f}s) expired "
+                        f"mid-stream")
+                    self._write_stream_frame(request, chunk_frame(
+                        encode_sse("error", {"error": str(exc),
+                                             "code": 504}))
+                        + CHUNK_TERMINATOR)
+                    return
+        finally:
+            self.server.metrics.count_stream(sink.counters())
+
+    # -- /score ------------------------------------------------------------------
+
+    def _handle_score(self) -> None:
+        """POST /score: per-token logprobs of ``tokens`` under the model,
+        teacher-forced through the paged pipeline
+        (``InferenceEngine.score_tokens``), on the least loaded healthy
+        replica holding the model; position 0 scores null."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            tokens = payload["tokens"]
+            if not isinstance(tokens, list) or not tokens:
+                raise ValueError("'tokens' must be a non-empty list")
+            tokens = [int(t) for t in tokens]
+            top = int(payload.get("top_logprobs", 0))
+            if not 0 <= top <= 16:
+                raise ValueError(
+                    f"top_logprobs must be in [0, 16], got {top}")
+            model = payload.get("model")
+            if model is not None:
+                model = str(model)
+        except (KeyError, TypeError, ValueError) as e:
+            self._reply_json(400, {"error": str(e)})
+            return
+        target = None
+        for r in self.server.scheduler.fleet():
+            if r.state != "healthy":
+                continue
+            if model is not None and model not in r.engine._adapters:
+                continue
+            if target is None or r.engine.load() < target.engine.load():
+                target = r
+        if target is None:
+            e = NoHealthyReplicaError(
+                f"no healthy replica holds model {model!r}"
+                if model is not None else "no healthy replica")
+            self._reply_json(503, {"error": str(e)},
+                             extra_headers=self._budget_headers())
+            return
+        try:
+            entries = target.engine.score_tokens(tokens, model=model,
+                                                 top=top)
+        except (KeyError, ValueError) as e:
+            self._reply_json(400, {"error": str(e)})
+            return
+        except Exception as e:
+            self._reply_json(500, {"error": str(e)})
+            return
+        body = {"tokens": tokens, "logprobs": entries,
+                "replica": target.replica_id}
+        if model is not None:
+            body["model"] = model
         self._reply_json(200, body)
 
 
@@ -275,9 +482,14 @@ class ServeServer:
 
     def __init__(self, scheduler: ReplicaScheduler,
                  metrics: Optional[ServeMetrics] = None,
-                 request_timeout_s: Optional[float] = None):
+                 request_timeout_s: Optional[float] = None,
+                 registry=None):
         self.scheduler = scheduler
         self.metrics = metrics or scheduler.metrics
+        # Optional ModelRegistry (serve/registry.py): the unknown-model
+        # gate asks it first; without one the handler scans the fleet's
+        # resident adapters.
+        self.registry = registry
         self.request_timeout_s = (
             request_timeout_s if request_timeout_s is not None
             else float(os.environ.get("HVD_SERVE_REQUEST_TIMEOUT_S", "120")))
@@ -290,6 +502,7 @@ class ServeServer:
                                                  _ServeHandler)
         self.httpd.scheduler = self.scheduler
         self.httpd.metrics = self.metrics
+        self.httpd.registry = self.registry
         self.httpd.request_timeout_s = self.request_timeout_s
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True, name="hvd-serve-http")
@@ -337,11 +550,15 @@ class ServeServer:
 # ---------------------------------------------------------------------------
 
 def _build_adapter_factory(args):
-    """Model factory for the CLI, random weights drawn from ``--seed``
-    (loading checkpoints is not ported yet); the replicas share the one
-    weight copy.  ``mlp``: the engine-mechanics MLP over a
-    ``--vocab-size`` vocabulary, as the JAX CLI builds it; GPT-2 in
-    f32, as the JAX CLI builds it."""
+    """Model factory for the CLI; the replicas share the one weight
+    copy.  ``mlp``: the engine-mechanics MLP over a ``--vocab-size``
+    vocabulary from ``--seed``, as the JAX CLI builds it.  GPT-2 serves
+    in f32, as the JAX CLI does: the parameters of ``--checkpoint`` (the
+    port's checkpoint directory, or one holding the JAX package's
+    parameter tree, ``registry.load_serving_params``), else random
+    weights from ``--seed``."""
+    import dataclasses
+
     import torch
     if args.model == "mlp":
         from ..models import create_mlp
@@ -351,15 +568,28 @@ def _build_adapter_factory(args):
                          seed=args.seed)
         return lambda: MLPAdapter(mlp, vocab_size=vocab,
                                   max_len=args.max_len)
-    from ..models import create_gpt2
+    from ..models import GPT2_LARGE, GPT2_MEDIUM, GPT2_SMALL, create_gpt2
     from .engine import TransformerAdapter
     size = args.model.split("-", 1)[1] if "-" in args.model else "small"
-    model = create_gpt2(size, device=args.device, seed=args.seed,
-                        max_len=args.max_len, dtype=torch.float32)
-    get_logger().warning(
-        "hvdserve: serving RANDOM weights from seed %d (stack exercise "
-        "only)", args.seed)
-    return lambda: TransformerAdapter(model.cfg, model, max_len=args.max_len,
+    if getattr(args, "checkpoint", None):
+        from .registry import load_serving_params
+        base = {"small": GPT2_SMALL, "medium": GPT2_MEDIUM,
+                "large": GPT2_LARGE}[size]
+        cfg = dataclasses.replace(base, max_len=args.max_len,
+                                  dtype=torch.float32)
+        # Host tensors: on the device in f32 once, so every replica's
+        # adapter lays out views of the one copy.
+        params = {k: v.to(args.device, torch.float32)
+                  if v.is_floating_point() else v.to(args.device)
+                  for k, v in load_serving_params(args.checkpoint).items()}
+    else:
+        params = create_gpt2(size, device=args.device, seed=args.seed,
+                             max_len=args.max_len, dtype=torch.float32)
+        cfg = params.cfg
+        get_logger().warning(
+            "hvdserve: no --checkpoint given — serving RANDOM weights "
+            "from seed %d (stack exercise only)", args.seed)
+    return lambda: TransformerAdapter(cfg, params, max_len=args.max_len,
                                       device=args.device)
 
 
@@ -373,6 +603,9 @@ def run_commandline(argv=None) -> int:
     parser.add_argument("--model", default="mlp",
                         choices=("mlp", "gpt2-small", "gpt2-medium",
                                  "gpt2-large"))
+    parser.add_argument("--checkpoint", default=None,
+                        help="checkpoint directory of the transformer's "
+                             "parameters (checkpoint.save_model)")
     parser.add_argument("--replicas", type=int, default=None,
                         help="serving replicas (default HVD_SERVE_REPLICAS "
                              "or 1)")
@@ -403,6 +636,8 @@ def run_commandline(argv=None) -> int:
     scheduler = build_replicas(_build_adapter_factory(args),
                                num_replicas=args.replicas,
                                max_batch=args.max_batch)
+    if _core._state.timeline is not None:
+        scheduler.metrics.set_timeline(_core._state.timeline)
     server = ServeServer(scheduler)
     # Arm the drain signals BEFORE the readiness banner.
     evt = arm_signal_event()

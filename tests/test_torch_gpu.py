@@ -1608,3 +1608,153 @@ def test_elastic_in_place_reset_aborts_and_frees_the_nccl_group(
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "RESET DONE batches=6 old_group_freed=True world=nccl" in \
         proc.stdout, proc.stdout[-3000:]
+
+
+# -- the request surface on the kernels ----------------------------------------
+
+def _surface_model(dev, seed=0, spread=True):
+    model = init_gpt2_(Transformer(_TINY, device=dev),
+                       torch.Generator(device=dev).manual_seed(seed))
+    if spread:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(10.0)   # spread the logits so the streams vary
+    return model
+
+
+def _prefilled(ad, prompts, nb=24):
+    """``prompts`` prefilled into a fresh pool of ``ad``, blocks dealt in
+    order; returns the pool and the tables."""
+    tables, nxt = [], 0
+    for p in prompts:
+        need = -(-(len(p) + 2) // ad.block_tokens)
+        tables.append(list(range(nxt, nxt + need)))
+        nxt += need
+    pool = ad.init_paged_cache(nb, 4)
+    pool, _ = ad.prefill_chunk(pool, prompts, [0] * len(prompts), tables)
+    return pool, tables
+
+
+@pytest.mark.gpu
+def test_score_and_decode_logits_on_the_kernels_match_the_plain_route(
+        cuda_device):
+    """``score_logits`` runs one chunk, the prefill route once per layer
+    (the decode route for a single token), and ``decode_paged_logits``
+    the decode route once per layer; both
+    agree with the plain route on the card (at GPT-2's init scale: the
+    tolerance is the paged one)."""
+    model = _surface_model(cuda_device, spread=False)
+    kad, gad = (TransformerAdapter(_TINY, model, block_tokens=8,
+                                   attn_impl=impl, device=cuda_device)
+                for impl in ("kernel", "gather"))
+    L = _TINY.num_layers
+    for n in (1, 8, 29, _TINY.max_len):
+        toks = np.random.RandomState(n).randint(0, 61, (n,)).tolist()
+        before = dict(tpa.LAUNCHES)
+        got = kad.score_logits(toks)
+        # One query row takes the decode route, a longer chunk prefill.
+        route = "decode" if n == 1 else "prefill"
+        assert tpa.LAUNCHES[f"paged_attention_{route}"] - \
+            before[f"paged_attention_{route}"] == L
+        assert tpa.LAUNCHES["paged_attention"] - \
+            before["paged_attention"] == L
+        np.testing.assert_allclose(got, gad.score_logits(toks), rtol=RTOL,
+                                   atol=ATOL)
+    prompts = [np.random.RandomState(n).randint(0, 61, (n,)).tolist()
+               for n in (7, 8, 17)]
+    kpool, tables = _prefilled(kad, prompts)
+    gpool, _ = _prefilled(gad, prompts)
+    tab = np.full((4, kad.max_blocks_per_seq), 24)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    tokens = np.array([3, 5, 7, 0])
+    positions = np.array([len(p) for p in prompts] + [0])
+    before = tpa.LAUNCHES["paged_attention_decode"]
+    _, got = kad.decode_paged_logits(kpool, tokens, positions, tab)
+    assert tpa.LAUNCHES["paged_attention_decode"] - before == L
+    _, want = gad.decode_paged_logits(gpool, tokens, positions, tab)
+    np.testing.assert_allclose(got[:3], want[:3], rtol=RTOL, atol=ATOL)
+    _, greedy = kad.decode_paged(kpool, tokens, positions, tab)
+    assert list(greedy[:3]) == list(got[:3].argmax(-1))
+
+
+@pytest.mark.gpu
+def test_warmup_builds_the_kernels_and_leaves_the_pool_empty(cuda_device):
+    """Warmup runs both routes (the library is built and loaded before
+    the loop serves), allocates no block, and the first request after
+    it answers as a cold engine does."""
+    from horovod_tpu_torch.csrc import build
+    model = _surface_model(cuda_device, seed=1)
+
+    def engine(warm):
+        ad = TransformerAdapter(_TINY, model, block_tokens=8,
+                                device=cuda_device)
+        return InferenceEngine(ad, max_batch=4, prefill_chunk=16,
+                               warmup=warm, metrics=ServeMetrics(),
+                               replica_id=f"warm-{warm}")
+
+    warm = engine(True)
+    before = dict(tpa.LAUNCHES)
+    warm.start()
+    try:
+        assert warm.warmup_runs == 1 and warm.last_warmup_ms > 0
+        assert build._lib is not None
+        for route in ("paged_attention_decode", "paged_attention_prefill"):
+            assert tpa.LAUNCHES[route] > before[route], route
+        stats = warm.kv_stats()
+        assert stats["used"] == 0 and stats["retained"] == 0
+        cold = engine(False).start()
+        try:
+            prompt = list(range(5, 30))
+            assert warm.generate(prompt, max_new_tokens=6) == \
+                cold.generate(prompt, max_new_tokens=6)
+        finally:
+            cold.stop()
+    finally:
+        warm.stop()
+
+
+@pytest.mark.gpu
+def test_two_model_decode_step_leaves_the_other_models_blocks_untouched(
+        cuda_device):
+    """One pool, two models: a decode step of model A over its row (the
+    other rows all holes) changes no block of model B's sequence, and
+    the engine serving both at once answers each as a one-model engine
+    does."""
+    base = _surface_model(cuda_device, seed=2)
+    variant = _surface_model(cuda_device, seed=3)
+    ad_a, ad_b = (TransformerAdapter(_TINY, m, block_tokens=8,
+                                     device=cuda_device)
+                  for m in (base, variant))
+    pa_, pb_ = [1, 2, 3, 4, 5, 6, 7, 8, 9], [9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 3]
+    pool = ad_a.init_paged_cache(24, 4)
+    pool, _ = ad_a.prefill_chunk(pool, [pa_], [0], [[0, 1]])
+    pool, _ = ad_b.prefill_chunk(pool, [pb_], [0], [[2, 3]])
+    tab = np.full((4, ad_a.max_blocks_per_seq), 24)
+    tab[0, :2] = [0, 1]
+    snap = {k: v[:, 2:4].clone() for k, v in pool.items()}
+    pool, _ = ad_a.decode_paged_logits(pool, np.array([4, 0, 0, 0]),
+                                       np.array([len(pa_), 0, 0, 0]), tab)
+    for k, v in pool.items():
+        assert torch.equal(v[:, 2:4], snap[k]), k
+    eng = InferenceEngine(ad_a, max_batch=4, prefill_chunk=5,
+                          metrics=ServeMetrics())
+    eng.add_model("variant", ad_b)
+    alone = [InferenceEngine(ad, max_batch=4, prefill_chunk=5,
+                             metrics=ServeMetrics()).start()
+             for ad in (ad_a, ad_b)]
+    eng.start()
+    try:
+        reqs = [Request(p, max_new_tokens=6, model=m)
+                for p in (pa_, pb_) for m in (None, "variant")]
+        for r in reqs:
+            eng.batcher.submit(r)
+        got = [r.result(timeout=120) for r in reqs]
+        want = [alone[m is not None].generate(p, max_new_tokens=6)
+                for p in (pa_, pb_) for m in (None, "variant")]
+        assert got == want
+        assert eng.kv_stats()["used"] == 0
+    finally:
+        eng.stop()
+        for e in alone:
+            e.stop()

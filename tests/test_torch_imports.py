@@ -74,7 +74,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "runner", "runner.launch", "runner.http_server",
                  "runner.hosts", "runner.safe_shell_exec", "data",
                  "data.data_loader_base", "data.service", "autotune",
-                 "optim", "examples.elastic_resnet"):
+                 "optim", "examples.elastic_resnet", "faultline",
+                 "faultline.plan", "faultline.runtime",
+                 "serve.streaming", "serve.structured",
+                 "serve.registry"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -132,7 +135,10 @@ def test_no_port_file_imports_jax(path):
                                   "serve/tenancy.py", "exceptions.py",
                                   "version.py", "timeline.py", "optim.py",
                                   "autotune.py", "runner/hosts.py",
-                                  "runner/safe_shell_exec.py"])
+                                  "runner/safe_shell_exec.py",
+                                  "serve/structured.py",
+                                  "faultline/__init__.py",
+                                  "faultline/runtime.py"])
 def test_copied_modules_match_their_source(name):
     """The pure-Python modules the port copies keep the source's code:
     only the module docstring (which names the source) differs."""
@@ -163,6 +169,9 @@ _LOGGER_IMPORT = {"removed": {"from ..utils import get_logger"},
 # Docstrings are not compared.  Every copy imports its logger from
 # ``utils.logging``: the port's ``utils`` package re-exports nothing.
 COPY_EDITS = {
+    "serve/streaming.py": {},
+    # No request tracing (``obs/``) in the port yet: no trace id.
+    "faultline/plan.py": {"changed": {"_active_trace_id"}},
     "elastic/discovery.py": dict(_LOGGER_IMPORT),
     "elastic/registration.py": {},
     "elastic/launch_support.py": {},

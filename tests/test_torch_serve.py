@@ -9,9 +9,12 @@ CPU.  Greedy token streams must be identical, at prompt lengths that
 straddle block boundaries (k·BT, k·BT±1), for native and int8 KV
 blocks.  Inside the port: batched == single, pool-exhaustion preemption
 and poisoned-batch recovery still answer exactly, and the HTTP server
-answers ``/generate``, ``/healthz`` and ``/metrics`` and refuses, with
-400, the request fields whose modules are not ported yet and the
-sampling fields ``validate_params`` refuses.
+answers ``/generate``, ``/healthz`` and ``/metrics``, and answers the
+values the JAX server refuses with the JAX server's status.  The request
+surface: ``score_logits`` and ``decode_paged_logits`` against the JAX
+adapter's, logprob entries, grammar-constrained greedy output and the
+EOS stop (greedy, speculative, n > 1) against the JAX engine's, and the
+CLI's ``--checkpoint``.
 """
 
 import json
@@ -34,8 +37,9 @@ from horovod_tpu.serve import InferenceEngine as JaxEngine
 from horovod_tpu.serve import TransformerAdapter as JaxAdapter
 from horovod_tpu_torch.models import (Transformer, TransformerConfig,
                                       params_from_jax)
-from horovod_tpu_torch.serve import (InferenceEngine, Request, ServeServer,
-                                     TransformerAdapter, build_replicas)
+from horovod_tpu_torch.serve import (InferenceEngine, Request, ServeMetrics,
+                                     ServeServer, TransformerAdapter,
+                                     build_replicas)
 from horovod_tpu_torch.serve.engine import _Seq
 
 torch.set_num_threads(2)
@@ -303,36 +307,57 @@ def test_server_generate_healthz_metrics(server, weights):
         assert family in text, family
 
 
-_UNPORTED = "not supported"
+@pytest.fixture(scope="module")
+def jax_server(weights):
+    """The JAX package's server over the same weights, for the status
+    every refused request must share."""
+    from horovod_tpu.serve import Replica as JaxReplica
+    from horovod_tpu.serve import ReplicaScheduler as JaxScheduler
+    from horovod_tpu.serve import ServeServer as JaxServer
+    params, _ = weights
+    eng = JaxEngine(JaxAdapter(_JTINY, params, block_tokens=BT,
+                               attn_impl="gather"),
+                    kv_mode="paged", max_batch=4, prefill_chunk=5,
+                    replica_id="replica-0")
+    srv = JaxServer(JaxScheduler([JaxReplica("replica-0", None, eng)]))
+    port = srv.start(port=0, host="127.0.0.1")
+    yield port
+    srv.stop()
 
 
 @pytest.mark.parametrize("body,headers,path,missing,why", [
-    ({"stream": True}, None, "/generate", "stream", _UNPORTED),
-    ({}, {"Accept": "text/event-stream"}, "/generate", "stream", _UNPORTED),
-    ({"schema": {"type": "integer"}}, None, "/generate", "schema",
-     _UNPORTED),
-    ({"logprobs": 2}, None, "/generate", "logprobs", _UNPORTED),
+    ({"stream": True, "max_new_tokens": 100}, None, "/generate",
+     "max_len", "exceeds"),
+    ({"max_new_tokens": 100}, {"Accept": "text/event-stream"},
+     "/generate", "max_len", "exceeds"),
+    ({"schema": {"anyOf": [{"type": "boolean"}]}, "eos_id": 0}, None,
+     "/generate", "anyOf", "unsupported"),
+    ({"logprobs": 0}, None, "/generate", "logprobs", "[1, 16]"),
     ({"temperature": -0.7, "seed": 1}, None, "/generate", "temperature",
      ">= 0"),
     ({"n": 2.5, "temperature": 0.7}, None, "/generate", "n",
      "must be an integer"),
     ({"n": 0}, None, "/generate", "n", ">= 1"),
-    ({"model": "other"}, None, "/generate", "model", _UNPORTED),
-    ({}, None, "/score", "/score", _UNPORTED),
+    ({"model": "other"}, None, "/generate", "'other'", "unknown model"),
+    ({"tokens": []}, None, "/score", "tokens", "non-empty"),
 ], ids=["stream", "accept-sse", "schema", "logprobs", "temperature",
         "n-sampled", "n", "model", "score"])
-def test_unported_fields_get_400(server, body, headers, path, missing, why):
-    """Fields whose modules are not ported answer 400 naming the
-    feature; the sampling fields are served now, so their cases send a
-    value ``validate_params`` refuses and get the 400 naming the
-    field."""
+def test_unported_fields_get_400(server, jax_server, body, headers, path,
+                                 missing, why):
+    """Every request field the JAX server accepts is served; each case
+    sends a value the JAX server refuses and gets its answer, a 400
+    naming the field: a stream refused before its first byte (by the
+    body flag or the ``Accept`` header) answers the buffered 400, an
+    unsupported schema keyword, ``logprobs`` below 1, an unknown model,
+    ``/score`` without tokens, and the sampling fields
+    ``validate_params`` refuses."""
     payload = {"tokens": [1, 2, 3], "max_new_tokens": 2, **body}
-    code, text = _http(server, path, payload,
-                       {"Content-Type": "application/json",
-                        **(headers or {})})
-    assert code == 400, text
-    err = json.loads(text)["error"]
-    assert missing in err and why in err
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+    code, text = _http(server, path, payload, hdrs)
+    jcode, jtext = _http(jax_server, path, payload, hdrs)
+    assert code == jcode == 400, (text, jtext)
+    for err in (json.loads(text)["error"], json.loads(jtext)["error"]):
+        assert missing in err and why in err, err
 
 
 def test_mark_dead_fails_over_and_mark_alive_readmits(weights):
@@ -443,3 +468,324 @@ def test_cli_factory_builds_an_f32_model(monkeypatch):
     assert models.GPT2_SMALL.dtype == torch.bfloat16
     assert [m.cfg.dtype for m in built] == [torch.float32]
     assert factory().cfg.dtype == torch.float32
+
+
+# -- the request surface: host-mode logits, logprobs, grammars, EOS ----------------
+
+def _pools(jad, pad, prompts, nb=16):
+    """The same prompts prefilled into a JAX pool and a port pool (one
+    chunk each, blocks dealt in order); returns both pools and the
+    tables."""
+    tables, nxt = [], 0
+    for p in prompts:
+        need = -(-(len(p) + 2) // BT)
+        tables.append(list(range(nxt, nxt + need)))
+        nxt += need
+    jcache = jad.init_paged_cache(nb, 4)
+    pcache = pad.init_paged_cache(nb, 4)
+    starts = [0] * len(prompts)
+    jcache, _ = jad.prefill_chunk(jcache, prompts, starts, tables)
+    pcache, _ = pad.prefill_chunk(pcache, prompts, starts, tables)
+    return jcache, pcache, tables
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_score_and_decode_logits_match_jax_adapter(weights, kv_dtype):
+    """``score_logits`` (every position, one chunk on a throwaway pool)
+    and ``decode_paged_logits`` (the raw rows of a paged decode step,
+    inactive rows all holes) against the JAX adapter's."""
+    params, model = weights
+    jad = JaxAdapter(_JTINY, params, block_tokens=BT, attn_impl="gather",
+                     kv_dtype=kv_dtype)
+    pad = TransformerAdapter(_TTINY, model, block_tokens=BT, device="cpu",
+                             kv_dtype=kv_dtype)
+    for n in (1, BT, 2 * BT + 3, 63):
+        toks = _prompt(n, seed=90 + n)
+        got, want = pad.score_logits(toks), jad.score_logits(toks)
+        assert got.shape == (n, VOCAB)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got[-1], pad.prompt_logits(toks),
+                                   rtol=1e-5, atol=1e-6)
+    prompts = [_prompt(n, seed=n) for n in (BT - 1, BT, 2 * BT + 1)]
+    jcache, pcache, tables = _pools(jad, pad, prompts)
+    tokens = np.array([5, 9, 13, 0])
+    positions = np.array([len(p) for p in prompts] + [0])
+    tab = np.full((4, pad.max_blocks_per_seq), 16)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    _, got = pad.decode_paged_logits(pcache, tokens, positions, tab)
+    _, want = jad.decode_paged_logits(jcache, tokens, positions, tab)
+    np.testing.assert_allclose(got[:3], np.asarray(want)[:3], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_logprob_entries_and_streams_match_jax_engine(weights):
+    """Greedy with ``logprobs: 3``: the same tokens as the JAX engine and
+    as the same request without logprobs; each entry's logprob within
+    the adapters' tolerance, and the same top-3 ids wherever neighbours
+    are farther apart than it."""
+    params, model = weights
+    jeng = JaxEngine(JaxAdapter(_JTINY, params, block_tokens=BT,
+                                attn_impl="gather"),
+                     kv_mode="paged", max_batch=4, prefill_chunk=5,
+                     replica_id="jax").start()
+    peng = _port_engine(model).start()
+    try:
+        from horovod_tpu.serve import Request as JaxRequest
+        for plen in (3, BT + 1, 2 * BT):
+            prompt = _prompt(plen, seed=200 + plen)
+            r, jr = Request(prompt, max_new_tokens=6, logprobs=3), \
+                JaxRequest(prompt, max_new_tokens=6, logprobs=3)
+            peng.batcher.submit(r)
+            jeng.batcher.submit(jr)
+            toks, jtoks = r.result(timeout=60), jr.result(timeout=60)
+            assert toks == jtoks == peng.generate(prompt, max_new_tokens=6)
+            assert len(r.token_logprobs) == len(toks)
+            for e, je in zip(r.token_logprobs, jr.token_logprobs):
+                assert e["token"] == je["token"]
+                assert e["logprob"] == pytest.approx(je["logprob"],
+                                                     rel=1e-4, abs=1e-5)
+                jt_ = je["top"]
+                for k, (a, b) in enumerate(zip(e["top"], jt_)):
+                    gaps = [abs(jt_[k]["logprob"] - jt_[j]["logprob"])
+                            for j in (k - 1, k + 1) if 0 <= j < len(jt_)]
+                    if min(gaps) > 1e-4:
+                        assert a["token"] == b["token"]
+                    assert a["logprob"] == pytest.approx(
+                        b["logprob"], rel=1e-4, abs=1e-5)
+    finally:
+        jeng.stop()
+        peng.stop()
+
+
+_ENUM = {"enum": [12, 345, -7, 60]}
+
+
+def test_grammar_greedy_matches_jax_engine_and_sampled_stays_valid(weights):
+    """The tiny model's vocabulary (61 < 256) has token strings, so a
+    schema'd request decodes there: greedy output is the JAX engine's,
+    token for token, with its finish reason; sampled output always
+    parses into the enum."""
+    from horovod_tpu.serve import Request as JaxRequest
+    params, model = weights
+    jeng = JaxEngine(JaxAdapter(_JTINY, params, block_tokens=BT,
+                                attn_impl="gather"),
+                     kv_mode="paged", max_batch=4, prefill_chunk=5,
+                     replica_id="jax").start()
+    peng = _port_engine(model).start()
+    try:
+        for plen in (3, BT + 1):
+            prompt = _prompt(plen, seed=300 + plen)
+            r = Request(prompt, max_new_tokens=8, eos_id=0, schema=_ENUM)
+            jr = JaxRequest(prompt, max_new_tokens=8, eos_id=0,
+                            schema=_ENUM)
+            peng.batcher.submit(r)
+            jeng.batcher.submit(jr)
+            assert r.result(timeout=60) == jr.result(timeout=60)
+            assert r.finish_reason == jr.finish_reason
+        for seed in range(6):
+            r = Request(_prompt(5, seed=seed), max_new_tokens=8, eos_id=0,
+                        schema=_ENUM, temperature=1.0, seed=seed)
+            peng.batcher.submit(r)
+            toks = [t for t in r.result(timeout=60) if t != 0]
+            assert json.loads("".join(chr(t) for t in toks)) in \
+                _ENUM["enum"]
+    finally:
+        jeng.stop()
+        peng.stop()
+
+
+def test_schema_on_a_vocabulary_without_token_strings_answers_as_jax():
+    """GPT-2's vocabulary (over 256 tokens) has no token strings in
+    either package: a schema'd request is refused, and the server's
+    answer is JAX's — a buffered 400 when streamed (refused before the
+    first byte), a 500 when buffered (an engine-side failure)."""
+    from horovod_tpu.serve import Replica as JaxReplica
+    from horovod_tpu.serve import ReplicaScheduler as JaxScheduler
+    from horovod_tpu.serve import ServeServer as JaxServer
+    jcfg = jt.TransformerConfig(vocab_size=300, num_layers=1, num_heads=2,
+                                d_model=32, d_ff=64, max_len=64, causal=True,
+                                dtype=jnp.float32, scan_layers=False)
+    tcfg = TransformerConfig(vocab_size=300, num_layers=1, num_heads=2,
+                             d_model=32, d_ff=64, max_len=64,
+                             dtype=torch.float32)
+    params = jt.Transformer(jcfg).init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"]
+    pad = TransformerAdapter(tcfg, params_from_jax(jax.device_get(params)),
+                             block_tokens=BT, device="cpu")
+    assert pad.token_strings() is None
+    psrv = ServeServer(build_replicas(lambda: pad, num_replicas=1,
+                                      max_batch=2))
+    jsrv = JaxServer(JaxScheduler([JaxReplica("replica-0", None, JaxEngine(
+        JaxAdapter(jcfg, params, block_tokens=BT, attn_impl="gather"),
+        kv_mode="paged", max_batch=2))]))
+    ports = (psrv.start(port=0, host="127.0.0.1"),
+             jsrv.start(port=0, host="127.0.0.1"))
+    try:
+        body = {"tokens": [1, 2], "max_new_tokens": 4, "eos_id": 0,
+                "schema": {"type": "boolean"}}
+        hdrs = {"Content-Type": "application/json"}
+        for stream, want in ((True, 400), (False, 500)):
+            got = [_http(p, "/generate", dict(body, stream=stream), hdrs)
+                   for p in ports]
+            assert [c for c, _ in got] == [want, want], got
+            for _, text in got:
+                assert "token strings" in json.loads(text)["error"]
+    finally:
+        psrv.stop()
+        jsrv.stop()
+
+
+def _aligned_flax(params):
+    """The tiny model with block 1's output projections at zero: the
+    one-block draft then agrees with the target, so speculation accepts
+    runs of drafts."""
+    aligned = jax.tree_util.tree_map(np.array, params)
+    for leaf in (("attn", "proj", "kernel"), ("attn", "proj", "bias"),
+                 ("fc2", "kernel"), ("fc2", "bias")):
+        node = aligned["block_1"]
+        for k in leaf[:-1]:
+            node = node[k]
+        node[leaf[-1]] = np.zeros_like(node[leaf[-1]])
+    return aligned
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["greedy", "spec"])
+def test_eos_stop_matches_jax_greedy_chain(weights, spec):
+    """The EOS stop, pinned: the port's answer with ``eos_id`` is the JAX
+    adapter's greedy chain cut at the first EOS, inclusive, with finish
+    reason ``stop`` — plain and speculative (k = 4 on the aligned model,
+    so the EOS falls inside a run of accepted drafts)."""
+    params, _ = weights
+    params = _aligned_flax(params) if spec else params
+    state = params_from_jax(params)
+    jeng = JaxEngine(JaxAdapter(_JTINY, params, block_tokens=BT,
+                                attn_impl="gather"),
+                     kv_mode="paged", max_batch=4, prefill_chunk=5,
+                     replica_id="jax").start()
+    peng = InferenceEngine(
+        TransformerAdapter(_TTINY, state, block_tokens=BT, device="cpu",
+                           draft_layers=1 if spec else 0),
+        max_batch=4, prefill_chunk=5, spec_k=4 if spec else 0,
+        metrics=ServeMetrics(), replica_id="port").start()
+    try:
+        cut_inside = 0
+        for plen in (3, BT, 2 * BT + 1):
+            prompt = _prompt(plen, seed=400 + plen)
+            chain = jeng.generate(prompt, max_new_tokens=12)
+            for at in (0, 3, 7):
+                eos = chain[at]
+                want = chain[:chain.index(eos) + 1]
+                r = Request(prompt, max_new_tokens=12, eos_id=eos)
+                peng.batcher.submit(r)
+                assert r.result(timeout=60) == want, (plen, at)
+                assert r.finish_reason == "stop"
+                cut_inside += len(want) > 2
+        assert cut_inside
+        if spec:
+            snap = peng.metrics.snapshot()["spec"]
+            assert snap["accepted"] > 0 and snap["rejected"] == 0
+    finally:
+        jeng.stop()
+        peng.stop()
+
+
+def test_eos_stops_each_fork_on_its_own_stream(weights):
+    """An n = 3 sampled family whose members stop at different positions:
+    each member is its chain without ``eos_id`` cut at its own first
+    EOS, inclusive — the rule the JAX engine keeps for its members."""
+    from horovod_tpu.serve import Request as JaxRequest
+    params, model = weights
+    jeng = JaxEngine(JaxAdapter(_JTINY, params, block_tokens=BT,
+                                attn_impl="gather"),
+                     kv_mode="paged", max_batch=4, prefill_chunk=5,
+                     replica_id="jax").start()
+    peng = _port_engine(model).start()
+    try:
+        prompt = _prompt(BT + 2, seed=501)
+        for eng, req in ((peng, Request), (jeng, JaxRequest)):
+            free = req(prompt, max_new_tokens=10, n=3, temperature=1.0,
+                       seed=11)
+            eng.batcher.submit(free)
+            free.result(timeout=60)
+            samples = free.samples
+
+            def stops(eos):
+                return [s.index(eos) + 1 if eos in s else len(s)
+                        for s in samples]
+
+            eos = next(t for s in samples for t in s
+                       if len(set(stops(t))) > 1)
+            r = req(prompt, max_new_tokens=10, n=3, temperature=1.0,
+                    seed=11, eos_id=eos)
+            eng.batcher.submit(r)
+            r.result(timeout=60)
+            assert [len(s) for s in r.samples] == stops(eos)
+            assert r.samples == [s[:k] for s, k in zip(samples,
+                                                       stops(eos))]
+            assert r.generated == r.samples[0]
+    finally:
+        jeng.stop()
+        peng.stop()
+
+
+def test_cli_checkpoint_serves_the_saved_weights(monkeypatch, tmp_path,
+                                                 weights):
+    """``--checkpoint``: the factory serves the parameters of a
+    ``checkpoint.save_model`` directory (or of the JAX tree written with
+    ``checkpoint.save``) with ``prompt_logits`` equal, bit for bit, to
+    the in-memory model's."""
+    import argparse
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, models
+    from horovod_tpu_torch.serve import server
+    params, model = weights
+    monkeypatch.setattr(models, "GPT2_SMALL", _TTINY)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        checkpoint.save_model(str(tmp_path / "port"), model)
+        checkpoint.save(str(tmp_path / "jax"), jax.tree_util.tree_map(
+            torch.from_numpy, params))
+    finally:
+        hvd.shutdown()
+    want = TransformerAdapter(_TTINY, model, block_tokens=16,
+                              device="cpu").prompt_logits(list(range(20)))
+    for name in ("port", "jax"):
+        factory = server._build_adapter_factory(argparse.Namespace(
+            model="gpt2-small", device="cpu", seed=0, max_len=64,
+            checkpoint=str(tmp_path / name)))
+        got = factory().prompt_logits(list(range(20)))
+        assert np.array_equal(got, want), name
+
+
+def test_cli_checkpoint_replicas_share_one_weight_copy(monkeypatch,
+                                                       tmp_path, weights):
+    """``--checkpoint``: every adapter the factory makes (one a replica)
+    serves views of ONE f32 copy of the loaded weights, a checkpoint
+    saved in bf16 too (served in f32, as the JAX CLI serves)."""
+    import argparse
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, models
+    from horovod_tpu_torch.serve import server
+    _, model = weights
+    monkeypatch.setattr(models, "GPT2_SMALL", _TTINY)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        checkpoint.save_model(str(tmp_path / "f32"), model)
+        checkpoint.save(str(tmp_path / "bf16"), {
+            k: v.detach().bfloat16() for k, v in model.state_dict().items()})
+    finally:
+        hvd.shutdown()
+    for name in ("f32", "bf16"):
+        factory = server._build_adapter_factory(argparse.Namespace(
+            model="gpt2-small", device="cpu", seed=0, max_len=64,
+            checkpoint=str(tmp_path / name)))
+        a, b = factory(), factory()
+        for get in (lambda p: p["wte"], lambda p: p["blocks"][0]["qkv_w"],
+                    lambda p: p["blocks"][-1]["fc2_w"]):
+            ta, tb = get(a.params), get(b.params)
+            assert ta.dtype == torch.float32, name
+            assert ta.data_ptr() == tb.data_ptr(), name
+        assert a.prompt_logits([1, 2, 3]).dtype == np.float32
