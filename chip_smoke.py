@@ -174,18 +174,45 @@ Phases, each of which exits non-zero on failure:
    both replicas under 16 mixed requests in flight (none fails, swap
    progress done == total, the answers after it equal the new weights
    served cold); a B = 8 decode step fused against host mode;
-14. print the card's name and power limit, one JSON line of phase 7's
+14. the serving fleet's front door and control plane on gpt2-small f32
+   at full width, random weights from the seed, one reference engine
+   holding every answer: (a) two endpoints (one replica each, paged,
+   prefix cache, BT 16, chunk 64, 8 slots) behind the port's
+   ``RouterServer``: 6 sessions of 3 append-only turns and 2 seeded
+   sampled requests (none lost, every answer the reference's), a
+   stream (its tokens the buffered answer's), the affinity hit rate,
+   retries and ejections, TTFT on the client's clock through the router
+   against straight to the endpoint, and a ``slow-route`` stall of 150
+   ms on endpoint 0 unhedged and with a 30 ms hedge (same answers; both
+   p99s, hedges won); (b) every request traced with a shard directory:
+   one request through the router merges into one connected tree (the
+   router's root and route span, the endpoint's request span, its
+   queue-wait, prefill chunks and decode), ``/trace`` serves it, and a
+   16-request storm's tokens/s traced against untraced, beside the same
+   storm straight to one endpoint and through listeners with the JAX
+   package's backlog of 5; (c) two
+   replicas of 2 slots, one a dead spare, a ``FleetController`` with
+   the JAX bench's autoscale settings under ``diurnal_load(8, peak 8,
+   base 1)`` and a ``ctl.poll`` load-spike: a scale-up, the brownout
+   ladder up and back to 0, every latency-tier answer the reference's;
+   (d) the port's KV server and a local maintenance endpoint: a
+   sentinel marks host h1, ``watch_preemption`` marks replica-1 dead
+   with 16 requests in flight (none lost), and clearing the marker
+   brings it back alive and warm;
+15. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
    commit with and without the spill and of a restore, images/s before
-   and after), one of phase 13's (``{"serve_surface": ...}``), one JSON
+   and after), one of phase 13's (``{"serve_surface": ...}``), one of
+   phase 14's (``{"fleet": ...}``), one JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
    phase 8's and one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop``
    and ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each
    with that path's launches, counted from 0, and the error and times at
-   its shape; the paged kernels' launches sum phases 4 and 13), and as
+   its shape; the paged kernels' launches sum phases 4, 13 and 14),
+   and as
    the last line ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX.  Without a CUDA device it exits non-zero and
@@ -3707,6 +3734,615 @@ def surface_phase(torch, device, rehearsal, seed):
     return launches, out
 
 
+
+# -- phase 14: the serving fleet's front door and control plane -------------
+
+
+def fleet_prompts(rng, cfg, rehearsal):
+    """6 sessions of a multi-turn transcript: each session's prompt grows
+    append-only over 3 turns from its own 2-block opening (so the
+    router's 2-block affinity key stays put); 2 seeded sampled prompts."""
+    opening, turn = (8, 4) if rehearsal else (32, 24)
+    sessions = []
+    for s in range(6):
+        base = rng.randint(0, cfg.vocab_size, (opening + 3 * s,)).tolist()
+        more = rng.randint(0, cfg.vocab_size, (3 * turn,)).tolist()
+        sessions.append([base + more[:k * turn] for k in range(3)])
+    sampled = [rng.randint(0, cfg.vocab_size, (opening + 5 * i,)).tolist()
+               for i in range(2)]
+    return sessions, sampled
+
+
+def fleet_len(rng, cfg, max_new, lo, hi):
+    """A prompt length in [lo, hi), cut to fit the model's context."""
+    top = min(hi, cfg.max_len - max_new)
+    return int(rng.randint(min(lo, top - 1), top))
+
+
+def fleet_endpoint(factory, rid, metrics=None, **kw):
+    """One serving endpoint of one replica (paged, prefix cache on, BT
+    16, chunk 64, 8 slots, warmed at start) behind its own HTTP
+    server."""
+    from horovod_tpu_torch.serve import (InferenceEngine, Replica,
+                                         ReplicaScheduler, ServeMetrics,
+                                         ServeServer)
+    kw.setdefault("max_batch", 8)
+    eng = InferenceEngine(factory(), prefill_chunk=64, prefix_cache=True,
+                          replica_id=rid, metrics=metrics or ServeMetrics(),
+                          warmup=True, **kw)
+    srv = ServeServer(ReplicaScheduler([Replica(rid, None, eng)]))
+    return srv, srv.start(port=0, host="127.0.0.1")
+
+
+def reference_answers(ref, bodies):
+    """A single engine's answer to each /generate body."""
+    from horovod_tpu_torch.serve import Request
+    reqs = []
+    for b in bodies:
+        extra = {k: b[k] for k in ("temperature", "top_k", "top_p", "seed")
+                 if k in b}
+        reqs.append(Request(b["tokens"], max_new_tokens=b["max_new_tokens"],
+                            **extra))
+        ref.batcher.submit(reqs[-1])
+    return [r.result(timeout=600) for r in reqs]
+
+
+def route_post(port, body, headers=None):
+    """POST /generate over http.client; (status, JSON body, headers)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/generate", json.dumps(body).encode(),
+                     dict({"Content-Type": "application/json"},
+                          **(headers or {})))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def fleet_front_door(torch, factory, ref, rng, cfg, rehearsal, max_new,
+                     failures):
+    """(a) Two endpoints behind the port's RouterServer: sessions and
+    seeded requests answered as one engine answers them, a stream, the
+    affinity hit rate, TTFT through the router against straight to an
+    endpoint, and hedging under a 150 ms slow-route stall."""
+    from horovod_tpu_torch import faultline as fl
+    from horovod_tpu_torch.serve import Router, RouterConfig, RouterServer
+    servers = [fleet_endpoint(factory, f"endpoint-{i}") for i in range(2)]
+    eps = [f"127.0.0.1:{port}" for _, port in servers]
+    router = Router(eps, config=RouterConfig(block_tokens=16))
+    rsrv = RouterServer(router)
+    rport = rsrv.start(port=0, host="127.0.0.1")
+    out = {}
+    try:
+        sessions, sampled = fleet_prompts(rng, cfg, rehearsal)
+        bodies = [{"tokens": turns[k], "max_new_tokens": max_new}
+                  for k in range(3) for turns in sessions]
+        bodies += [dict({"tokens": p, "max_new_tokens": max_new, "seed": i},
+                        **SAMPLING) for i, p in enumerate(sampled)]
+        want = reference_answers(ref, bodies)
+        got, lost, served = [], 0, {}
+        for b in bodies:
+            status, body, _ = route_post(rport, b)
+            if status != 200:
+                lost += 1
+                got.append(None)
+                continue
+            got.append(body["tokens"])
+            served[body["replica"]] = served.get(body["replica"], 0) + 1
+        stream_prompt = sessions[0][2]
+        events, _, _ = sse_post(rport, {"tokens": stream_prompt,
+                                        "max_new_tokens": max_new,
+                                        "stream": True})
+        streamed = [t for kind, d in events if kind == "token"
+                    for t in d["tokens"]]
+        if lost:
+            failures.append(f"(a) {lost} of {len(bodies)} requests lost "
+                            f"through the router")
+        wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        if wrong:
+            failures.append(f"(a) answers {wrong} differ from one engine's")
+        if streamed != want[12] or events[-1][0] != "done":
+            failures.append("(a) the streamed request's tokens differ from "
+                            "the buffered answer")
+        snap = router.metrics.snapshot()
+        out.update(requests=len(bodies) + 1, lost=lost,
+                   served_by=served, affinity_hit_rate=snap["affinity"][
+                       "hit_rate"], retries=snap["retries"],
+                   ejections=snap["ejections"])
+        # TTFT on the client's clock (the first SSE token), the same
+        # sessions' prompts through the router and straight to the
+        # endpoint that holds them, alternating.
+        ttft = {"router": [], "direct": []}
+        for turns in sessions:
+            p = turns[2]
+            target = router._ring.lookup(router.affinity_key(p))[0]
+            dport = int(target.rsplit(":", 1)[1])
+            for kind, port in (("router", rport), ("direct", dport)):
+                _, first, _ = sse_post(port, {"tokens": p, "stream": True,
+                                              "max_new_tokens": 2})
+                ttft[kind].append(round(first * 1e3, 3))
+        out["ttft_ms"] = ttft
+        out["ttft_median_ms"] = {k: float(np.median(v))
+                                 for k, v in ttft.items()}
+        # Hedging: prompts whose affinity target is endpoint 0, every
+        # forward to it stalled 150 ms; unhedged, then a 30 ms hedge.
+        hedge_prompts = []
+        s = 0
+        while len(hedge_prompts) < 4 and s < 4096:
+            p = rng.randint(0, cfg.vocab_size, (24,)).tolist()
+            if router._ring.lookup(router.affinity_key(p))[0] == eps[0]:
+                hedge_prompts.append(p)
+            s += 1
+        hedge = {}
+        for mode, hedge_ms in (("unhedged", 0.0), ("hedged", 30.0)):
+            hr = Router(eps, config=RouterConfig(block_tokens=16,
+                                                 hedge_s=hedge_ms / 1e3))
+            fl.install(fl.parse_plan(
+                f"slow-route:{eps[0]}@0*100000~0.15/router.forward", seed=0))
+            lats, answers = [], []
+            try:
+                for p in hedge_prompts:
+                    t1 = time.perf_counter()
+                    status, _, body = hr.handle(json.dumps(
+                        {"tokens": p, "max_new_tokens": max_new}).encode(),
+                        {}, None)
+                    lats.append((time.perf_counter() - t1) * 1e3)
+                    answers.append(json.loads(body)["tokens"]
+                                   if status == 200 else status)
+            finally:
+                fl.uninstall()
+            hs = hr.metrics.snapshot()
+            hedge[mode] = {"p99_ms": round(max(lats), 3),
+                           "median_ms": round(float(np.median(lats)), 3),
+                           "hedges": hs["hedges"],
+                           "hedges_won": hs["hedges_won"],
+                           "answers": answers}
+        if hedge["hedged"]["answers"] != hedge["unhedged"]["answers"] or \
+                any(not isinstance(a, list)
+                    for a in hedge["unhedged"]["answers"]):
+            failures.append("(a) hedged answers differ from unhedged ones")
+        for mode in hedge:
+            hedge[mode].pop("answers")
+        out["hedge"] = dict(hedge, stall_ms=150.0, hedge_ms=30.0,
+                            requests=len(hedge_prompts))
+    finally:
+        rsrv.stop()
+        for srv, _ in servers:
+            srv.stop()
+    log(f"  (a) {out['requests']} requests through the router, {out['lost']} "
+        f"lost, served by {out['served_by']}; affinity hit rate "
+        f"{out['affinity_hit_rate']}, retries {out['retries']}, ejections "
+        f"{out['ejections']}; TTFT median (client, first SSE token) "
+        f"through the router {out['ttft_median_ms']['router']:.2f} ms, "
+        f"straight {out['ttft_median_ms']['direct']:.2f} ms; hedging "
+        f"under a 150 ms stall: p99 unhedged "
+        f"{out['hedge']['unhedged']['p99_ms']:.1f} ms, hedged "
+        f"{out['hedge']['hedged']['p99_ms']:.1f} ms, hedges won "
+        f"{out['hedge']['hedged']['hedges_won']} of "
+        f"{out['hedge']['hedged']['hedges']}")
+    return out
+
+
+def fleet_storm(port, prompts, max_new):
+    """16 concurrent greedy requests to ``port``; (tokens/s, answers)."""
+    answers = [None] * len(prompts)
+
+    def post(i):
+        status, body, _ = route_post(port, {"tokens": prompts[i],
+                                            "max_new_tokens": max_new})
+        answers[i] = body["tokens"] if status == 200 else status
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    dt = time.monotonic() - t0
+    toks = sum(len(a) for a in answers if isinstance(a, list))
+    return round(toks / dt, 2), answers
+
+
+def fleet_tracing(torch, factory, ref, rng, cfg, rehearsal, max_new,
+                  failures):
+    """(b) Every request sampled (``HVD_TRACE_SAMPLE=1``'s tracer) with a
+    shard directory: one request through the router merges into one
+    connected tree from the router's root down to the endpoint's
+    decode, ``/trace`` serves it, and a 16-request storm's tokens/s
+    traced against untraced."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.obs import merge as mg
+    from horovod_tpu_torch.obs import tracing as tr
+    from horovod_tpu_torch.serve import Router, RouterConfig, RouterServer
+    servers = [fleet_endpoint(factory, f"endpoint-{i}") for i in range(2)]
+    eps = [f"127.0.0.1:{port}" for _, port in servers]
+    rsrv = RouterServer(Router(eps, config=RouterConfig(block_tokens=16)))
+    rport = rsrv.start(port=0, host="127.0.0.1")
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    out = {}
+    try:
+        storm = [rng.randint(0, cfg.vocab_size,
+                             (fleet_len(rng, cfg, max_new, 16, 64),)).tolist()
+                 for _ in range(16)]
+        want = reference_answers(ref, [{"tokens": p, "max_new_tokens":
+                                        max_new} for p in storm])
+        rates = {}
+        for kind in ("untraced", "traced"):
+            if kind == "traced":
+                tr.install(tr.Tracer(sample=1.0, shard_dir=shard_dir))
+            try:
+                rates[kind], answers = fleet_storm(rport, storm, max_new)
+            finally:
+                tr.uninstall()
+            if answers != want:
+                failures.append(f"(b) a {kind} storm's answers differ from "
+                                f"one engine's")
+        # The yardstick: the same storm straight to one endpoint (its
+        # 8 slots take all 16 in two waves), no router hop.
+        rates["one_endpoint_direct"], answers = fleet_storm(
+            servers[0][1], storm, max_new)
+        if answers != want:
+            failures.append("(b) the direct storm's answers differ from "
+                            "one engine's")
+        # The JAX package's listen backlog of 5 (socketserver's
+        # default) in front of the same fleet: fresh endpoints and a
+        # router whose listeners queue 5 connections, one untraced storm.
+        from horovod_tpu_torch.serve import server as serve_server
+        cls = serve_server.DrainingThreadingHTTPServer
+        cls.request_queue_size, kept = 5, cls.request_queue_size
+        try:
+            servers5 = [fleet_endpoint(factory, f"endpoint-{i}")
+                        for i in range(2)]
+            rsrv5 = RouterServer(Router(
+                [f"127.0.0.1:{p}" for _, p in servers5],
+                config=RouterConfig(block_tokens=16)))
+            rport5 = rsrv5.start(port=0, host="127.0.0.1")
+        finally:
+            cls.request_queue_size = kept
+        try:
+            rates["backlog_5"], answers = fleet_storm(rport5, storm, max_new)
+        finally:
+            rsrv5.stop()
+            for srv, _ in servers5:
+                srv.stop()
+        if answers != want:
+            failures.append("(b) the backlog-5 storm's answers differ")
+        out["storm_tokens_per_s"] = rates
+        shutil.rmtree(shard_dir, ignore_errors=True)
+        tracer = tr.install(tr.Tracer(sample=1.0, shard_dir=shard_dir))
+        tid = "c0ffee00c0ffee00"
+        prompt = storm[0]
+        status, body, headers = route_post(rport, {"tokens": prompt,
+                                                   "max_new_tokens": max_new},
+                                           {"X-Trace-Id": tid})
+        endpoint = body.get("replica")
+        port = dict(zip([f"endpoint-{i}" for i in range(2)],
+                        [p for _, p in servers]))[endpoint]
+        deadline = time.monotonic() + 30
+        while True:  # the decode span lands after the reply
+            served = http_json(port, "/trace")
+            mine = [t for t in served["traces"] if t["trace_id"] == tid]
+            if (mine and "decode" in json.dumps(mine[0]["tree"])) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        tr.uninstall()  # closes the shards
+        shards = mg.load_shards(shard_dir)
+        events = mg.spans_by_trace(shards).get(tid, [])
+        tree = mg.build_tree([e for e in events if e["type"] == "span"])
+        names = []
+
+        def walk(n, depth):
+            names.append((depth, n["name"], n["proc"]))
+            for c in n["children"]:
+                walk(c, depth + 1)
+        for n in tree:
+            walk(n, 0)
+        need = {(0, "http-handle", "router"), (1, "route", "router"),
+                (1, "http-handle", "server"), (2, "queue-wait", endpoint),
+                (2, "prefill-chunk", endpoint), (2, "decode", endpoint)}
+        if status != 200 or headers.get("X-Trace-Id") != tid:
+            failures.append(f"(b) the traced request answered {status}")
+        if len(tree) != 1 or not need <= set(names):
+            failures.append(f"(b) the merged trace is not one connected "
+                            f"tree from the router to the decode: {names}")
+        if not mine:
+            failures.append("(b) /trace does not serve the request's tree")
+        cp = mg.critical_path(events)
+        out.update(trace={"spans": len(names), "shards": len(shards),
+                          "tree": sorted({(d, n) for d, n, _ in names}),
+                          "critical_path_ms": cp["stages_ms"],
+                          "total_ms": cp["total_ms"],
+                          "dropped": tracer.spans_dropped})
+    finally:
+        tr.uninstall()
+        rsrv.stop()
+        for srv, _ in servers:
+            srv.stop()
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    log(f"  (b) one traced request: {len(names)} spans in one tree over "
+        f"{out['trace']['shards']} shards, critical path "
+        f"{out['trace']['critical_path_ms']} of {out['trace']['total_ms']} "
+        f"ms; 16-request storm tokens/s through the router untraced "
+        f"{rates['untraced']}, traced {rates['traced']}; straight to one "
+        f"endpoint {rates['one_endpoint_direct']}; through the router with "
+        f"the JAX package's listen backlog of 5 {rates['backlog_5']}")
+    return out
+
+
+def fleet_controller(torch, factory, ref, rng, cfg, rehearsal, max_new,
+                     seed, failures):
+    """(c) Two replicas, one a dead spare, under the JAX bench's
+    autoscale-arm settings, a seeded diurnal sweep and a ctl.poll
+    load-spike: a scale-up, the brownout ladder up and back to 0, every
+    latency-tier answer one engine's."""
+    from horovod_tpu_torch import faultline as fl
+    from horovod_tpu_torch.serve import (ControllerConfig, FleetController,
+                                         QueueFullError, Request,
+                                         ServeMetrics, build_replicas)
+    metrics = ServeMetrics()
+    sched = build_replicas(factory, num_replicas=2, max_batch=2,
+                           prefill_chunk=64, metrics=metrics, warmup=True)
+    sched.start()
+    sched.mark_dead("replica-1", reason="phase 14 (c): the spare")
+    slo_ms = 15000.0
+    ctl = FleetController(sched, config=ControllerConfig(
+        poll_s=0.05, min_replicas=1, max_replicas=2, queue_high=2.0,
+        queue_low=1.0, up_polls=2, down_polls=2, up_cooldown_s=0.0,
+        down_cooldown_s=0.0, brownout_polls=1, brownout_clear_polls=2,
+        brownout_max_new=max_new).validate(), metrics=metrics,
+        load_injector=lambda n: sum(
+            inject_throughput(sched, n, QueueFullError, Request)))
+    shape = fl.diurnal_load(8, peak=8, base=1, seed=seed)
+    prompts = [rng.randint(0, cfg.vocab_size,
+                           (fleet_len(rng, cfg, max_new, 8, 48),)).tolist()
+               for _ in range(sum(max(n, 1) for n in shape))]
+    fl.install(fl.parse_plan("load-spike@6*1~8/ctl.poll", seed=seed))
+    outs, levels, shed, t0 = [], [], 0, time.monotonic()
+    spare = sched.fleet()[1]
+    try:
+        cursor = 0
+        for n in shape:
+            chunk = prompts[cursor:cursor + max(n, 1)]
+            cursor += len(chunk)
+            reqs = [Request(p, max_new_tokens=max_new) for p in chunk]
+            for r in reqs:
+                sched.submit(r)
+            try:
+                sched.submit(Request(prompts[0][:4], max_new_tokens=2,
+                                     qos="throughput"))
+            except QueueFullError:
+                shed += 1
+            while not all(r.done for r in reqs):
+                ctl.poll()
+                levels.append(ctl.stats()["brownout_level"])
+                time.sleep(0.02)
+            outs += [r.result(timeout=600) for r in reqs]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                ctl.stats()["brownout_level"]
+                or not ctl.stats()["scale_events"]["scale_down"]):
+            ctl.poll()
+            levels.append(ctl.stats()["brownout_level"])
+            time.sleep(0.02)
+    finally:
+        fl.uninstall()
+        ctl.stop()
+        sched.stop()
+    phase_s = time.monotonic() - t0
+    stats = ctl.stats()
+    snap = metrics.snapshot()
+    want = reference_answers(ref, [{"tokens": p, "max_new_tokens": max_new}
+                                   for p in prompts])
+    if stats["scale_events"]["scale_up"] < 1:
+        failures.append("(c) no scale-up")
+    if max(levels, default=0) < 1 or levels[-1:] != [0]:
+        failures.append(f"(c) the ladder did not climb and come back to 0: "
+                        f"max {max(levels, default=0)}, last {levels[-1:]}")
+    if outs != want:
+        failures.append("(c) latency-tier answers differ from one engine's")
+    out = {"diurnal_shape": shape, "requests": len(prompts),
+           "scale_events": stats["scale_events"],
+           "brownout_seconds": stats["brownout_seconds"],
+           "max_brownout_level": max(levels, default=0),
+           "throughput_shed": shed,
+           "latency_p99_ms": snap["request_latency"]["latency"]["p99_ms"],
+           "slo_ms": slo_ms,
+           "mark_alive_warmup_ms": round(spare.engine.last_warmup_ms, 3),
+           "warmup_runs_of_the_spare": spare.engine.warmup_runs,
+           "seconds": round(phase_s, 3)}
+    log(f"  (c) controller: events {out['scale_events']}, max rung "
+        f"{out['max_brownout_level']}, brownout {out['brownout_seconds']} s, "
+        f"latency-tier p99 {out['latency_p99_ms']} ms (SLO {slo_ms:.0f}), "
+        f"the spare's warmup at mark_alive {out['mark_alive_warmup_ms']} ms; "
+        f"{phase_s:.1f} s")
+    return out
+
+
+def inject_throughput(sched, n, QueueFullError, Request):
+    """The load-spike's synthetic throughput-tier requests; yields 1 for
+    each one admitted (a brownout rung sheds them)."""
+    for _ in range(n):
+        try:
+            sched.submit(Request([1, 2, 3, 4], max_new_tokens=2,
+                                 qos="throughput"))
+            yield 1
+        except QueueFullError:
+            yield 0
+
+
+class _MaintenanceEvents:
+    """A local stand-in for a cloud metadata server's maintenance-event
+    endpoint (answers ``event``)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.event = "NONE"
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = outer.event.encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/"
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def fleet_preemption(torch, factory, ref, rng, cfg, rehearsal, max_new,
+                     failures):
+    """(d) The port's KV server and a local maintenance endpoint: the
+    sentinel marks host h1, ``watch_preemption`` marks replica-1 dead
+    while requests are in flight (they fail over without loss), and
+    clearing the marker brings replica-1 back alive and warm."""
+    import types
+    from horovod_tpu_torch.elastic.preemption import (PREEMPT_SCOPE,
+                                                      PreemptionSentinel)
+    from horovod_tpu_torch.runner.http_server import (KVStoreClient,
+                                                      KVStoreServer)
+    from horovod_tpu_torch.serve import (InferenceEngine, Replica,
+                                         ReplicaScheduler, Request,
+                                         ServeMetrics)
+    metrics = ServeMetrics()
+    reps = [Replica(f"replica-{i}", types.SimpleNamespace(ranks=[i]),
+                    InferenceEngine(factory(), max_batch=8,
+                                    prefill_chunk=64, metrics=metrics,
+                                    replica_id=f"replica-{i}", warmup=True))
+            for i in range(2)]
+    sched = ReplicaScheduler(reps, metrics=metrics).start()
+    kv = KVStoreServer()
+    client = KVStoreClient("127.0.0.1", kv.start(0))
+    meta = _MaintenanceEvents()
+    sentinel = PreemptionSentinel(client, hostname="h1", url=meta.url,
+                                  poll_interval_s=0.05)
+    out = {}
+    try:
+        sentinel.start()
+        sched.watch_preemption(client, {"h0": [0], "h1": [1]}, poll_s=0.02)
+        prompts = [rng.randint(0, cfg.vocab_size,
+                               (fleet_len(rng, cfg, max_new, 8, 64),)).tolist()
+                   for _ in range(16)]
+        reqs = [Request(p, max_new_tokens=max_new) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        warm = reps[1].engine.warmup_runs
+        t0 = time.monotonic()
+        meta.event = "TERMINATE_ON_HOST_MAINTENANCE"
+        while reps[1].state != "dead" and time.monotonic() - t0 < 30:
+            time.sleep(0.005)
+        dead_s = time.monotonic() - t0
+        marked = kv.scan_scope(PREEMPT_SCOPE)
+        answers = [r.result(timeout=600) for r in reqs]
+        requeues = sum(r.requeues for r in reqs)
+        t1 = time.monotonic()
+        meta.event = "NONE"
+        while reps[1].engine.warmup_runs == warm and \
+                time.monotonic() - t1 < 30:
+            time.sleep(0.005)
+        alive_s = time.monotonic() - t1
+        after = reference_answers(reps[1].engine, [
+            {"tokens": prompts[0], "max_new_tokens": max_new}])
+        want = reference_answers(ref, [{"tokens": p, "max_new_tokens":
+                                        max_new} for p in prompts])
+        if reps[1].state != "healthy" or marked != {
+                "h1": b"TERMINATE_ON_HOST_MAINTENANCE"}:
+            failures.append(f"(d) replica-1 state {reps[1].state}, markers "
+                            f"{marked}")
+        if answers != want or after != want[:1]:
+            failures.append("(d) answers across the failover (or from the "
+                            "readmitted replica) differ from one engine's")
+        if reps[1].engine.warmup_runs != warm + 1:
+            failures.append("(d) the readmitted replica did not warm up")
+        out = {"requests": len(reqs), "requeued": requeues,
+               "notice_to_dead_s": round(dead_s, 3),
+               "clear_to_warm_alive_s": round(alive_s, 3),
+               "readmitted_warmup_ms": round(reps[1].engine.last_warmup_ms,
+                                             3),
+               "replica_events": metrics.snapshot()["replica_events"],
+               "preempt_poll_errors": metrics.snapshot()[
+                   "preempt_poll_errors"]}
+    finally:
+        sentinel.stop()
+        sched.stop()
+        kv.stop()
+        meta.stop()
+    log(f"  (d) preemption: notice to mark_dead {out.get('notice_to_dead_s')}"
+        f" s, {out.get('requeued')} requests requeued of "
+        f"{out.get('requests')}, none lost; the marker's clear to a warm "
+        f"replica-1 {out.get('clear_to_warm_alive_s')} s (warmup "
+        f"{out.get('readmitted_warmup_ms')} ms)")
+    return out
+
+
+def fleet_phase(torch, device, rehearsal, seed):
+    """Phase 14: the serving fleet's front door and control plane on
+    gpt2-small f32 at full width, random weights from ``seed``: (a) the
+    router over two endpoints, (b) tracing, (c) the fleet controller,
+    (d) preemption.  Returns the paged routes' launches of the phase
+    (counted from 0 at its start) and its numbers."""
+    from horovod_tpu_torch.serve import InferenceEngine, TransformerAdapter
+    from horovod_tpu_torch.serve import paged_attention as pa
+    cfg, model, _, max_new = serving_model(torch, device, rehearsal, seed)
+
+    def factory():
+        return TransformerAdapter(cfg, model, device=device)
+
+    rng = np.random.RandomState(seed + 14)
+    failures = []
+    out = {"card": None if rehearsal else card_tag()}
+    reset_launches(pa)
+    t0 = time.monotonic()
+    ref = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                          replica_id="reference").start()
+    try:
+        for part, fn in (("front_door", fleet_front_door),
+                         ("tracing", fleet_tracing),
+                         ("controller", fleet_controller),
+                         ("preemption", fleet_preemption)):
+            tp = time.monotonic()
+            if fn is fleet_controller:
+                out[part] = fn(torch, factory, ref, rng, cfg, rehearsal,
+                               max_new, seed, failures)
+            else:
+                out[part] = fn(torch, factory, ref, rng, cfg, rehearsal,
+                               max_new, failures)
+            out[part]["part_seconds"] = round(time.monotonic() - tp, 3)
+    finally:
+        ref.stop()
+    launches = {"decode": pa.LAUNCHES["paged_attention_decode"],
+                "prefill": pa.LAUNCHES["paged_attention_prefill"]}
+    out["seconds"] = round(time.monotonic() - t0, 3)
+    log(f"  launches of the phase's drives: decode route "
+        f"{launches['decode']}, prefill route {launches['prefill']}")
+    if not rehearsal and min(launches.values()) <= 0:
+        failures.append("a paged route was never launched in phase 14")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the serving fleet phase failed")
+    out["launches"] = launches
+    return launches, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -3805,6 +4441,12 @@ def main(argv=None) -> int:
                                               args.seed)
     log(f"  phase 13 took {time.monotonic() - t13:.1f} s")
 
+    log("phase 14: the serving fleet (router over two endpoints, hedging, "
+        "tracing, the fleet controller, preemption)")
+    t14 = time.monotonic()
+    fleet_launches, fleet = fleet_phase(torch, device, rehearsal, args.seed)
+    log(f"  phase 14 took {time.monotonic() - t14:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -3816,6 +4458,7 @@ def main(argv=None) -> int:
     print(json.dumps({"moe": dict(moe_numbers, card=card_tag())}))
     print(json.dumps({"elastic": dict(elastic, card=card_tag())}))
     print(json.dumps({"serve_surface": surface}))
+    print(json.dumps({"fleet": fleet}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -3829,12 +4472,16 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/" + source,
             "replaces": "horovod_tpu/serve/paged_attention.py:156",
-            # Phase 4's drives and phase 13's (host-mode decode rows,
-            # /score, warmup, the roll), each counted from 0.
-            "launches": launches + surface_launches[route],
+            # Phase 4's drives, phase 13's (host-mode decode rows,
+            # /score, warmup, the roll) and phase 14's (the fleet behind
+            # the router, its controller and preemption), each counted
+            # from 0.
+            "launches": (launches + surface_launches[route]
+                         + fleet_launches[route]),
             "launches_by_phase": {"serving": launches,
                                   "request_surface":
-                                      surface_launches[route]},
+                                      surface_launches[route],
+                                  "fleet": fleet_launches[route]},
             "max_abs_err": rec["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -115,8 +115,8 @@ class WorkerNotificationManager:
     (socket RPC per worker).  Here: a daemon thread polls the rendezvous KV
     key ``discovery/update``; on version bump every registered State gets
     ``on_hosts_updated`` so its next ``commit()`` raises
-    HostsUpdatedInterrupt.  The JAX package's preemption sentinel is not
-    started: it rides on the fault-injection layer, not yet ported."""
+    HostsUpdatedInterrupt.  It also starts this host's preemption
+    sentinel (``elastic/preemption.py``)."""
 
     def __init__(self):
         self._listeners: List[State] = []
@@ -124,6 +124,7 @@ class WorkerNotificationManager:
         self._stop = threading.Event()
         self._seen_version = 0
         self._lock = threading.Lock()
+        self._sentinel = None
 
     def init(self):
         if self._thread is not None:
@@ -176,6 +177,20 @@ class WorkerNotificationManager:
         self._thread = threading.Thread(target=poll, daemon=True,
                                         name="hvd-worker-notify")
         self._thread.start()
+        # Preemption sentinel: polls this host's maintenance-event
+        # endpoint and publishes the drain marker the driver's
+        # PreemptionAwareDiscovery consumes (one 2 s-timeout HTTP poll
+        # every 5 s).  Unlike the JAX package, the poll is opt-in: it
+        # starts when HVD_TPU_MAINTENANCE_URL names the endpoint or
+        # HVD_TPU_PREEMPTION_SENTINEL=1 asks for GCP's metadata server, so
+        # a worker never reaches for a metadata host that was not named.
+        # HVD_TPU_PREEMPTION_SENTINEL=0 disables it either way.
+        flag = os.environ.get("HVD_TPU_PREEMPTION_SENTINEL")
+        if flag == "1" or (flag != "0"
+                           and os.environ.get("HVD_TPU_MAINTENANCE_URL")):
+            from .preemption import PreemptionSentinel
+            self._sentinel = PreemptionSentinel(client)
+            self._sentinel.start()
 
     def register_listener(self, state: State):
         with self._lock:

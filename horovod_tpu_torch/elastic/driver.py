@@ -1,9 +1,9 @@
 """Elastic driver: discovery loop, slot assignment, worker lifecycle.
 
 Copy of ``horovod_tpu/elastic/driver.py`` (framework-free; the port keeps
-its own copy).  Left out: the preemption-aware discovery wrapper
-(``elastic/preemption.py``), which rides on the fault-injection layer
-not yet ported; discovery is the user's script alone.
+its own copy).  The discovery is wrapped in ``PreemptionAwareDiscovery``
+(``elastic/preemption.py``): a preempt-marked host leaves the world
+while it is still alive, and its workers get a drain window.
 
 Reference: horovod/runner/elastic/driver.py:69 ElasticDriver — background
 discovery thread (1 s period) runs the user script; on host changes it
@@ -78,6 +78,19 @@ class ElasticDriver:
                  timeout: float = 600.0,
                  verbose: bool = False):
         self.rendezvous = rendezvous
+        # Preemption awareness: host sentinels publish maintenance
+        # notices into the rendezvous KV scope "preempt"; wrapping the
+        # discovery filters those hosts out of the discoverable world so
+        # the reshape happens BEFORE the host dies, and
+        # _terminate_workers_on_lost_hosts drains their workers instead
+        # of terminating them.
+        from .preemption import PREEMPT_SCOPE, PreemptionAwareDiscovery
+
+        def _marked_hosts():
+            return set(rendezvous.scan_scope(PREEMPT_SCOPE).keys())
+
+        self._preempt_marked = _marked_hosts
+        discovery = PreemptionAwareDiscovery(discovery, _marked_hosts)
         self.host_manager = HostManager(discovery, cooldown_range)
         self.host_manager.min_required = min_np  # starvation-escape floor
         self.min_np = min_np
@@ -238,11 +251,27 @@ class ElasticDriver:
             self._shutdown.wait(DISCOVER_INTERVAL_S)
 
     def _terminate_workers_on_lost_hosts(self):
+        marked = self._preempt_marked()
         with self._lock:
             current = set(self.host_manager.current_hosts.keys())
             for (host, slot), w in self._workers.items():
                 if host not in current:
-                    w.terminate_event.set()
+                    if host in marked:
+                        # Preempt-marked host: still alive, dying soon.
+                        # Its worker gets a drain window: the discovery
+                        # notification (published just before this call)
+                        # raises HostsUpdatedInterrupt at its next
+                        # commit, so state lands before the reshape;
+                        # terminate is the grace period's fallback.
+                        # decommissioned keeps the exit from counting as
+                        # a failure (the marker keeps the host out).
+                        if not w.decommissioned:
+                            w.decommissioned = True
+                            w.decommission_timer = threading.Timer(
+                                DECOMMISSION_GRACE_S, w.terminate_event.set)
+                            w.decommission_timer.start()
+                    else:
+                        w.terminate_event.set()
 
     def _notify_workers_host_changes(self, update_res: int):
         """KV-store sequence bump — worker poll threads pick it up

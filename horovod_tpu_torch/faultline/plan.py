@@ -1,8 +1,7 @@
 """Deterministic fault schedules: what breaks, where, and at which step.
 
 Copied from ``horovod_tpu/faultline/plan.py``, ``KINDS`` and ``POINTS``
-whole.  One difference: the port has no request tracing (``obs/``) yet,
-so a firing records no trace id (``_active_trace_id`` returns None).
+whole.
 
 No reference analog — the reference (and Horovod upstream) proves its
 elastic paths with hand-built one-off failure tests.  The model here is
@@ -134,10 +133,11 @@ def _active_trace_id():
     scope — a dropped KV response under a traced /generate handler, a
     kill-rank at a traced routing decision — records WHICH request it
     hit, so a chaos run's trace correlates faults with victims."""
-    # The port has no ``obs/`` package yet: no request is ever traced,
-    # so there is no trace id to record.  Restore the lookup of
-    # ``obs.tracing.current_trace_id()`` when ``obs/`` is ported.
-    return None
+    try:
+        from ..obs import tracing as _tr
+        return _tr.current_trace_id()
+    except Exception:
+        return None
 
 
 class FaultInjected(Exception):

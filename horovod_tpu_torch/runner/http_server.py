@@ -1,12 +1,13 @@
 """HTTP KV store + rendezvous server.
 
 Copy of ``horovod_tpu/runner/http_server.py`` (framework-free; the port
-keeps its own copy because it imports nothing of the JAX package).  Two
-parts are left out: the C++ server backend (``csrc/kv_server.cc``; the
-Python ``_KVHandler`` is the one backend here) and the client's
-fault-injection and request-tracing hooks, which wait for the serving
-platform's port.  The elastic driver, the launcher and the data service
-use it; the eager engine negotiates over the world's c10d store instead.
+keeps its own copy because it imports nothing of the JAX package).  One
+part is left out: the C++ server backend (``csrc/kv_server.cc``; the
+Python ``_KVHandler`` is the one backend here).  The client fires the
+``kv.request`` fault point and, under a traced request's scope, sends
+``X-Trace-Id`` / ``X-Parent-Span``.  The elastic driver, the launcher,
+the data service and the serving fleet's preemption watcher use it; the
+eager engine negotiates over the world's c10d store instead.
 
 Reference: horovod/runner/http/http_server.py:35 (KVStoreHandler: PUT/GET
 scoped key-value store), :152 (RendezvousHandler), :192 (RendezvousServer:
@@ -394,6 +395,10 @@ class KVStoreClient:
             os.environ.get("HVD_KV_RETRY_BASE_MS", "10")) / 1e3
         self.retry_cap_s = float(
             os.environ.get("HVD_KV_RETRY_CAP_MS", "2000")) / 1e3
+        from ..faultline import runtime as _flrt
+        _flrt.maybe_install_from_env()
+        from ..obs import tracing as _tr
+        _tr.maybe_install_from_env()
 
     def _retry_backoff_s(self, attempt: int) -> float:
         """Delay before retry ``attempt`` (1-based): capped exponential
@@ -437,18 +442,59 @@ class KVStoreClient:
         (``http.client`` cost ~80 us of host CPU per request; this minimal
         writer/parser runs ~25 us against the same server)."""
         import time as _time
+
+        from ..faultline import runtime as _flrt
+        from ..obs import tracing as _tr
+        trace_ctx = None
+        trace_extra = ""
+        if _tr.TRACER is not None:
+            # Wire propagation: a KV round-trip issued while a traced
+            # request is active on this thread carries the trace headers,
+            # and each RETRY attempt becomes a kv-retry span.  One
+            # module-attribute read when tracing is off.
+            trace_ctx = _tr.current()
+            if trace_ctx is not None:
+                trace_extra = (
+                    f"X-Trace-Id: {trace_ctx.trace_id}\r\n"
+                    f"X-Parent-Span: {trace_ctx.span_id}\r\n")
         req = (f"{method} {path} HTTP/1.1\r\nHost: {self.addr}\r\n"
+               f"{trace_extra}"
                f"Content-Length: {len(body) if body else 0}\r\n\r\n"
                .encode("ascii"))
         if body:
             req += body
         for attempt in range(self.retry_max):
             sock = None
+            attempt_t0 = _time.monotonic()
             try:
+                if _flrt.PLAN is not None:
+                    # ``kv.request`` injection point (one consult per
+                    # ATTEMPT, so a drop train of length n exercises n
+                    # retries): delay-kv stalls the request, drop-kv-
+                    # response fails it as a transport error, landing in
+                    # the retry path a real flake takes.
+                    for f in _flrt.fire("kv.request",
+                                        f"{self.addr}:{self.port}"):
+                        if f.kind == "delay-kv":
+                            _time.sleep(f.param or 0.02)
+                        elif f.kind == "drop-kv-response":
+                            raise ConnectionError(
+                                "faultline: dropped KV response")
                 sock = self._conn(fresh=attempt > 0)
                 sock.sendall(req)
                 return self._read_response(sock)
             except (ConnectionError, OSError) as e:
+                if trace_ctx is not None and _tr.TRACER is not None:
+                    try:
+                        _tr.TRACER.emit_span(
+                            trace_ctx, "kv-retry", attempt_t0,
+                            _time.monotonic(), "kv-client",
+                            args={"attempt": attempt + 1,
+                                  "of": self.retry_max,
+                                  "method": method,
+                                  "error": str(e)[:120]})
+                    except Exception:
+                        pass
                 if attempt + 1 >= self.retry_max:
                     # Out of budget.  Drop the desynced socket: a request
                     # went out, so a LATE response may still arrive — a

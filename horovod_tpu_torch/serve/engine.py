@@ -52,8 +52,17 @@ greedy decoding.
 ``MLPAdapter`` is the engine-mechanics model: next token =
 argmax MLP(one_hot(token)), no cache, and its own perfect draft.
 
-Not ported yet (later slices): tiering, sequence-parallel prefill and
-request tracing.
+Request tracing (``obs/``): a sampled request's queue-wait /
+resubmission, admission, prefill (``prefill-chunk`` in paged mode),
+decode and, without an HTTP front end, ``request`` spans, the
+token-stream flow and its deadline / client-gone / preemption instants.
+Spans that become known under the engine lock are collected as
+closures (``_trace_emits``) and emitted after the lock is released and
+after the step's device results are on the host
+(``_flush_trace_emits``); shard files are written by the tracer's own
+thread.  With no tracer installed each site costs one attribute read.
+
+Not ported yet (later slices): tiering and sequence-parallel prefill.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from torch.nn import functional as F
 from ..faultline import runtime as _faultline
 from ..faultline.plan import FaultInjected
 from ..models.transformer import layer_norm
+from ..obs import tracing as _obs
 from ..utils import get_logger
 from ..utils.device import resolve_device
 from . import paged_attention as _pa
@@ -989,9 +999,19 @@ class InferenceEngine:
         self.prefill_steps = 0   # prefill chunk calls (one per iteration)
         self.spec_steps = 0      # speculative iterations (one verify each)
         self.draft_steps = 0     # draft_decode calls
-        # Fault injection: an env-configured plan installs at the first
-        # engine; the per-iteration guard is a None check.
+        # The fleet controller's brownout rung (serve/controller.py):
+        # rung 3 and above stop speculation (the greedy fallback emits
+        # the same tokens).  A plain int, read lock-free per iteration.
+        self.brownout_level = 0
+        # Deferred trace emissions (loop thread only): closures collected
+        # under ``self._lock`` and run after release by
+        # ``_flush_trace_emits``; timestamps are taken at the boundary,
+        # so the deferral changes nothing in the trace.
+        self._trace_emits: List = []
+        # Fault injection and request tracing: env-configured, installed
+        # at the first engine; the per-iteration guard is a None check.
         _faultline.maybe_install_from_env()
+        _obs.maybe_install_from_env()
 
     def _verify_pool_budget(self, num_blocks: int) -> None:
         """The pool's and the resident weights' device bytes against the
@@ -1473,6 +1493,7 @@ class InferenceEngine:
         self.seq_forks += r.n - 1
         self.forked_requests += 1
         group.forked = True
+        self._defer_flow(r)
         # Two passes: EVERY fork takes its block references before ANY
         # member can retire — a primary finishing on its first token
         # would otherwise free the shared prompt blocks while later forks
@@ -1499,6 +1520,28 @@ class InferenceEngine:
                     self._retire_seq(slot, f)
                     break
 
+    def _flush_trace_emits(self) -> None:
+        """Run the deferred span/flow emissions outside the engine lock
+        (loop thread only: every deferring site is)."""
+        if not self._trace_emits:
+            return
+        pending, self._trace_emits = self._trace_emits, []
+        for fn in pending:
+            try:
+                fn()
+            except Exception:
+                pass  # tracing must never take down the decode loop
+
+    def _defer_flow(self, r: Request) -> None:
+        """Queue one token-stream flow step for a traced request (every
+        token-append site defers through here)."""
+        if r.trace is None or _obs.TRACER is None:
+            return
+
+        def emit(t=_obs.TRACER, r=r):
+            t.flow(r.trace, "token-stream", self.replica_id)
+        self._trace_emits.append(emit)
+
     def _complete(self, r: Request) -> None:
         now = time.monotonic()
         if r.finish_reason is None:
@@ -1511,16 +1554,57 @@ class InferenceEngine:
                 self.metrics.observe_stage(f"{stage}|{r.qos}", ms)
                 self.metrics.observe_tenant_stage(r.tenant, stage, ms)
         self.metrics.observe_request_ms(r.qos, sum(r.stage_ms.values()))
+        if r.trace is not None and _obs.TRACER is not None:
+            def emit(t=_obs.TRACER, r=r, now=now, first=r.first_token_at,
+                     ntok=len(r.generated)):
+                if first is not None:
+                    t.emit_span(r.trace, "decode", first, now,
+                                self.replica_id,
+                                args={"tokens": ntok,
+                                      "requeues": r.requeues})
+                t.flow(r.trace, "token-stream", self.replica_id,
+                       end=True)
+                if r._emit_root:
+                    # Sampled at the scheduler (no HTTP front end): the
+                    # root span is the whole request.
+                    t.emit_span(r.trace, "request", r.submitted_at, now,
+                                self.replica_id,
+                                args={"request_id": r.request_id},
+                                root=True)
+            self._trace_emits.append(emit)
         r.complete()
         self.metrics.count_request("ok", tenant=r.tenant)
 
     def _observe_admission(self, requests: Sequence[Request]) -> None:
         """Credit each admitted request's wait to queue (or retry after a
-        failover/preemption requeue)."""
+        failover/preemption requeue), and emit a sampled request's
+        queue-wait (or resubmission) span and admission instant.  Runs
+        on the loop thread outside the engine lock."""
         now = time.monotonic()
+        tracer = _obs.TRACER
         for r in requests:
-            r.stage_add("retry" if r.requeues else "queue", now)
-            r.resubmitted_at = None
+            prev = r.stage_add("retry" if r.requeues else "queue", now)
+            if r.trace is None or tracer is None:
+                r.resubmitted_at = None
+                continue
+            try:
+                if r.resubmitted_at is not None:
+                    # The failover span a merged fleet trace shows
+                    # crossing replicas: requeue time to this admission.
+                    tracer.emit_span(
+                        r.trace, "resubmission", r.resubmitted_at, now,
+                        self.replica_id,
+                        args={"to": self.replica_id,
+                              "requeues": r.requeues})
+                    r.resubmitted_at = None
+                else:
+                    tracer.emit_span(
+                        r.trace, "queue-wait", prev, now, self.replica_id,
+                        args={"replica": self.replica_id})
+                tracer.instant(r.trace, "admission", self.replica_id,
+                               args={"replica": self.replica_id}, t=now)
+            except Exception:
+                pass
 
     def _fail(self, r: Request, exc: BaseException, outcome: str) -> bool:
         r.fail(exc)
@@ -1616,15 +1700,24 @@ class InferenceEngine:
                         self._fail(r, DeadlineExceededError(
                             f"{r.request_id} deadline expired mid-flight "
                             f"({ntokens} token(s) generated)"), "expired")
+                        mark = "deadline-expired"
                     else:
                         self._fail(r, RuntimeError(
                             f"{r.request_id} client disconnected "
                             f"mid-flight"), r.cancel_reason or "client_gone")
+                        mark = "client-gone"
+                    if r.trace is not None and _obs.TRACER is not None:
+                        def emit(t=_obs.TRACER, r=r, now=now, ntok=ntokens,
+                                 mark=mark):
+                            t.instant(r.trace, mark, self.replica_id,
+                                      args={"tokens": ntok}, t=now)
+                        self._trace_emits.append(emit)
                 table = getattr(s, "table", None)
                 if self.blocks is not None and table is not None:
                     self.blocks.free_table(table)
                 self._slots[i] = None
                 expired += 1
+        self._flush_trace_emits()
         return expired
 
     def _faultline_step(self) -> None:
@@ -1661,7 +1754,7 @@ class InferenceEngine:
             return 0
         self._observe_admission(admitted)
         cursor = 0
-        for _, group in sorted(
+        for p_bucket, group in sorted(
                 bucket_requests(admitted, cap=self.adapter.max_len).items()):
             # One prefill per shape bucket; requests that can never run
             # fail loudly here.
@@ -1670,6 +1763,7 @@ class InferenceEngine:
                 continue
             slots = free[cursor:cursor + len(runnable)]
             cursor += len(runnable)
+            t0 = time.monotonic()
             self._cache, first = self.adapter.prefill(
                 self._cache, [r.prompt for r in runnable], slots)
             self.prefill_steps += 1
@@ -1682,12 +1776,22 @@ class InferenceEngine:
                     self._publish_stream(r, r.generated)
                     r.stage_add("prefill", now)
                     self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
+                    if r.trace is not None and _obs.TRACER is not None:
+                        def emit(t=_obs.TRACER, r=r, t0=t0, now=now,
+                                 p_bucket=p_bucket, n=len(runnable)):
+                            t.emit_span(r.trace, "prefill", t0, now,
+                                        self.replica_id,
+                                        args={"bucket": p_bucket,
+                                              "batch": n})
+                        self._trace_emits.append(emit)
+                        self._defer_flow(r)
                     if self._finished(r, int(tok)):
                         self._complete(r)
                     else:
                         # Cache holds positions 0..P-1; the first decode
                         # feeds the prefill's token at position P.
                         self._slots[slot] = _Slot(r, len(r.prompt))
+            self._flush_trace_emits()
         return cursor
 
     def _decode_once(self) -> int:
@@ -1717,12 +1821,15 @@ class InferenceEngine:
                 s.request.generated.append(tok)
                 self._publish_stream(s.request, s.request.generated)
                 s.length += 1
+                self._defer_flow(s.request)
                 if self._finished(s.request, tok) \
                         or s.length >= self.adapter.max_len:
                     self._complete(s.request)
                     self._slots[i] = None
         self.steps += 1
+        self._flush_trace_emits()
         self.metrics.observe_decode_step(dt_ms, len(active), len(active))
+        self.metrics.maybe_emit_timeline()
         return len(active)
 
     # -- paged-mode loop -----------------------------------------------------
@@ -1885,6 +1992,7 @@ class InferenceEngine:
         for j, (_, s, _) in enumerate(sel):
             by_model.setdefault(s.request.model, []).append(j)
         first: List = [None] * len(sel)
+        t0 = time.monotonic()
         for model, idxs in by_model.items():
             ad = self._adapter_for(model)
             step = ad.prefill_chunk_logits if use_logits else ad.prefill_chunk
@@ -1895,6 +2003,21 @@ class InferenceEngine:
                 first[j] = tok
         self.prefill_steps += 1
         now = time.monotonic()
+        if _obs.TRACER is not None:
+            # One prefill-chunk span per traced sequence in this batched
+            # call (same t0 / now: they shared the compute), so a long
+            # prompt's chunks show per request.  Outside the lock.
+            for (_, s, take), start in zip(sel, starts):
+                r = s.request
+                if r.trace is None or take <= 0:
+                    continue
+                try:
+                    _obs.TRACER.emit_span(
+                        r.trace, "prefill-chunk", t0, now, self.replica_id,
+                        args={"tokens": take, "start": start,
+                              "batched": len(sel)})
+                except Exception:
+                    pass
         total = 0
         bt = self.blocks.block_tokens
         with self._lock:
@@ -1941,8 +2064,10 @@ class InferenceEngine:
                 self._publish_stream(r, s.generated, entry)
                 r.stage_add("prefill", now)
                 self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
+                self._defer_flow(r)
                 if self._seq_finished(s, tok):
                     self._retire_seq(i, s)
+        self._flush_trace_emits()
         return total
 
     def _preempt(self, slot: int, s: _Seq) -> None:
@@ -1972,7 +2097,15 @@ class InferenceEngine:
         if r.token_logprobs is not None:
             r.token_logprobs = []
         r.requeues += 1
-        r.resubmitted_at = time.monotonic()
+        now = time.monotonic()
+        r.resubmitted_at = now
+        if r.trace is not None and _obs.TRACER is not None:
+            try:
+                _obs.TRACER.instant(r.trace, "preempted", self.replica_id,
+                                    args={"reason": "kv-pool-exhausted"},
+                                    t=now)
+            except Exception:
+                pass
         self.metrics.count_request("preempted", tenant=r.tenant)
         self.batcher.requeue_front([r])
         get_logger().warning(
@@ -2171,11 +2304,14 @@ class InferenceEngine:
                 if s.group is None:
                     self._publish_stream(r, s.generated, entry)
                 s.length += 1
+                self._defer_flow(r)
                 if self._seq_finished(s, tok) \
                         or s.length >= self.adapter.max_len:
                     self._retire_seq(i, s)
         self.steps += 1
+        self._flush_trace_emits()
         self.metrics.observe_decode_step(dt_ms, len(active), len(active))
+        self.metrics.maybe_emit_timeline(kv_stats=self.blocks.stats)
         return len(active)
 
     # -- speculative decoding (paged mode, spec_k > 0) ------------------------
@@ -2301,6 +2437,7 @@ class InferenceEngine:
                     s.generated.append(tok)
                     if s.group is None:
                         self._publish_stream(r, s.generated)
+                    self._defer_flow(r)
                     emitted_total += 1
                     if self._seq_finished(s, tok):
                         finished = True
@@ -2331,8 +2468,10 @@ class InferenceEngine:
                                 s.group.reserve_cap)
         self.steps += 1
         self.spec_steps += 1
+        self._flush_trace_emits()
         self.metrics.observe_decode_step(dt_ms, len(active), emitted_total)
         self.metrics.observe_spec(drafted, accepted, rejected)
+        self.metrics.maybe_emit_timeline(kv_stats=self.blocks.stats)
         return len(active)
 
     def _spec_ok(self) -> bool:
@@ -2342,7 +2481,7 @@ class InferenceEngine:
         whole iteration back to the plain per-model step: the same
         tokens, without the draft's amortization (JAX ``_run``,
         ``horovod_tpu/serve/engine.py:4160``)."""
-        if self.spec_k <= 0:
+        if self.spec_k <= 0 or self.brownout_level >= 3:
             return False
         with self._lock:
             return all(
@@ -2375,6 +2514,7 @@ class InferenceEngine:
                 if self.blocks is not None:
                     self.blocks.free_table(s.table)
                 self._slots[i] = None
+        self._flush_trace_emits()  # leftovers of the failed step
         if self.kv_mode == "slot":
             self._cache = self.adapter.init_cache(self.max_batch)
         self._step_anchor = None

@@ -9,11 +9,15 @@ paged-KV gauges (blocks, CoW copies, n>1 fork counters, prefix-cache
 hit rate, bytes per token, attention impl and KV dtype), the request
 surface's families (warmup duration and runs per replica, a model
 roll's progress, the streamed-token counters) and the windowed
-histogram snapshots (``ttft_window``, ``request_window``).  The families
-keep the JAX package's names and labels, so one dashboard reads both.
+histogram snapshots (``ttft_window``, ``request_window``), and the fleet
+control plane's: the brownout rung (``set_brownout_level``), the fleet
+controller's actions (``count_ctl_event``) and the preemption watcher's
+survived KV errors (``count_preempt_poll_error``).  The families keep
+the JAX package's names and labels, so one dashboard reads both.
 ``set_timeline`` wires a ``timeline.Timeline`` that receives a roll's
-phase transitions (``swap_event``); the periodic counter emission
-(``maybe_emit_timeline``) is not ported.
+phase transitions (``swap_event``), BROWNOUT instants and the
+rate-limited SERVE counters (``maybe_emit_timeline``, every
+``HVD_SERVE_TIMELINE_EVERY`` decode steps).
 
 Everything is guarded by one lock: observers run on engine threads while
 ``/metrics`` renders on HTTP handler threads.
@@ -21,6 +25,7 @@ Everything is guarded by one lock: observers run on engine threads while
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -106,6 +111,13 @@ class ServeMetrics:
         self.tenant_stage_ms: Dict[Tuple[str, str], Histogram] = {}
         self.replica_events: Dict[str, int] = {"mark_dead": 0,
                                                "mark_alive": 0}
+        # Preemption-watcher health: transient KV errors the poller
+        # survived (replica.watch_preemption).
+        self.preempt_poll_errors = 0
+        # Fleet-controller plane (serve/controller.py): the current
+        # brownout rung (gauge) and the controller's action counters.
+        self.brownout_level = 0
+        self.ctl_events: Dict[str, int] = {}
         # A live weight roll's progress per model (serve/registry.py):
         # (replicas at the target version, replicas holding the model).
         self.swap_progress: Dict[str, Tuple[int, int]] = {}
@@ -119,6 +131,9 @@ class ServeMetrics:
         self.stream_tokens: Dict[str, int] = {
             "published": 0, "coalesced": 0, "duplicates": 0}
         self._timeline = None
+        self._timeline_every = int(os.environ.get(
+            "HVD_SERVE_TIMELINE_EVERY", "16"))
+        self._steps_since_emit = 0
         self._service_ms: Optional[float] = None
         self.occupancy_last = 0
         self.occupancy_max = 0
@@ -145,6 +160,7 @@ class ServeMetrics:
             self.occupancy_max = max(self.occupancy_max, occupancy)
             self.occupancy_sum += occupancy
             self.occupancy_samples += 1
+            self._steps_since_emit += 1
 
     def observe_iteration(self, prefill_tokens: int,
                           decode_tokens: int) -> None:
@@ -238,9 +254,75 @@ class ServeMetrics:
             self.swap_progress[model] = (int(done), int(total))
 
     def set_timeline(self, timeline) -> None:
-        """Register a ``timeline.Timeline`` for the roll's instants."""
+        """Register a ``timeline.Timeline``: a roll's instants, BROWNOUT
+        instants and the rate-limited SERVE counters."""
         with self._lock:
             self._timeline = timeline
+            self._steps_since_emit = 0
+
+    def set_brownout_level(self, level: int, reason: str = "") -> None:
+        """The controller's rung walk: gauge update + BROWNOUT timeline
+        instant (``reason`` is the action, e.g. ``brownout_up``)."""
+        with self._lock:
+            self.brownout_level = int(level)
+            tl = self._timeline
+        if tl is None:
+            return
+        try:
+            tl.brownout_event(
+                "down" if reason.endswith("down") else "up",
+                level, rung=reason)
+        except Exception:
+            pass  # the metrics path must never take down the controller
+
+    def count_ctl_event(self, event: str) -> None:
+        with self._lock:
+            self.ctl_events[event] = self.ctl_events.get(event, 0) + 1
+
+    def count_preempt_poll_error(self) -> None:
+        with self._lock:
+            self.preempt_poll_errors += 1
+
+    def maybe_emit_timeline(self, force: bool = False,
+                            kv_stats: Optional[dict] = None) -> None:
+        """Rate-limited SERVE/* counter emission (every
+        ``HVD_SERVE_TIMELINE_EVERY`` decode steps, or ``force``).
+        ``kv_stats`` (the paged engine's block ``stats`` callable, read
+        only when a sample is due) adds block-utilization and
+        prefix-hit-rate counters."""
+        with self._lock:
+            tl = self._timeline
+            if tl is None:
+                return
+            if not force and self._steps_since_emit < self._timeline_every:
+                return
+            self._steps_since_emit = 0
+        if callable(kv_stats):
+            kv_stats = kv_stats()
+        depth = sum(max(d, 0) for d in self._queue_depths().values())
+        with self._lock:
+            occ_mean = (self.occupancy_sum / self.occupancy_samples
+                        if self.occupancy_samples else 0.0)
+            counters = {
+                "tokens_total": self.tokens_total,
+                "occupancy": self.occupancy_last,
+                "occupancy_mean": round(occ_mean, 3),
+                "queue_depth": depth,
+                "ttft_p50_ms": self.ttft_ms.quantile(0.5),
+                "token_step_p50_ms": self.token_step_ms.quantile(0.5),
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "decode_tokens_total": self.decode_tokens_total,
+            }
+            if kv_stats is not None:
+                counters["kv_blocks_used"] = kv_stats.get("used", 0)
+                counters["kv_blocks_free"] = kv_stats.get("free", 0)
+                counters["kv_blocks_retained"] = kv_stats.get("retained", 0)
+                counters["prefix_hit_rate"] = round(
+                    kv_stats.get("prefix_hit_rate", 0.0), 4)
+        try:
+            tl.serve_counter("engine", counters)
+        except Exception:
+            pass  # the metrics path must never take down the decode loop
 
     def swap_event(self, model: str, replica: str, phase: str,
                    version: int) -> None:
@@ -331,6 +413,9 @@ class ServeMetrics:
                 "prefills": self.prefills_total,
                 "requests": dict(self.requests),
                 "replica_events": dict(self.replica_events),
+                "brownout_level": self.brownout_level,
+                "ctl_events": dict(self.ctl_events),
+                "preempt_poll_errors": self.preempt_poll_errors,
                 "request_latency": {t: h.to_dict()
                                     for t, h in self.request_ms.items()},
                 "occupancy": {"last": self.occupancy_last,
@@ -454,11 +539,22 @@ class ServeMetrics:
             for kind, n in sorted(self.stream_tokens.items()):
                 lines.append(
                     f'hvd_serve_stream_tokens_total{{kind="{kind}"}} {n}')
+            lines.append(
+                "# TYPE hvd_serve_preempt_poll_errors_total counter")
+            lines.append(f"hvd_serve_preempt_poll_errors_total "
+                         f"{self.preempt_poll_errors}")
             lines.append("# TYPE hvd_serve_replica_events_total counter")
             for event, n in sorted(self.replica_events.items()):
                 lines.append(
                     f'hvd_serve_replica_events_total{{event="{event}"}} '
                     f'{n}')
+            lines.append("# TYPE hvd_serve_brownout_level gauge")
+            lines.append(
+                f"hvd_serve_brownout_level {self.brownout_level}")
+            lines.append("# TYPE hvd_serve_ctl_events_total counter")
+            for event, n in sorted(self.ctl_events.items()):
+                lines.append(
+                    f'hvd_serve_ctl_events_total{{event="{event}"}} {n}')
             lines.append("# TYPE hvd_serve_batch_occupancy gauge")
             lines.append(f"hvd_serve_batch_occupancy {self.occupancy_last}")
             lines.append("# TYPE hvd_serve_batch_occupancy_max gauge")

@@ -14,8 +14,15 @@ Requests naming a ``model`` route only to replicas where it is resident
 (``serve/registry.py``), and a dead replica's orphans re-deal only to
 survivors holding their model.
 
-Not ported yet: the preemption watcher, the ``replica.route`` fault
-point and the tracing hooks.
+The fleet also grows back: ``report_rank_recovered`` and ``mark_alive``
+revive a dead replica, ``add_replica`` admits a new one.
+``watch_preemption`` polls the rendezvous KV scope ``preempt`` (the
+markers ``elastic/preemption.PreemptionSentinel`` publishes): a marked
+host's replicas are marked dead (their work fails over), and revived
+when the marker clears; a failed poll is counted, backed off and
+survived.  ``submit`` is the ``replica.route`` fault point (a
+``kill-rank`` there is a loss detected at routing time) and the
+sampling point of requests that arrive without an HTTP front end.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+from ..faultline import runtime as _faultline
+from ..obs import tracing as _obs
 from ..utils import get_logger
 from .batcher import DynamicBatcher, QueueFullError, Request
 from .engine import InferenceEngine
@@ -95,11 +104,16 @@ class ReplicaScheduler:
         self.replicas: List[Replica] = list(replicas)
         self.metrics = metrics or ServeMetrics()
         self._lock = threading.Lock()
+        self._watch_stop = threading.Event()
+        self._watch_thread: Optional[threading.Thread] = None
         self._started = False
         for r in self.replicas:
-            self.metrics.register_queue_depth(
-                r.replica_id, r.engine.batcher.depth)
-            self.metrics.register_kv_stats(r.replica_id, r.engine.kv_stats)
+            self._register_metrics(r)
+        _faultline.maybe_install_from_env()
+
+    def _register_metrics(self, r: Replica) -> None:
+        self.metrics.register_queue_depth(r.replica_id, r.engine.batcher.depth)
+        self.metrics.register_kv_stats(r.replica_id, r.engine.kv_stats)
 
     def _healthy(self) -> List[Replica]:
         with self._lock:
@@ -114,6 +128,27 @@ class ReplicaScheduler:
         """Least-loaded routing with failover: a replica at queue capacity
         backpressures; the next-least-loaded healthy replica is tried
         before the request is shed."""
+        if _faultline.PLAN is not None:
+            # ``replica.route`` injection point: a kill-rank here is a
+            # loss detected at routing time (an all-numeric target is a
+            # slot rank, anything else a replica id).  The spec's target
+            # names the victim, so no instance is passed.
+            for f in _faultline.fire("replica.route"):
+                if f.kind != "kill-rank" or f.target is None:
+                    continue
+                if f.target.isdigit():
+                    self.report_rank_lost(int(f.target))
+                else:
+                    self.mark_dead(f.target, reason="faultline kill-rank")
+        if _obs.TRACER is not None and not request._sampling_decided:
+            # Ingress without an HTTP front end (direct submits): the
+            # scheduler samples and the engine emits the root span at
+            # completion.  A request the front end already decided on is
+            # not rolled again.
+            request._sampling_decided = True
+            if _obs.TRACER.should_sample():
+                request.trace = _obs.TRACER.new_context()
+                request._emit_root = True
         candidates = sorted(self._healthy(), key=lambda r: r.load())
         if request.model is not None:
             # Only replicas where the model is resident.  A model known
@@ -144,6 +179,10 @@ class ReplicaScheduler:
         return self
 
     def stop(self) -> None:
+        self._watch_stop.set()
+        if self._watch_thread is not None:
+            self._watch_thread.join(timeout=10)
+            self._watch_thread = None
         for r in self.replicas:
             for req in r.engine.batcher.close():
                 req.fail(NoHealthyReplicaError("server shutting down"))
@@ -151,6 +190,19 @@ class ReplicaScheduler:
             # of parking their handler threads for the full timeout.
             for req in r.engine.drain():
                 req.fail(NoHealthyReplicaError("server shutting down"))
+
+    def report_rank_lost(self, rank: int) -> Optional[str]:
+        """A lost slot rank kills the healthy replica whose process set
+        holds it.  Returns that replica's id (None when the rank maps to
+        no healthy replica)."""
+        with self._lock:
+            victim = next((r for r in self.replicas
+                           if r.state == "healthy" and rank in r.ranks),
+                          None)
+        if victim is None:
+            return None
+        self.mark_dead(victim.replica_id, reason=f"rank {rank} lost")
+        return victim.replica_id
 
     def mark_dead(self, replica_id: str, reason: str = "") -> None:
         """Remove a replica from routing and requeue ITS work (queued +
@@ -176,6 +228,20 @@ class ReplicaScheduler:
         orphans = queued + victim.engine.drain()
         if not orphans:
             return
+        if _obs.TRACER is not None:
+            # Failover forensics: each traced orphan gets a resubmit
+            # instant naming the dead replica; the resubmission span
+            # closes at the survivor's admission.
+            for req in orphans:
+                if req.trace is None:
+                    continue
+                try:
+                    _obs.TRACER.instant(
+                        req.trace, "resubmit", replica_id,
+                        args={"from": replica_id,
+                              "reason": reason or "mark_dead"})
+                except Exception:
+                    pass
         survivors = sorted(self._healthy(), key=lambda r: r.load())
         if not survivors:
             for req in orphans:
@@ -202,6 +268,8 @@ class ReplicaScheduler:
             chunks[eligible[i % len(eligible)].replica_id].append(req)
         for s in survivors:
             s.engine.batcher.requeue_front(chunks[s.replica_id])
+        get_logger().warning("serve: requeued %d request(s) from %s",
+                             len(orphans), replica_id)
 
     def mark_alive(self, replica_id: str, reason: str = "") -> None:
         """Re-admit a dead replica: reopen its batcher, restart its loop
@@ -220,6 +288,82 @@ class ReplicaScheduler:
         self.metrics.count_replica_event("mark_alive")
         get_logger().warning("serve: replica %s re-admitted (%s)",
                              replica_id, reason or "operator request")
+
+    def report_rank_recovered(self, rank: int) -> Optional[str]:
+        """A recovered slot rank revives the dead replica whose process
+        set holds it.  Returns that replica's id (None when the rank maps
+        to no dead replica: a new process set enters by
+        ``add_replica``)."""
+        with self._lock:
+            dead = next((r for r in self.replicas
+                         if r.state == "dead" and rank in r.ranks), None)
+        if dead is None:
+            return None
+        self.mark_alive(dead.replica_id, reason=f"rank {rank} recovered")
+        return dead.replica_id
+
+    def add_replica(self, replica: Replica) -> None:
+        """Admit a new replica into the routing set: its metrics are
+        registered and, once the scheduler has started, its engine
+        starts (with its warmup when enabled)."""
+        with self._lock:
+            if any(r.replica_id == replica.replica_id
+                   for r in self.replicas):
+                raise ValueError(
+                    f"replica id {replica.replica_id} already registered")
+            self.replicas.append(replica)
+        self._register_metrics(replica)
+        if self._started:
+            replica.engine.start()
+        self.metrics.count_replica_event("mark_alive")
+        get_logger().warning("serve: replica %s added (scale-up); fleet "
+                             "size now %d", replica.replica_id,
+                             len(self.replicas))
+
+    def watch_preemption(self, kv_client, host_ranks: Dict[str, List[int]],
+                         poll_s: Optional[float] = None) -> None:
+        """Poll the rendezvous KV scope ``preempt`` and turn marker churn
+        into fleet transitions: a host appearing kills the replicas its
+        ranks map to (``report_rank_lost``), a marked host disappearing
+        revives them (``report_rank_recovered``).  ``host_ranks`` maps a
+        discovery hostname to the slot ranks it carries.  Every failed
+        poll is counted (``hvd_serve_preempt_poll_errors_total``), backed
+        off exponentially (capped at 30 s) and retried: the watcher
+        never dies of a KV flake."""
+        from ..elastic.preemption import PREEMPT_SCOPE
+        poll_s = poll_s if poll_s is not None else float(
+            os.environ.get("HVD_SERVE_PREEMPT_POLL_S", "1"))
+
+        def loop():
+            marked_prev: set = set()
+            errors = 0
+            while not self._watch_stop.is_set():
+                try:
+                    marked = set(kv_client.scan(PREEMPT_SCOPE))
+                    for host in marked - marked_prev:
+                        for rank in host_ranks.get(host, []):
+                            self.report_rank_lost(rank)
+                    for host in marked_prev - marked:
+                        for rank in host_ranks.get(host, []):
+                            self.report_rank_recovered(rank)
+                    marked_prev = marked
+                    errors = 0
+                except Exception as e:
+                    # The marker diff is kept: the next good scan sees
+                    # exactly the churn this one missed.
+                    errors += 1
+                    self.metrics.count_preempt_poll_error()
+                    backoff = min(poll_s * (2 ** min(errors, 5)), 30.0)
+                    get_logger().warning(
+                        "preempt watcher: poll error #%d (%s); retrying "
+                        "in %.1fs", errors, e, backoff)
+                    self._watch_stop.wait(backoff)
+                    continue
+                self._watch_stop.wait(poll_s)
+
+        self._watch_thread = threading.Thread(
+            target=loop, daemon=True, name="hvd-serve-preempt-watch")
+        self._watch_thread.start()
 
     def healthz(self) -> dict:
         with self._lock:

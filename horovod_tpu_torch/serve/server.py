@@ -1,5 +1,5 @@
 """HTTP serving front-end: ``/generate``, ``/score``, ``/healthz``,
-``/metrics``.
+``/metrics``, ``/trace``.
 
 Port of ``horovod_tpu/serve/server.py``: ``ThreadingHTTPServer`` with
 HTTP/1.1 keep-alive and an explicit Content-Length on every buffered
@@ -39,7 +39,23 @@ Status mapping:
   the same code; a client that hangs up mid-stream cancels its sequence
   in the engine (outcome ``client_gone``).
 
-``python -m horovod_tpu_torch.serve`` runs ``run_commandline``.
+Every 503 and 504 carries ``Retry-After`` (the load-aware hint, capped
+by the client's remaining budget) and, when the client gave a budget,
+``X-Deadline-Remaining-S``; a shed before any ``Request`` exists (the
+drain refusal) reads the budget from ``X-Request-Timeout-S``.
+
+Request tracing (``obs/``): an inbound ``X-Trace-Id`` continues the
+upstream hop's trace while a tracer is installed (the upstream made the
+sampling decision), else ``HVD_TRACE_SAMPLE`` rolls; the decision rides
+the request into the engine and is never rolled again.  Every response
+of a traced request carries ``X-Trace-Id`` and ``X-Span-Id`` under one
+``http-handle`` root span; an untraced request echoes a well-formed
+inbound ``X-Trace-Id``.  ``GET /trace`` serves the recent sampled span
+trees.  A ``controller=`` (``serve/controller.py``) starts after the
+scheduler and stops before it.
+
+``python -m horovod_tpu_torch.serve`` runs ``run_commandline``
+(``--autoscale`` or ``HVD_SERVE_CTL_ENABLE=1`` runs the controller).
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..faultline import runtime as _faultline
+from ..obs import tracing as _obs
 from ..utils import get_logger
 from .batcher import DeadlineExceededError, QueueFullError, Request
 from .metrics import ServeMetrics
@@ -63,9 +80,17 @@ from .streaming import (CHUNK_TERMINATOR, TokenStream, chunk_frame,
 class DrainingThreadingHTTPServer(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` + graceful drain: ``begin_drain()`` makes
     handlers refuse new work (503 + ``Connection: close``), ``wait_idle()``
-    blocks until every in-flight handler has answered."""
+    blocks until every in-flight handler has answered.
+
+    The listen backlog is 128, not ``socketserver``'s 5 (the JAX
+    package's server keeps 5): a burst of more than ~6 connections
+    overflows a backlog of 5, the kernel drops the extra SYNs, and each
+    of those clients waits out a 1 s retransmit before it is even
+    accepted.  The router opens one connection per forward, so a burst
+    of concurrent requests through it is exactly such a burst."""
 
     daemon_threads = True
+    request_queue_size = 128
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -121,8 +146,24 @@ class _ServeHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     disable_nagle_algorithm = True
 
+    #: The active request's trace context, set per POST: every reply,
+    #: 200 and the 400/503/504 sheds alike, echoes its trace id.
+    _trace_ctx = None
+    _trace_echo = None  # inbound X-Trace-Id when untraced: still echoed
+
     def log_message(self, fmt, *args):
         get_logger().debug("serve: " + fmt % args)
+
+    def _trace_id(self) -> Optional[str]:
+        return (self._trace_ctx.trace_id if self._trace_ctx is not None
+                else self._trace_echo)
+
+    def _trace_headers(self) -> None:
+        tid = self._trace_id()
+        if tid is not None:
+            self.send_header("X-Trace-Id", tid)
+            if self._trace_ctx is not None:
+                self.send_header("X-Span-Id", self._trace_ctx.span_id)
 
     def _reply(self, code: int, body: bytes,
                content_type: str = "application/json",
@@ -130,6 +171,7 @@ class _ServeHandler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        self._trace_headers()
         for k, v in extra_headers:
             self.send_header(k, v)
         self.end_headers()
@@ -154,20 +196,52 @@ class _ServeHandler(BaseHTTPRequestHandler):
         hint = -(-depth * svc_s // max(healthy, 1))
         return max(1, min(int(hint), max(cap, 1)))
 
+    def _header_budget_s(self) -> Optional[float]:
+        """The client budget visible at the HTTP layer alone, the
+        ``X-Request-Timeout-S`` header: a shed before any Request exists
+        (the drain refusal) still clamps its ``Retry-After`` by it."""
+        raw = self.headers.get("X-Request-Timeout-S")
+        try:
+            budget = float(raw) if raw is not None else None
+        except (TypeError, ValueError):
+            return None
+        return budget if budget is not None and budget > 0 else None
+
     def _budget_headers(self, request=None) -> tuple:
         """503/504 headers: ``Retry-After`` capped by the client's
-        remaining budget, which rides ``X-Deadline-Remaining-S``."""
+        remaining budget, which rides ``X-Deadline-Remaining-S``.
+        Without a Request, the header budget stands in."""
         hint = self._retry_after_s()
-        remaining = request.remaining() if request is not None else None
+        remaining = (request.remaining() if request is not None
+                     else self._header_budget_s())
         if remaining is None:
             return (("Retry-After", str(hint)),)
         return (("Retry-After", str(min(hint, int(remaining)))),
                 ("X-Deadline-Remaining-S", f"{remaining:.3f}"))
 
+    @staticmethod
+    def _safe_id(value):
+        """Inbound trace / span ids are client input echoed into headers
+        and forwarded onto KV requests: a sane id alphabet only (no CRLF
+        header injection, no non-ASCII); anything else counts as
+        absent."""
+        if value and len(value) <= 128 and \
+                all(c.isascii() and (c.isalnum() or c in "-_.")
+                    for c in value):
+            return value
+        return None
+
     def do_GET(self):
+        # Keep-alive reuses one handler instance across requests: the
+        # per-request trace state resets.
+        self._trace_ctx = None
+        self._trace_echo = self._safe_id(self.headers.get("X-Trace-Id"))
         path = self.path.split("?", 1)[0]
         if path == "/healthz":
             health = self.server.scheduler.healthz()
+            # The controller's brownout rung and the drain state ride the
+            # health answer: the router's active poller reads them.
+            health["brownout_level"] = self.server.metrics.brownout_level
             health["draining"] = bool(getattr(self.server, "draining",
                                               False))
             code = 200 if health["status"] != "unserving" else 503
@@ -175,28 +249,82 @@ class _ServeHandler(BaseHTTPRequestHandler):
         elif path == "/metrics":
             self._reply(200, self.server.metrics.render().encode(),
                         content_type="text/plain; version=0.0.4")
+        elif path == "/trace":
+            # The sampled request span trees, newest first.
+            tracer = _obs.TRACER
+            self._reply_json(200, {
+                "enabled": tracer is not None,
+                "sample": tracer.sample if tracer is not None else 0.0,
+                "traces": (tracer.recent_traces()
+                           if tracer is not None else []),
+            })
         else:
             self._reply_json(404, {"error": f"unknown path {path}"})
 
     def do_POST(self):
+        # Trace ingress: an inbound X-Trace-Id continues the upstream
+        # hop's trace (it made the sampling decision), otherwise
+        # HVD_TRACE_SAMPLE decides.  Every POST outcome, the drain
+        # refusal included, answers under ONE http-handle root span.
+        tracer = _obs.TRACER
+        hdr_tid = self._safe_id(self.headers.get("X-Trace-Id"))
+        self._trace_echo = hdr_tid
+        ctx = None
+        if tracer is not None and (hdr_tid is not None
+                                   or tracer.should_sample()):
+            ctx = tracer.new_context(
+                trace_id=hdr_tid,
+                parent=self._safe_id(self.headers.get("X-Parent-Span")))
+        self._trace_ctx = ctx
+        if ctx is None:
+            self._route_post(None)
+            return
+        t0 = time.monotonic()
+        token = _obs.push(ctx)
+        status = 500  # when the handler raises before replying
+        try:
+            status = self._route_post(ctx)
+        finally:
+            _obs.pop(token)
+            try:
+                tracer.emit_span(
+                    ctx, "http-handle", t0, time.monotonic(), "server",
+                    args={"status": status}, root=True)
+            except Exception:
+                pass  # tracing must never take down the HTTP plane
+
+    def _route_post(self, ctx) -> int:
+        """The POST body; returns the status it answered.  The drain
+        refusal (503 + ``Connection: close``, ``Retry-After`` clamped by
+        the header budget) answers outside began/ended, so it never
+        holds the drain's idle-wait."""
         if getattr(self.server, "draining", False):
+            self._shed_log("draining", None, "refused: draining")
             self._reply_json(
                 503, {"error": "draining: server is shutting down"},
                 extra_headers=tuple(self._budget_headers())
                 + (("Connection", "close"),))
-            return
+            return 503
         self.server.request_began()
         try:
             path = self.path.split("?", 1)[0]
             if path == "/generate":
-                self._handle_generate()
-            elif path == "/score":
-                self._handle_score()
-            else:
-                self._reply_json(
-                    404, {"error": f"POST /generate or /score, not {path}"})
+                return self._handle_generate(ctx)
+            if path == "/score":
+                return self._handle_score()
+            self._reply_json(
+                404, {"error": f"POST /generate or /score, not {path}"})
+            return 404
         finally:
             self.server.request_ended()
+
+    def _shed_log(self, outcome: str, request, exc) -> None:
+        """Shed / error forensics line carrying the trace id, so a
+        client's retry correlates with the shed that caused it."""
+        get_logger().debug(
+            "serve: outcome=%s request=%s trace_id=%s (%s)", outcome,
+            getattr(request, "request_id", "-"), self._trace_id() or "-",
+            exc)
 
     def _known_model(self, model: str) -> bool:
         registry = self.server.registry
@@ -205,7 +333,8 @@ class _ServeHandler(BaseHTTPRequestHandler):
         return any(model in r.engine._adapters
                    for r in self.server.scheduler.fleet())
 
-    def _handle_generate(self) -> None:
+    def _handle_generate(self, ctx) -> int:
+        """The /generate body; returns the status it answered."""
         try:
             length = int(self.headers.get("Content-Length", 0))
             payload = json.loads(self.rfile.read(length) or b"{}")
@@ -262,36 +391,53 @@ class _ServeHandler(BaseHTTPRequestHandler):
                 logprobs=payload.get("logprobs"),
                 schema=schema)
         except (KeyError, TypeError, ValueError) as e:
+            self._shed_log("bad_request", None, e)
             self._reply_json(400, {"error": str(e)})
-            return
+            return 400
+        # Before submit (admission may be instant).  The front end OWNS
+        # the sampling decision: ctx None means "rolled and lost" (or no
+        # tracer), and the scheduler must not roll again.
+        request.trace = ctx
+        request._sampling_decided = True
         if request.stream:
             # The sink attaches BEFORE submit: the engine's first
             # publish may beat this thread back from submit().
             request.sink = TokenStream(
                 logprobs=request.logprobs is not None)
         try:
-            self.server.scheduler.submit(request)
+            t_route = time.monotonic()
+            replica = self.server.scheduler.submit(request)
+            if ctx is not None and _obs.TRACER is not None:
+                try:
+                    _obs.TRACER.emit_span(
+                        ctx, "route", t_route, time.monotonic(), "server",
+                        args={"replica": replica.replica_id})
+                except Exception:
+                    pass
             if request.stream:
-                self._stream_response(request)
-                return
+                return self._stream_response(request)
             tokens = request.result(timeout=self.server.request_timeout_s)
         except (QueueFullError, NoHealthyReplicaError) as e:
+            self._shed_log("shed", request, e)
             self._reply_json(503, {"error": str(e)},
                              extra_headers=self._budget_headers(request))
-            return
+            return 503
         except (DeadlineExceededError, TimeoutError) as e:
+            self._shed_log("expired", request, e)
             self._reply_json(504, {"error": str(e)},
                              extra_headers=self._budget_headers(request))
-            return
+            return 504
         except Exception as e:  # engine-side failure — surfaced, not hung
+            self._shed_log("error", request, e)
             self._reply_json(500, {"error": str(e)})
-            return
+            return 500
         body = self._outcome_body(request)
         body["tokens"] = tokens
         if request.n > 1:
             body["n"] = request.n
             body["completions"] = request.samples
         self._reply_json(200, body)
+        return 200
 
     @staticmethod
     def _outcome_body(request: Request) -> dict:
@@ -343,18 +489,19 @@ class _ServeHandler(BaseHTTPRequestHandler):
             self.wfile.flush()
             return True
         except OSError as e:  # BrokenPipeError, ConnectionResetError
-            get_logger().debug("serve: %s client gone (%s)",
-                               request.request_id, e)
+            self._shed_log("client_gone", request, e)
             return False
 
-    def _stream_response(self, request: Request) -> None:
+    def _stream_response(self, request: Request) -> int:
         """The /generate answer as SSE over chunked transfer.  A failure
         BEFORE the first byte answers buffered JSON (400/503/504/500, as
         the buffered path); after it, the stream ends with a terminal
         ``error`` event carrying the same code.  A dead client socket at
         any write cancels the sequence (``Request.cancel``: slot and
-        blocks freed, outcome ``client_gone``).  The engine lock is
-        never held here: events come from the request's TokenStream."""
+        blocks freed, outcome ``client_gone``; the root span reads 499).
+        The engine lock is never held here: events come from the
+        request's TokenStream.  Returns the status the root span
+        records."""
         sink = request.sink
         deadline = time.monotonic() + self.server.request_timeout_s
         first = sink.next_event(timeout=self.server.request_timeout_s)
@@ -368,17 +515,20 @@ class _ServeHandler(BaseHTTPRequestHandler):
             status = error_status_for(exc)
             if status == 504 and not isinstance(exc, DeadlineExceededError):
                 request.cancel("server_cap")
+            self._shed_log({503: "shed", 504: "expired"}.get(status, "error"),
+                           request, exc)
             extra = (self._budget_headers(request)
                      if status in (503, 504) else ())
             self._reply_json(status, {"error": str(exc)},
                              extra_headers=extra)
-            return
+            return status
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
         self.send_header("Transfer-Encoding", "chunked")
         # A body of unknown length owns its connection: no keep-alive.
         self.send_header("Connection", "close")
+        self._trace_headers()
         self.end_headers()
         ev = first
         try:
@@ -388,21 +538,24 @@ class _ServeHandler(BaseHTTPRequestHandler):
                     if not self._write_stream_frame(
                             request, chunk_frame(encode_sse("token", data))):
                         request.cancel()
-                        return
+                        return 499
                 elif kind == "done":
                     body = self._outcome_body(request)
                     body["stream"] = sink.counters()
-                    self._write_stream_frame(
+                    ok = self._write_stream_frame(
                         request, chunk_frame(encode_sse("done", body))
                         + CHUNK_TERMINATOR)
-                    return
+                    return 200 if ok else 499
                 else:  # ("error", exc): a terminal failure mid-stream
-                    self._write_stream_frame(request, chunk_frame(
+                    status = error_status_for(data)
+                    self._shed_log(
+                        {503: "shed", 504: "expired"}.get(status, "error"),
+                        request, data)
+                    ok = self._write_stream_frame(request, chunk_frame(
                         encode_sse("error", {"error": str(data),
-                                             "code": error_status_for(
-                                                 data)}))
+                                             "code": status}))
                         + CHUNK_TERMINATOR)
-                    return
+                    return status if ok else 499
                 remaining = deadline - time.monotonic()
                 ev = (sink.next_event(timeout=remaining)
                       if remaining > 0 else None)
@@ -414,17 +567,18 @@ class _ServeHandler(BaseHTTPRequestHandler):
                         f"{request.request_id} server cap "
                         f"({self.server.request_timeout_s:.0f}s) expired "
                         f"mid-stream")
-                    self._write_stream_frame(request, chunk_frame(
+                    self._shed_log("expired", request, exc)
+                    ok = self._write_stream_frame(request, chunk_frame(
                         encode_sse("error", {"error": str(exc),
                                              "code": 504}))
                         + CHUNK_TERMINATOR)
-                    return
+                    return 504 if ok else 499
         finally:
             self.server.metrics.count_stream(sink.counters())
 
     # -- /score ------------------------------------------------------------------
 
-    def _handle_score(self) -> None:
+    def _handle_score(self) -> int:
         """POST /score: per-token logprobs of ``tokens`` under the model,
         teacher-forced through the paged pipeline
         (``InferenceEngine.score_tokens``), on the least loaded healthy
@@ -444,8 +598,9 @@ class _ServeHandler(BaseHTTPRequestHandler):
             if model is not None:
                 model = str(model)
         except (KeyError, TypeError, ValueError) as e:
+            self._shed_log("bad_request", None, e)
             self._reply_json(400, {"error": str(e)})
-            return
+            return 400
         target = None
         for r in self.server.scheduler.fleet():
             if r.state != "healthy":
@@ -458,46 +613,59 @@ class _ServeHandler(BaseHTTPRequestHandler):
             e = NoHealthyReplicaError(
                 f"no healthy replica holds model {model!r}"
                 if model is not None else "no healthy replica")
+            self._shed_log("shed", None, e)
             self._reply_json(503, {"error": str(e)},
                              extra_headers=self._budget_headers())
-            return
+            return 503
         try:
             entries = target.engine.score_tokens(tokens, model=model,
                                                  top=top)
         except (KeyError, ValueError) as e:
+            self._shed_log("bad_request", None, e)
             self._reply_json(400, {"error": str(e)})
-            return
+            return 400
         except Exception as e:
+            self._shed_log("error", None, e)
             self._reply_json(500, {"error": str(e)})
-            return
+            return 500
         body = {"tokens": tokens, "logprobs": entries,
                 "replica": target.replica_id}
         if model is not None:
             body["model"] = model
         self._reply_json(200, body)
+        return 200
 
 
 class ServeServer:
-    """Owns the HTTP listener + the scheduler lifecycle."""
+    """Owns the HTTP listener + the scheduler lifecycle (and the optional
+    fleet controller's, which starts after the scheduler and stops
+    before it: a controller actuating into a stopping fleet would race
+    ``mark_dead`` against the shutdown drain)."""
 
     def __init__(self, scheduler: ReplicaScheduler,
                  metrics: Optional[ServeMetrics] = None,
                  request_timeout_s: Optional[float] = None,
-                 registry=None):
+                 controller=None, registry=None):
         self.scheduler = scheduler
         self.metrics = metrics or scheduler.metrics
         # Optional ModelRegistry (serve/registry.py): the unknown-model
         # gate asks it first; without one the handler scans the fleet's
         # resident adapters.
         self.registry = registry
+        self.controller = controller
         self.request_timeout_s = (
             request_timeout_s if request_timeout_s is not None
             else float(os.environ.get("HVD_SERVE_REQUEST_TIMEOUT_S", "120")))
         self.httpd: Optional[DrainingThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # Request tracing's env bootstrap at the front door (the engines
+        # bootstrap too; whichever comes up first installs).
+        _obs.maybe_install_from_env()
 
     def start(self, port: int = 0, host: str = "0.0.0.0") -> int:
         self.scheduler.start()
+        if self.controller is not None:
+            self.controller.start()
         self.httpd = DrainingThreadingHTTPServer((host, port),
                                                  _ServeHandler)
         self.httpd.scheduler = self.scheduler
@@ -542,7 +710,10 @@ class ServeServer:
             self._thread.join(timeout=10)
             if not self._thread.is_alive():
                 self._thread = None
+        if self.controller is not None:
+            self.controller.stop()
         self.scheduler.stop()
+        self.metrics.maybe_emit_timeline(force=True)
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +792,11 @@ def run_commandline(argv=None) -> int:
                         help="seed of the random weights")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--autoscale", action="store_true",
+                        default=os.environ.get("HVD_SERVE_CTL_ENABLE", "0")
+                        not in ("0", "false"),
+                        help="run the SLO-aware fleet controller "
+                             "(HVD_SERVE_CTL_* knobs)")
     args = parser.parse_args(argv)
 
     import torch
@@ -638,7 +814,11 @@ def run_commandline(argv=None) -> int:
                                max_batch=args.max_batch)
     if _core._state.timeline is not None:
         scheduler.metrics.set_timeline(_core._state.timeline)
-    server = ServeServer(scheduler)
+    controller = None
+    if args.autoscale:
+        from .controller import FleetController
+        controller = FleetController(scheduler)
+    server = ServeServer(scheduler, controller=controller)
     # Arm the drain signals BEFORE the readiness banner.
     evt = arm_signal_event()
     port = server.start(port=args.port)

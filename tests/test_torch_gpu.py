@@ -18,7 +18,10 @@ alone and in a batch (and, for chunks, at every chunk bucket).  The
 engine's kernel path gives the gather path's tokens and batched ==
 single on the card, sampled decoding included (the device sampler is
 held to the filtered distribution by chi-square), and greedy
-speculative decoding on the kernels gives greedy's tokens.
+speculative decoding on the kernels gives greedy's tokens.  The fleet:
+the router in front of two card endpoints gives one engine's greedy
+and seeded answers, and a request traced through it leaves a tree from
+the router's root down to the engine's prefill and decode spans.
 """
 
 import threading
@@ -1758,3 +1761,124 @@ def test_two_model_decode_step_leaves_the_other_models_blocks_untouched(
         eng.stop()
         for e in alone:
             e.stop()
+
+
+def _card_endpoint(model, dev, rid):
+    from horovod_tpu_torch.serve import (Replica, ReplicaScheduler,
+                                         ServeServer)
+    eng = InferenceEngine(TransformerAdapter(_TINY, model, block_tokens=8,
+                                             device=dev),
+                          max_batch=4, prefill_chunk=16,
+                          metrics=ServeMetrics(), replica_id=rid)
+    srv = ServeServer(ReplicaScheduler([Replica(rid, None, eng)]))
+    return srv, srv.start(port=0, host="127.0.0.1")
+
+
+def _route_post(port, payload, headers=None):
+    import http.client
+    import json
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/generate", json.dumps(payload).encode(),
+                     dict({"Content-Type": "application/json"},
+                          **(headers or {})))
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+@pytest.mark.gpu
+def test_router_over_two_card_endpoints_answers_as_one_engine(cuda_device):
+    """The port's router in front of two endpoints on the card: every
+    greedy and seeded answer equals a single engine's on the card,
+    whichever endpoint served it."""
+    from horovod_tpu_torch.serve import Router, RouterConfig, RouterServer
+    model = _surface_model(cuda_device, seed=4)
+    servers = [_card_endpoint(model, cuda_device, f"card-{i}")
+               for i in range(2)]
+    eps = [f"127.0.0.1:{port}" for _, port in servers]
+    router = Router(eps, config=RouterConfig(block_tokens=8))
+    rsrv = RouterServer(router)
+    rport = rsrv.start(port=0, host="127.0.0.1")
+    ref = InferenceEngine(TransformerAdapter(_TINY, model, block_tokens=8,
+                                             device=cuda_device),
+                          max_batch=4, prefill_chunk=16,
+                          metrics=ServeMetrics()).start()
+    try:
+        rng = np.random.RandomState(8)
+        served = set()
+        for i in range(12):
+            p = rng.randint(0, 61, (int(rng.randint(5, 40)),)).tolist()
+            body = {"tokens": p, "max_new_tokens": 6}
+            if i % 2:
+                body.update(temperature=0.8, top_k=20, seed=i)
+            status, out = _route_post(rport, body)
+            assert status == 200, out
+            r = Request(p, max_new_tokens=6,
+                        **({} if i % 2 == 0 else
+                           dict(temperature=0.8, top_k=20, seed=i)))
+            ref.batcher.submit(r)
+            assert out["tokens"] == r.result(timeout=120), i
+            served.add(out["replica"])
+        assert served == {"card-0", "card-1"}
+        assert router.metrics.snapshot()["requests"]["ok"] == 12
+    finally:
+        ref.stop()
+        rsrv.stop()
+        for srv, _ in servers:
+            srv.stop()
+
+
+@pytest.mark.gpu
+def test_traced_request_tree_reaches_the_engine_on_the_card(cuda_device):
+    """A request traced through the router and a card endpoint: the
+    tracer's tree holds the router's root, its route span and the
+    endpoint's request span under it, with the endpoint's queue-wait,
+    prefill-chunk and decode spans under that, and the kernels ran for
+    it."""
+    import time
+    from horovod_tpu_torch.obs import tracing as tr
+    from horovod_tpu_torch.serve import Router, RouterConfig, RouterServer
+    tracer = tr.install(tr.Tracer(sample=1.0))
+    model = _surface_model(cuda_device, seed=5)
+    srv, port = _card_endpoint(model, cuda_device, "card-0")
+    rsrv = RouterServer(Router([f"127.0.0.1:{port}"],
+                               config=RouterConfig(block_tokens=8)))
+    rport = rsrv.start(port=0, host="127.0.0.1")
+    try:
+        before = dict(tpa.LAUNCHES)
+        status, _ = _route_post(rport, {"tokens": list(range(3, 40)),
+                                        "max_new_tokens": 5},
+                                {"X-Trace-Id": "feedfacefeedface"})
+        assert status == 200
+        for route in ("paged_attention_decode", "paged_attention_prefill"):
+            assert tpa.LAUNCHES[route] > before[route], route
+        deadline = time.monotonic() + 30
+        while True:
+            (item,) = [t for t in tracer.recent_traces()
+                       if t["trace_id"] == "feedfacefeedface"]
+            names = []
+
+            def walk(n, depth):
+                names.append((depth, n["name"], n["proc"]))
+                for c in n["children"]:
+                    walk(c, depth + 1)
+            for n in item["tree"]:
+                walk(n, 0)
+            if any(x[1] == "decode" for x in names) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        (root,) = item["tree"]
+        assert (root["name"], root["proc"]) == ("http-handle", "router")
+        # The endpoint's root continues the router's (X-Parent-Span is
+        # the router's root span), beside the router's route span.
+        assert {(d, n, p) for d, n, p in names} >= {
+            (1, "route", "router"), (1, "http-handle", "server"),
+            (2, "queue-wait", "card-0"), (2, "prefill-chunk", "card-0"),
+            (2, "decode", "card-0")}
+    finally:
+        rsrv.stop()
+        srv.stop()
+        tr.uninstall()

@@ -77,7 +77,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "optim", "examples.elastic_resnet", "faultline",
                  "faultline.plan", "faultline.runtime",
                  "serve.streaming", "serve.structured",
-                 "serve.registry"):
+                 "serve.registry", "obs", "obs.tracing", "obs.merge",
+                 "obs.cli", "serve.router", "serve.router_server",
+                 "serve.controller", "elastic.preemption"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -170,29 +172,31 @@ _LOGGER_IMPORT = {"removed": {"from ..utils import get_logger"},
 # ``utils.logging``: the port's ``utils`` package re-exports nothing.
 COPY_EDITS = {
     "serve/streaming.py": {},
-    # No request tracing (``obs/``) in the port yet: no trace id.
-    "faultline/plan.py": {"changed": {"_active_trace_id"}},
+    "faultline/plan.py": {},
+    "obs/tracing.py": {},
+    "obs/merge.py": {},
+    # The CLIs' help text names no document of the JAX package.
+    "obs/cli.py": {"changed": {"run_commandline"}},
+    "obs/__init__.py": {},
+    "serve/controller.py": {},
+    "serve/router.py": {},
+    "serve/router_server.py": {"changed": {"run_commandline"}},
+    "elastic/preemption.py": {},
     "elastic/discovery.py": dict(_LOGGER_IMPORT),
     "elastic/registration.py": {},
     "elastic/launch_support.py": {},
     "elastic/sampler.py": {},
     "elastic/driver.py": dict(
         _LOGGER_IMPORT,
-        # No preemption-aware discovery and no decommission grace: the
-        # preemption sentinel waits for the fault-injection layer.
-        changed={"ElasticDriver.__init__",
-                 "ElasticDriver._terminate_workers_on_lost_hosts",
-                 # Stops the driver and the rendezvous in ``finally``.
-                 "launch_elastic"}),
+        # Stops the driver and the rendezvous in ``finally``.
+        changed={"launch_elastic"}),
     "runner/http_server.py": dict(
         _LOGGER_IMPORT,
         # The Python server is the one backend (no C++ ``kv_server``).
         changed={"KVStoreServer.__init__", "KVStoreServer.start",
                  "KVStoreServer.port", "KVStoreServer.put",
                  "KVStoreServer.get", "KVStoreServer.scan_scope",
-                 "KVStoreServer.stop",
-                 # No fault-injection or request-tracing hooks.
-                 "KVStoreClient.__init__", "KVStoreClient._request"}),
+                 "KVStoreServer.stop"}),
     "runner/launch.py": dict(
         # No LSF / jsrun and no NIC probing (``--network-interface``
         # names the address); no flags of knobs the port does not read;
