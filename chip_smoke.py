@@ -199,19 +199,39 @@ Phases, each of which exits non-zero on failure:
    sentinel marks host h1, ``watch_preemption`` marks replica-1 dead
    with 16 requests in flight (none lost), and clearing the marker
    brings it back alive and warm;
-15. print the card's name and power limit, one JSON line of phase 7's
+15. the tiered KV hierarchy and sequence-parallel prefill on gpt2-small
+   f32 at full width and depth, random weights from the seed, one
+   reference engine (no prefix cache) holding every answer: (a) 6
+   sessions whose retained prompt blocks need more than a device pool
+   of two requests' lifetimes, served twice (the second turn promotes
+   the spilled blocks; one block bit-equal across its spill and
+   promote), then a 6-request storm on the tiered engine and an
+   untiered one of the same pool bytes (same answers, more in flight);
+   (b) the port's KV server in this process: endpoint A publishes a
+   prompt's 17 blocks, fresh endpoints migrate them at k·BT - 1, k·BT
+   and k·BT + 1 tokens (local prefill's tokens; TTFT beside local
+   prefill's), a ``drop-tier-block`` train recomputes with the same
+   tokens, and ``mark_dead`` empties A's directory entries; (c) 4
+   emulated SP ranks at 639, 640, 641 and 1000 tokens (single-rank
+   prefill's tokens; TTFT and the emulated wall beside single-rank TTFT,
+   handoff bytes, ring hops) and a kill-rank drill that leaks no block;
+   every decode step of the phase launches the decode route once per
+   layer and every prefill step the prefill route once per layer;
+16. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
    commit with and without the spill and of a restore, images/s before
    and after), one of phase 13's (``{"serve_surface": ...}``), one of
-   phase 14's (``{"fleet": ...}``), one JSON
+   phase 14's (``{"fleet": ...}``), one of phase 15's
+   (``{"tiering": ...}``), one JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
    phase 8's and one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop``
    and ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each
    with that path's launches, counted from 0, and the error and times at
-   its shape; the paged kernels' launches sum phases 4, 13 and 14),
+   its shape; the paged kernels' launches sum phases 4, 13, 14 and
+   15),
    and as
    the last line ``{"ok": true, "device": ...}``.
 
@@ -4343,6 +4363,419 @@ def fleet_phase(torch, device, rehearsal, seed):
     return launches, out
 
 
+# -- phase 15: the tiered KV hierarchy and sequence-parallel prefill --------
+
+
+def timed_request(eng, prompt, max_new):
+    """One request through the engine: (tokens, TTFT ms, request)."""
+    from horovod_tpu_torch.serve import Request
+    r = Request(list(prompt), max_new_tokens=max_new)
+    eng.batcher.submit(r)
+    toks = r.result(timeout=600)
+    return toks, (r.first_token_at - r.submitted_at) * 1e3, r
+
+
+def storm_peak(eng, prompts, max_new):
+    """The prompts submitted at once; (answers, the most distinct
+    requests the engine held in flight at any poll)."""
+    from horovod_tpu_torch.serve import Request
+    peak = [0]
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            with eng._lock:
+                live = len({id(s.request) for s in eng._slots
+                            if s is not None})
+            peak[0] = max(peak[0], live)
+            time.sleep(0.0005)
+
+    w = threading.Thread(target=watch)
+    w.start()
+    try:
+        reqs = [Request(list(p), max_new_tokens=max_new) for p in prompts]
+        for r in reqs:
+            eng.batcher.submit(r)
+        out = [r.result(timeout=600) for r in reqs]
+    finally:
+        done.set()
+        w.join()
+    return out, peak[0]
+
+
+def tier_host(torch, factory, ref, rng, cfg, rehearsal, max_new, engines,
+              failures):
+    """(a) The host tier: 6 sessions whose retained prompt blocks need
+    more than the device pool holds, served twice (the second turn
+    promotes the spilled blocks), one block held bit for bit across its
+    spill and promote, then a 6-request storm on the tiered engine and an
+    untiered one of the same pool bytes."""
+    from horovod_tpu_torch.serve import (InferenceEngine, ServeMetrics,
+                                         TierConfig, chain_hashes)
+    bt = ref.blocks.block_tokens
+    plen = 2 * bt + 5 if rehearsal else 10 * bt + 5
+    life = -(-(plen + max_new) // bt)
+    pool = 2 * life + 2
+    sessions = [rng.randint(0, cfg.vocab_size, (plen,)).tolist()
+                for _ in range(6)]
+    fresh = [rng.randint(0, cfg.vocab_size, (plen,)).tolist()
+             for _ in range(6)]
+    want = reference_answers(ref, [{"tokens": p, "max_new_tokens": max_new}
+                                   for p in sessions + fresh])
+    tiered = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                             num_blocks=pool, replica_id="tier-host",
+                             tiering=TierConfig(oversub=4.0, quantum=2),
+                             metrics=ServeMetrics())
+    untiered = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                               num_blocks=pool, replica_id="untiered",
+                               metrics=ServeMetrics())
+    engines += [tiered, untiered]
+    out = {"sessions": 6, "prompt_tokens": plen, "pool_blocks": pool,
+           "retained_blocks_needed": 6 * (plen // bt),
+           "block_bytes": tiered.blocks.bytes_per_block}
+    tiered.start()
+    untiered.start()
+    try:
+        # Session 0's first block: copied out after its first turn, on
+        # the host after the other sessions' first turns, and promoted
+        # into a fresh device block by its second turn.  The engine is
+        # idle at each copy (the loop waits for a request).
+        h0 = chain_hashes(sessions[0], bt)[0]
+        copies = {}
+        for turn in (1, 2):
+            for i, p in enumerate(sessions):
+                got, _, _ = timed_request(tiered, p, max_new)
+                if got != want[i]:
+                    failures.append(f"(a) session {i} turn {turn}: tokens "
+                                    f"differ from the reference")
+                bid = tiered.blocks.registered_block(h0)
+                if i == 0 and bid is not None:
+                    copies[turn] = (bid, tiered.blocks.extract_block(bid))
+            if turn == 1 and not tiered.blocks.host_contains(h0):
+                failures.append("(a) session 0's first block never "
+                                "spilled to the host tier")
+        same = len(copies) == 2 and all(
+            torch.equal(copies[1][1][k], copies[2][1][k])
+            for k in copies[1][1])
+        if not same:
+            failures.append("(a) a spilled and promoted block is not "
+                            "bit-equal to the block before its spill")
+        out["spill_promote_bit_equal"] = same
+        st = tiered.kv_stats()["tier"]
+        out["sessions_tier"] = {k: st[k] for k in (
+            "spills", "promotes", "spill_bytes", "promote_bytes",
+            "host_blocks", "host_bytes")}
+        t0 = time.monotonic()
+        got_u, peak_u = storm_peak(untiered, fresh, max_new)
+        t1 = time.monotonic()
+        got_t, _ = storm_peak(tiered, fresh, max_new)
+        t2 = time.monotonic()
+        st = tiered.kv_stats()["tier"]
+        if got_u != want[6:] or got_t != want[6:]:
+            failures.append("(a) a storm's tokens differ from the "
+                            "reference")
+        if not st["inflight_peak"] > peak_u:
+            failures.append(f"(a) in-flight peak {st['inflight_peak']} "
+                            f"not above untiered {peak_u}")
+        if not (st["spill_bytes"] > 0 and st["promote_bytes"] > 0):
+            failures.append("(a) no spill or promote bytes")
+        out["storm"] = {
+            "inflight_peak_tiered": st["inflight_peak"],
+            "inflight_peak_untiered": peak_u,
+            "seconds_tiered": round(t2 - t1, 3),
+            "seconds_untiered": round(t1 - t0, 3),
+            "swapped_out_seqs": st["swapped_out_seqs"],
+            "swapped_in_seqs": st["swapped_in_seqs"],
+            "preempted_tiered":
+                tiered.metrics.snapshot()["requests"]["preempted"],
+            "preempted_untiered":
+                untiered.metrics.snapshot()["requests"]["preempted"]}
+        out["tier_totals"] = {k: st[k] for k in (
+            "spills", "promotes", "spill_bytes", "promote_bytes")}
+    finally:
+        tiered.stop()
+        untiered.stop()
+    log(f"  (a) host tier: pool {pool} blocks of {out['block_bytes']} B, "
+        f"{out['retained_blocks_needed']} retained blocks needed; "
+        f"{json.dumps(out['sessions_tier'])}; storm in flight "
+        f"{out['storm']['inflight_peak_tiered']} tiered against "
+        f"{peak_u} untiered")
+    return out
+
+
+def tier_fleet(torch, factory, ref, rng, cfg, rehearsal, max_new, engines,
+               failures):
+    """(b) The fleet tier: endpoint A publishes a prompt's blocks to a KV
+    server in this process; fresh endpoints migrate them at prompt
+    lengths k·BT - 1, k·BT and k·BT + 1 and answer as local prefill; a
+    drop-tier-block train recomputes; mark_dead unpublishes."""
+    from horovod_tpu_torch import faultline as fl
+    from horovod_tpu_torch.runner.http_server import (KVStoreClient,
+                                                      KVStoreServer)
+    from horovod_tpu_torch.serve import (InferenceEngine, Replica,
+                                         ReplicaScheduler, ServeMetrics,
+                                         TierClient, TierConfig,
+                                         TieredBlockManager, chain_hashes)
+    bt = ref.blocks.block_tokens
+    k = 2 if rehearsal else 17
+    base = rng.randint(0, cfg.vocab_size, (k * bt + 1,)).tolist()
+    server = KVStoreServer()
+    port = server.start(0)
+
+    def endpoint(rid):
+        eng = InferenceEngine(
+            factory(), max_batch=8, prefill_chunk=64, num_blocks=64,
+            replica_id=rid, metrics=ServeMetrics(), tiering=TierConfig(),
+            tier_client=TierClient(KVStoreClient("127.0.0.1", port),
+                                   replica_id=rid))
+        engines.append(eng)
+        return eng.start()
+
+    out = {"shared_blocks": k}
+    ea = endpoint("tier-a")
+    sched = ReplicaScheduler([Replica("tier-a", None, ea)])
+    try:
+        want_a, _, _ = timed_request(ref, base, max_new)
+        got_a, _, _ = timed_request(ea, base, max_new)
+        if got_a != want_a:
+            failures.append("(b) the publisher's tokens differ")
+        deadline = time.monotonic() + 30
+        while ea.kv_stats()["tier"]["published"] < k \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        out["published"] = ea.kv_stats()["tier"]["published"]
+        mig = {}
+        for n in (k * bt - 1, k * bt, k * bt + 1):
+            p = base[:n]
+            want, ttft_local, _ = timed_request(ref, p, max_new)
+            eb = endpoint(f"tier-b{n}")
+            try:
+                got, ttft_mig, _ = timed_request(eb, p, max_new)
+                st = eb.kv_stats()["tier"]
+            finally:
+                eb.stop()
+            expect = (n - 1) // bt * bt
+            if got != want:
+                failures.append(f"(b) migrated prompt of {n} tokens: "
+                                f"tokens differ from local prefill")
+            if st["migrated_tokens"] != expect:
+                failures.append(f"(b) {n} tokens: migrated "
+                                f"{st['migrated_tokens']}, want {expect}")
+            mig[str(n)] = {"ttft_ms_migrated": round(ttft_mig, 3),
+                           "ttft_ms_local_prefill": round(ttft_local, 3),
+                           "migrated_tokens": st["migrated_tokens"],
+                           "fetch_attempts": st["fetch_attempts"],
+                           "tier_faults": st["faults"]}
+            log(f"  (b) {n} tokens: TTFT migrated {ttft_mig:.2f} ms, "
+                f"local prefill {ttft_local:.2f} ms, "
+                f"{st['migrated_tokens']} tokens migrated")
+        out["migration"] = mig
+        ec = endpoint("tier-c")
+        fl.install(fl.FaultPlan([fl.FaultSpec(
+            "drop-tier-block", step=0, repeat=8 * k)]))
+        try:
+            got, ttft_drop, _ = timed_request(ec, base, max_new)
+        finally:
+            fl.uninstall()
+            ec.stop()
+        st = ec.kv_stats()["tier"]
+        if got != want_a:
+            failures.append("(b) the drop train changed the tokens")
+        if st["migration_failures"] < 1 or st["migrated_tokens"] != 0:
+            failures.append("(b) the drop train did not degrade to "
+                            "recompute")
+        out["drop_train"] = {"ttft_ms": round(ttft_drop, 3),
+                             "migration_failures":
+                                 st["migration_failures"],
+                             "fetch_drops": st["fetch_drops"]}
+        hashes = chain_hashes(base, bt, salt=ea._prefix_salt(None))[:k]
+
+        def hits(rid):
+            probe = TieredBlockManager(4, bt, TierConfig(), client=TierClient(
+                KVStoreClient("127.0.0.1", port), replica_id=rid))
+            return probe.remote_hits(hashes)
+
+        before = hits("probe-0")
+        sched.mark_dead("tier-a", reason="phase 15 (b)")
+        after = hits("probe-1")
+        if before != k or after != 0:
+            failures.append(f"(b) mark_dead: directory hits {before} "
+                            f"before, {after} after")
+        out["mark_dead"] = {"hits_before": before, "hits_after": after}
+    finally:
+        fl.uninstall()
+        ea.stop()
+        server.stop()
+    return out
+
+
+def tier_seqpar(torch, factory, ref, rng, cfg, rehearsal, max_new, engines,
+                failures):
+    """(c) Sequence-parallel prefill at 4 ranks against single-rank
+    prefill, at k·BT - 1, k·BT, k·BT + 1 and a long prompt, and the
+    kill-rank drill."""
+    from horovod_tpu_torch import faultline as fl
+    from horovod_tpu_torch.serve import InferenceEngine, ServeMetrics
+    bt = ref.blocks.block_tokens
+    k, long_len = (3, 56) if rehearsal else (40, 1000)
+    esp = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                          prefix_cache=False, sp_ranks=4,
+                          sp_min_tokens=16 if rehearsal else 256,
+                          replica_id="sp", metrics=ServeMetrics())
+    engines.append(esp)
+    world = esp.seqpar
+    bpb = esp.blocks.bytes_per_block
+    out = {"ranks": world.ranks, "block_bytes": bpb,
+           "blocks_per_rank": world.blocks_per_rank,
+           "side_pool_bytes_per_rank": world.blocks_per_rank * bpb,
+           "side_pool_bytes": world.ranks * world.blocks_per_rank * bpb,
+           "hop_bytes": world._hop_bytes(),
+           "ring_bytes_per_prefill": world.ring_bytes_per_prefill()}
+    log(f"  (c) a block {bpb} B over the layers; a rank's side pool "
+        f"{world.blocks_per_rank} blocks = {out['side_pool_bytes_per_rank']}"
+        f" B, {world.ranks} ranks {out['side_pool_bytes']} B; one hop "
+        f"{out['hop_bytes']} B, a prefill's ring "
+        f"{world.ranks * (world.ranks - 1)} x {out['hop_bytes']} = "
+        f"{out['ring_bytes_per_prefill']} B")
+    esp.start()
+    prompts = {}
+    try:
+        for n in (k * bt - 1, k * bt, k * bt + 1, long_len):
+            p = rng.randint(0, cfg.vocab_size, (n,)).tolist()
+            prompts[n] = p
+            want, ttft_single, _ = timed_request(ref, p, max_new)
+            before = (world.jobs_total, world.handoff_bytes_total,
+                      world.ring_hops_total)
+            got, ttft_sp, _ = timed_request(esp, p, max_new)
+            if got != want:
+                failures.append(f"(c) SP prefill of {n} tokens: tokens "
+                                f"differ from single-rank prefill")
+            if world.jobs_total != before[0] + 1:
+                failures.append(f"(c) {n} tokens did not prefill "
+                                f"sequence-parallel")
+            out[str(n)] = {
+                "ttft_ms_sp": round(ttft_sp, 3),
+                "ttft_ms_single_rank": round(ttft_single, 3),
+                "emulated_wall_ms": round(world.walls[-1] * 1e3, 3),
+                "handoff_bytes": world.handoff_bytes_total - before[1],
+                "ring_hops": world.ring_hops_total - before[2]}
+            log(f"  (c) {n} tokens: TTFT SP {ttft_sp:.2f} ms (emulated "
+                f"wall {world.walls[-1] * 1e3:.2f} ms), single-rank "
+                f"{ttft_single:.2f} ms; handoff "
+                f"{out[str(n)]['handoff_bytes']} B, ring hops "
+                f"{out[str(n)]['ring_hops']}")
+        fl.install(fl.FaultPlan([fl.FaultSpec("kill-rank",
+                                              point="sp.prefill", step=0)]))
+        try:
+            got, ttft_kill, r = timed_request(esp, prompts[long_len],
+                                              max_new)
+        finally:
+            fl.uninstall()
+        want, _, _ = timed_request(ref, prompts[long_len], max_new)
+        leaks = [world.blocks_per_rank - m.available()
+                 for m in world.managers]
+        if got != want or r.requeues != 1 or world.aborts_total != 1 \
+                or any(leaks):
+            failures.append(f"(c) kill-rank drill: same tokens "
+                            f"{got == want}, requeues {r.requeues}, aborts "
+                            f"{world.aborts_total}, blocks held {leaks}")
+        out["kill_rank"] = {"ttft_ms": round(ttft_kill, 3),
+                            "requeues": r.requeues,
+                            "aborts": world.aborts_total,
+                            "blocks_held_per_rank": leaks}
+        out["traced_ms"] = traced_breakdown(
+            {"sp": esp, "single_rank": ref}, prompts[long_len], max_new)
+        log(f"  (c) {long_len} tokens traced, span ms by name: "
+            f"{json.dumps(out['traced_ms'])}")
+        out["stats"] = esp.kv_stats()["sp"]
+    finally:
+        esp.stop()
+    return out
+
+
+def traced_breakdown(engines, prompt, max_new):
+    """One traced request per engine: the milliseconds of its spans
+    summed by name (an SP prefill's ``sp-extent-chunk`` compute against
+    its ``sp-handoff`` copies, a single-rank prefill's chunks), and its
+    TTFT."""
+    from horovod_tpu_torch.obs import tracing as tr
+    from horovod_tpu_torch.serve import Request
+    tracer = tr.install(tr.Tracer(sample=1.0))
+    out = {}
+    try:
+        for name, eng in engines.items():
+            r = Request(list(prompt), max_new_tokens=max_new)
+            r.trace = tracer.new_context()
+            eng.batcher.submit(r)
+            r.result(timeout=600)
+            ms = {"ttft": (r.first_token_at - r.submitted_at) * 1e3}
+            stack = [n for t in tracer.recent_traces()
+                     if t["trace_id"] == r.trace.trace_id for n in t["tree"]]
+            while stack:
+                node = stack.pop()
+                stack.extend(node["children"])
+                ms[node["name"]] = ms.get(node["name"], 0.0) + (
+                    node["t1_ns"] - node["t0_ns"]) / 1e6
+            out[name] = {k: round(v, 3) for k, v in sorted(ms.items())}
+    finally:
+        tr.uninstall()
+    return out
+
+
+def tier_phase(torch, device, rehearsal, seed):
+    """Phase 15: the tiered KV hierarchy and sequence-parallel prefill on
+    gpt2-small f32 at full width and depth, random weights from ``seed``,
+    in one process: (a) the host tier, (b) the fleet tier, (c) SP
+    prefill.  Every engine of the phase is counted: each decode step must
+    launch the decode route once per layer and each prefill step the
+    prefill route once per layer.  Returns the paged routes' launches of
+    the phase (from 0 at its start) and its numbers."""
+    from horovod_tpu_torch.serve import (InferenceEngine, ServeMetrics,
+                                         TransformerAdapter)
+    from horovod_tpu_torch.serve import paged_attention as pa
+    cfg, model, _, max_new = serving_model(torch, device, rehearsal, seed)
+
+    def factory():
+        return TransformerAdapter(cfg, model, device=device)
+
+    rng = np.random.RandomState(seed + 15)
+    failures = []
+    out = {"card": None if rehearsal else card_tag()}
+    reset_launches(pa)
+    t0 = time.monotonic()
+    ref = InferenceEngine(factory(), max_batch=8, prefill_chunk=64,
+                          prefix_cache=False, replica_id="reference",
+                          metrics=ServeMetrics())
+    engines = [ref]
+    ref.start()
+    try:
+        for part, fn in (("host_tier", tier_host),
+                         ("fleet_tier", tier_fleet),
+                         ("sp_prefill", tier_seqpar)):
+            tp = time.monotonic()
+            out[part] = fn(torch, factory, ref, rng, cfg, rehearsal,
+                           max_new, engines, failures)
+            out[part]["part_seconds"] = round(time.monotonic() - tp, 3)
+    finally:
+        ref.stop()
+        for eng in engines:
+            eng.stop()
+    launches = {"decode": pa.LAUNCHES["paged_attention_decode"],
+                "prefill": pa.LAUNCHES["paged_attention_prefill"]}
+    steps = sum(e.steps for e in engines)
+    chunks = sum(e.prefill_steps for e in engines)
+    out["seconds"] = round(time.monotonic() - t0, 3)
+    out["decode_steps"], out["prefill_steps"] = steps, chunks
+    check_launches(pa, cfg, rehearsal, cfg.num_layers * steps,
+                   cfg.num_layers * chunks, "phase 15", failures)
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the tiering and SP prefill phase failed")
+    out["launches"] = launches
+    return launches, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -4447,6 +4880,12 @@ def main(argv=None) -> int:
     fleet_launches, fleet = fleet_phase(torch, device, rehearsal, args.seed)
     log(f"  phase 14 took {time.monotonic() - t14:.1f} s")
 
+    log("phase 15: the tiered KV hierarchy (host tier, fleet tier, "
+        "migration, swap) and sequence-parallel prefill")
+    t15 = time.monotonic()
+    tier_launches, tiering = tier_phase(torch, device, rehearsal, args.seed)
+    log(f"  phase 15 took {time.monotonic() - t15:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -4459,6 +4898,7 @@ def main(argv=None) -> int:
     print(json.dumps({"elastic": dict(elastic, card=card_tag())}))
     print(json.dumps({"serve_surface": surface}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"tiering": tiering}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -4473,15 +4913,17 @@ def main(argv=None) -> int:
             "source": "horovod_tpu_torch/csrc/" + source,
             "replaces": "horovod_tpu/serve/paged_attention.py:156",
             # Phase 4's drives, phase 13's (host-mode decode rows,
-            # /score, warmup, the roll) and phase 14's (the fleet behind
-            # the router, its controller and preemption), each counted
+            # /score, warmup, the roll), phase 14's (the fleet behind
+            # the router, its controller and preemption) and phase 15's
+            # (swapped-in, migrated and handed-off blocks), each counted
             # from 0.
             "launches": (launches + surface_launches[route]
-                         + fleet_launches[route]),
+                         + fleet_launches[route] + tier_launches[route]),
             "launches_by_phase": {"serving": launches,
                                   "request_surface":
                                       surface_launches[route],
-                                  "fleet": fleet_launches[route]},
+                                  "fleet": fleet_launches[route],
+                                  "tiering": tier_launches[route]},
             "max_abs_err": rec["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -18,16 +18,17 @@ which is what lets the chaos soak assert *convergence* ("back to
 
 Off by default, zero hot-path cost (runtime.py module doc).
 
-The port fires eight of ``plan.POINTS``: ``engine.step`` (the serve
+The port fires ten of ``plan.POINTS``: ``engine.step`` (the serve
 engine's step boundary: ``slow-decode``, ``pool-corrupt-block``,
 ``poison-step``), ``replica.route`` (``kill-rank``), ``kv.request``
 (``delay-kv``, ``drop-kv-response``), ``preempt.poll`` (``kill-rank``),
 ``ctl.poll`` (``load-spike``), ``registry.roll`` (``swap-abort``),
 ``router.forward`` (``drop-route``, ``slow-route``,
 ``blackhole-endpoint``, ``kill-rank``) and ``stream.emit``
-(``stream-disconnect``, ``slow-client``).  ``tier.fetch`` and
-``sp.prefill`` are parsed and scheduled, and fire once the tiered KV
-cache and the sequence-parallel prefill are ported.
+(``stream-disconnect``, ``slow-client``), ``tier.fetch``
+(``delay-tier-fetch``, ``drop-tier-block``: the tiered KV cache's fleet
+fetches, once per attempt) and ``sp.prefill`` (``kill-rank``: a rank of
+the sequence-parallel prefill lost mid-job).
 
 Quickstart::
 

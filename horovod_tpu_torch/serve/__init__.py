@@ -6,7 +6,9 @@ their live roll, warmup) on a CUDA card
 (``python -m horovod_tpu_torch.serve``), and the fleet's front door and
 control plane: the prefix-affinity router and its server
 (``python -m horovod_tpu_torch.serve.router``), the SLO-aware fleet
-controller with its brownout ladder, and request tracing (``obs/``)."""
+controller with its brownout ladder, and request tracing (``obs/``);
+the tiered KV hierarchy (host and fleet tiers, block migration, swap;
+``--tier-kv``) and sequence-parallel prefill (``HVD_SERVE_SP``)."""
 
 from .batcher import (DeadlineExceededError, DynamicBatcher,  # noqa: F401
                       QueueFullError, Request)
@@ -23,4 +25,7 @@ from .replica import (NoHealthyReplicaError, Replica,  # noqa: F401
                       ReplicaScheduler, build_replicas)
 from .router import Router, RouterConfig, RouterMetrics  # noqa: F401
 from .router_server import RouterServer  # noqa: F401
+from .seqpar import SPConfig, SPWorld  # noqa: F401
 from .server import ServeServer  # noqa: F401
+from .tiering import (HostTier, TierClient, TierConfig,  # noqa: F401
+                      TieredBlockManager, TierWorker)

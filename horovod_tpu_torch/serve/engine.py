@@ -62,7 +62,21 @@ after the step's device results are on the host
 (``_flush_trace_emits``); shard files are written by the tracer's own
 thread.  With no tracer installed each site costs one attribute read.
 
-Not ported yet (later slices): tiering and sequence-parallel prefill.
+The tiered KV hierarchy (``serve/tiering.py``; ``tiering=`` /
+``HVD_SERVE_TIER``): admission oversubscribes the device pool and
+claims blocks chunk by chunk, cold sequences swap out to host RAM
+instead of being preempted (``_tier_*``), retained prefix blocks spill
+host-ward and promote back, and a prefix another replica published in
+the fleet block directory migrates over the KV transport instead of
+being prefilled.  The tier worker thread does only HTTP and
+(de)serialisation; its results reach the loop through a deque and an
+event, and every pool read and write (``make_block_io``) happens on the
+loop thread.  Sequence-parallel prefill (``serve/seqpar.py``;
+``sp_ranks=`` / ``HVD_SERVE_SP``) splits a long prompt by extent across
+an emulated rank set (``TransformerAdapter.sp_prefill_chunk``, the
+ring's ragged fold) and hands its blocks to the decode pool.  Every
+block migrated, swapped in or handed off is then attended by the paged
+kernels.
 """
 
 from __future__ import annotations
@@ -72,6 +86,7 @@ import math
 import os
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -90,6 +105,8 @@ from .batcher import (DeadlineExceededError, DynamicBatcher, Request,
                       bucket_requests, prompt_bucket)
 from .blocks import BlockManager, NoFreeBlocksError, chain_hashes
 from .metrics import ServeMetrics
+from .tiering import (TierClient, TierConfig, TieredBlockManager,
+                      TierWorker, make_block_io)
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -670,6 +687,84 @@ class TransformerAdapter:
             a[:, dst].copy_(a[:, src])
         return cache
 
+    # -- sequence-parallel prefill (serve/seqpar.py) -------------------------
+
+    def sp_pool(self, num_blocks: int):
+        """A side pool of one sequence-parallel prefill rank
+        (``serve/seqpar.py``): the decode pool's layout at
+        ``num_blocks`` blocks."""
+        return self._pool_arrays(num_blocks)
+
+    @torch.no_grad()
+    def sp_prefill_chunk(self, pool, chunk, q_start, extent_start, ltable,
+                         hop_k=None, hop_v=None, hop_len=0):
+        """One sequence-parallel rank's prefill chunk against its side
+        pool (JAX ``sp_prefill_chunk``, ``horovod_tpu/serve/engine.py:850``).
+        ``chunk`` continues the rank's extent at absolute position
+        ``q_start``; ``extent_start`` is where the extent and its block
+        table ``ltable`` begin; ``hop_k`` / ``hop_v``
+        ``[L, >= hop_len, H, Dh]`` f32 carry the prior extents' K/V
+        (positions ``0 .. hop_len``), dequantized.  The chunk's K/V are
+        scattered into the side pool first; each layer then folds the hop
+        buffers and the rank's own extent, gathered back out of its pool
+        (dequantized when the pool is int8 / fp8), through
+        ``ring.ragged_fold``, so the attention reads the values
+        single-rank chunked prefill reads.  Returns ``(pool, raw
+        final-position logits [V])``; the pool is updated in place.
+
+        JAX pads the chunk and the hop buffer to power-of-two buckets for
+        its compile cache; no result depends on that padding, so the
+        port runs the true lengths and gathers only the extent's live
+        blocks."""
+        from ..parallel import ring as _ring
+        BT, H, Dh = self.block_tokens, self.num_heads, self.head_dim
+        scale = 1.0 / math.sqrt(Dh)
+        c = len(chunk)
+        nb = int(pool["k"].shape[1])
+        dev = self.device
+        pos = int(q_start) + np.arange(c, dtype=np.int64)
+        lidx = pos - int(extent_start)
+        # The rank's table, hole-padded to the extent's live blocks: a
+        # hole drops its write here and is clamped (masked by k_len) in
+        # the gather, as JAX's clip-mode take.
+        local_len = int(q_start) + c - int(extent_start)
+        nloc = -(-local_len // BT)
+        tab = np.full((nloc,), nb, np.int64)
+        live = list(ltable)[:nloc]
+        tab[:len(live)] = live
+        rows = self._write_rows(tab[lidx // BT], lidx % BT, nb)
+        gather = torch.as_tensor(np.minimum(tab, nb - 1), device=dev)
+        if hop_len:
+            hop_k = torch.as_tensor(hop_k, dtype=torch.float32, device=dev)
+            hop_v = torch.as_tensor(hop_v, dtype=torch.float32, device=dev)
+        x = self._embed(np.asarray(chunk, np.int64)[None], pos[None])
+        for layer, blk in enumerate(self.params["blocks"]):
+            q, k, v = self._qkv(x, blk)                  # [1, c, H, Dh]
+            self._scatter(pool, layer, rows, k, v)
+            q32 = q.float()
+            acc, m, l_ = _ring.ragged_fold_init(q32)
+            if hop_len:
+                # Hop buffers first, then the local extent: the ring
+                # schedule's fold order.
+                acc, m, l_ = _ring.ragged_fold(
+                    q32, hop_k[layer][None, :hop_len],
+                    hop_v[layer][None, :hop_len], q_start=int(q_start),
+                    k_start=0, k_len=int(hop_len), acc=acc, m=m, l=l_,
+                    scale=scale)
+            ek = pool["k"][layer][gather]
+            ev = pool["v"][layer][gather]
+            if self._kv_quantized:
+                ek = _pa.dequantize_kv(ek, pool["k_scale"][layer][gather])
+                ev = _pa.dequantize_kv(ev, pool["v_scale"][layer][gather])
+            acc, m, l_ = _ring.ragged_fold(
+                q32, ek.float().reshape(1, nloc * BT, H, Dh),
+                ev.float().reshape(1, nloc * BT, H, Dh),
+                q_start=int(q_start), k_start=int(extent_start),
+                k_len=local_len, acc=acc, m=m, l=l_, scale=scale)
+            out = _ring.ragged_fold_finish(acc, m, l_, dtype=self._dtype)
+            x = self._ffn(self._proj(x, out, blk), blk)
+        return pool, self._logits(x[0, c - 1]).cpu().numpy()
+
 
 class MLPAdapter:
     """Cache-free stand-in model for engine-mechanics tests
@@ -802,7 +897,9 @@ class _Seq:
     still prefilling through the family's primary)."""
     __slots__ = ("request", "length", "prompt_pos", "table", "hashes",
                  "admit_seq", "published", "generated", "group",
-                 "sample_index", "base_key", "parked", "gstate")
+                 "sample_index", "base_key", "parked", "resident",
+                 "pending_fetch", "host_kv", "swap_step", "tier_credit",
+                 "gstate", "sp_state")
 
     def __init__(self, request: Request, cached_tokens: int,
                  table: List[int], hashes: List[int], admit_seq: int):
@@ -818,11 +915,26 @@ class _Seq:
         self.sample_index = 0
         self.base_key: Optional[np.ndarray] = None  # sampled only
         self.parked = False              # reserved fork slot, pre-activation
+        # Tiered-KV state (serve/tiering.py; inert untiered): a
+        # non-resident sequence's K/V lives host-ward, pending_fetch maps
+        # table index -> (chain hash | swap key, issue time) of in-flight
+        # tier fetches, host_kv holds a swapped-out sequence's payloads,
+        # swap_step ages swap decisions by engine iteration, and
+        # tier_credit is the token watermark a migration admits at.
+        self.resident = True
+        self.pending_fetch: Optional[dict] = None
+        self.host_kv: Optional[list] = None
+        self.swap_step = 0
+        self.tier_credit = 0
         # Structured decoding: the grammar automaton's state AFTER the
         # tokens in ``generated``.  A requeue builds a fresh _Seq, so a
         # replay restarts from the grammar's start with its empty list.
         self.gstate = (request.grammar.start
                        if request.grammar is not None else None)
+        # Sequence-parallel prefill (serve/seqpar.py): the in-flight SPJob
+        # while this sequence prefills across the SP world's ranks
+        # (_prefill_step skips it, _sp_step drives it); None = single-rank.
+        self.sp_state = None
 
     @property
     def decoding(self) -> bool:
@@ -873,7 +985,11 @@ class InferenceEngine:
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  spec_k: Optional[int] = None,
-                 warmup: Optional[bool] = None):
+                 warmup: Optional[bool] = None,
+                 tiering: Optional[TierConfig] = None,
+                 tier_client=None,
+                 sp_ranks: Optional[int] = None,
+                 sp_min_tokens: Optional[int] = None):
         self.adapter = adapter
         # Multi-model residency (serve/registry.py): named variants
         # sharing this engine's slots and paged pool.  ``adapter`` stays
@@ -925,8 +1041,31 @@ class InferenceEngine:
                   not in ("0", "false"))
             bpb_fn = getattr(adapter, "paged_block_bytes", None)
             bpb = int(bpb_fn()) if bpb_fn is not None else None
-            self.blocks = BlockManager(nb, int(adapter.block_tokens),
-                                       prefix_cache=pc, bytes_per_block=bpb)
+            bt = int(adapter.block_tokens)
+            # The tiered KV hierarchy (serve/tiering.py): an explicit
+            # config wins, else HVD_SERVE_TIER gates the env path.
+            # Untiered stays a plain BlockManager.
+            self.tiering = (tiering if tiering is not None
+                            else TierConfig.from_env())
+            if self.tiering is not None and not self.tiering.enabled:
+                self.tiering = None
+            self._tier_client: Optional[TierClient] = None
+            if self.tiering is not None:
+                client = tier_client
+                if client is None and self.tiering.kv_addr:
+                    from ..runner.http_server import KVStoreClient
+                    host, _, port = self.tiering.kv_addr.rpartition(":")
+                    client = KVStoreClient(host or "127.0.0.1", int(port))
+                if client is not None and not isinstance(client,
+                                                         TierClient):
+                    client = TierClient(client, replica_id=replica_id)
+                self._tier_client = client
+                self.blocks = TieredBlockManager(
+                    nb, bt, self.tiering, prefix_cache=pc,
+                    bytes_per_block=bpb, client=client)
+            else:
+                self.blocks = BlockManager(nb, bt, prefix_cache=pc,
+                                           bytes_per_block=bpb)
             chunk = (prefill_chunk if prefill_chunk is not None
                      else int(os.environ.get("HVD_SERVE_PREFILL_CHUNK",
                                              "64")))
@@ -934,7 +1073,36 @@ class InferenceEngine:
             # iteration.
             self._chunk_budget = chunk if chunk > 0 else None
             self._cache = adapter.init_paged_cache(nb, self.max_batch)
+            # Sequence-parallel long-prompt prefill (serve/seqpar.py): an
+            # emulated rank set splitting prompts past sp_min_tokens by
+            # sequence extent.
+            from .seqpar import SPConfig, SPWorld
+            sp_cfg = SPConfig(ranks=sp_ranks, min_tokens=sp_min_tokens)
+            self.seqpar: Optional[SPWorld] = None
+            if sp_cfg.enabled and hasattr(adapter, "sp_prefill_chunk"):
+                self.seqpar = SPWorld(adapter, sp_cfg.ranks,
+                                      sp_cfg.min_tokens,
+                                      replica_id=replica_id)
+                self.seqpar.prime(self)
             self._verify_pool_budget(nb)
+            if self.tiering is not None:
+                # Device IO pair, tier worker and the loop-side arrival
+                # plumbing: the worker appends (worker → loop) messages to
+                # the deque under no lock and the loop drains it at the
+                # iteration top (append / popleft are atomic); the event
+                # wakes a stalled loop the moment a fetch lands.
+                self.blocks.set_device_io(*make_block_io(self))
+                self._tier_arrivals: deque = deque()
+                self._tier_event = threading.Event()
+                self._tier_worker: Optional[TierWorker] = None
+                if self._tier_client is not None:
+                    self._tier_worker = TierWorker(
+                        self.blocks, self._tier_client,
+                        self._tier_notify, replica_id=replica_id)
+                self._tier_stall_anchor: Optional[float] = None
+                self.tier_faults = 0
+                self.inflight_peak = 0
+                self._tier_peeked: set = set()
         else:
             # Slot mode ignores both adapter knobs (dense attention over
             # the compute-dtype slot cache): report what runs.
@@ -944,6 +1112,13 @@ class InferenceEngine:
             self._cache = adapter.init_cache(self.max_batch)
             self.pool_bytes = 0
             self.kv_headroom_bytes = None
+            self.tiering = None
+            self._tier_client = None
+            self.seqpar = None
+        # The ring's worst-case wire bytes of one SP prefill (the K/V
+        # rotation the emulated ranks stand for); 0 without an SP world.
+        self.sp_comm_bytes = (self.seqpar.ring_bytes_per_prefill()
+                              if self.seqpar is not None else 0)
         # The decode-algorithm layer: seeded sampling and n>1 forks need
         # the logits / sampled adapter programs and the paged engine
         # (fork tables are CoW block tables); speculative decoding also
@@ -1118,6 +1293,17 @@ class InferenceEngine:
         if name not in self._adapters:
             raise KeyError(f"model {name!r} not resident")
         self._check_geometry(adapter)
+        if self.tiering is not None:
+            # Unpublish the OLD version's fleet directory entries while
+            # _prefix_salt still gives the old salt: a peer mid-migration
+            # of the rolled chain must miss and recompute under the new
+            # weights (tiering.unpublish_salt).
+            try:
+                self.blocks.unpublish_salt(self._prefix_salt(name))
+            except Exception as e:
+                get_logger().warning(
+                    "%s: tier unpublish on roll failed: %s",
+                    self.replica_id, e)
         self._adapters[name] = adapter
         self._model_versions[name] = int(version)
         if name == self.default_model:
@@ -1209,7 +1395,22 @@ class InferenceEngine:
         stats["weight_bytes"] = self.weight_bytes
         if self.kv_headroom_bytes is not None:
             stats["kv_headroom_bytes"] = self.kv_headroom_bytes
+        if self.tiering is not None:
+            # Loop-side tier counters beside the manager's: stall
+            # episodes and the in-flight high-water mark.
+            stats["tier"]["faults"] = self.tier_faults
+            stats["tier"]["inflight_peak"] = self.inflight_peak
+        if self.seqpar is not None:
+            stats["sp"] = self.seqpar.stats()
         return stats
+
+    def tier_unpublish(self) -> int:
+        """Withdraw this replica's fleet-tier directory entries (the
+        mark_dead path): a peer must never resolve a chain hash to a
+        dead holder.  Returns the entries dropped (0 untiered)."""
+        if self.tiering is None:
+            return 0
+        return self.blocks.unpublish_all()
 
     # -- warmup --------------------------------------------------------------
 
@@ -1291,6 +1492,8 @@ class InferenceEngine:
             tables = np.full((self.max_batch, self._mb), nb, np.int64)
             self._cache, _ = ad.decode_paged(
                 self._cache, tokens, positions, tables)
+        if self.seqpar is not None:
+            self.seqpar.warmup(self._chunk_budget)
 
     def _warmup_slot(self) -> None:
         """The slot-mode ladder (one adapter: add_model refuses slot
@@ -1333,6 +1536,8 @@ class InferenceEngine:
         # alike, before the loop spawns: "healthy" then means "warm".
         if self._warmup_enabled:
             self.warmup()
+        if self.tiering is not None and self._tier_worker is not None:
+            self._tier_worker.start()
         self._thread = threading.Thread(
             target=self._run, daemon=True,
             name=f"hvd-serve-engine-{self.replica_id}")
@@ -1345,6 +1550,8 @@ class InferenceEngine:
             self._thread.join(timeout=30)
             if not self._thread.is_alive():
                 self._thread = None
+        if self.tiering is not None and self._tier_worker is not None:
+            self._tier_worker.stop()
 
     def drain(self) -> List[Request]:
         """Stop the loop and return all in-flight requests WITHOUT
@@ -1865,21 +2072,442 @@ class InferenceEngine:
                     total += g.reserve
         return total
 
+    # -- tiered KV hierarchy (serve/tiering.py) -------------------------------
+
+    def _tier_notify(self, msg: tuple) -> None:
+        """Worker → loop arrival (any worker thread): enqueue the result
+        and wake a stalled loop; the loop drains the deque at the next
+        iteration top (_tier_schedule)."""
+        self._tier_arrivals.append(msg)
+        self._tier_event.set()
+
+    def _tier_committed_blocks(self) -> int:
+        """Worst-case lifetime blocks the DISTINCT in-flight requests
+        have committed against the oversubscribed admission budget."""
+        with self._lock:
+            seen = {id(s.request): s.request
+                    for s in self._slots if s is not None}
+        return sum(self._request_cost_blocks(r) for r in seen.values())
+
+    def _tier_plan_migration(self, seq: _Seq) -> None:
+        """Extend ``seq``'s admission-time prefix hit fleet-wide: probe the
+        block directory for a contiguous continuation past the local hit,
+        claim device blocks for it and stage the fetch plan on
+        ``seq.pending_fetch`` (the jobs go out once the slot is
+        assigned).  ``tier_credit`` is the token watermark prefill
+        resumes from when every fetch landed; a failure clears the plan
+        and the blocks are prefilled locally, with the same tokens."""
+        bt = self.blocks.block_tokens
+        d = len(seq.table)  # = the local cached blocks at this point
+        usable = (len(seq.request.prompt) - 1) // bt
+        if d >= usable:
+            return
+        k = self.blocks.remote_hits(seq.hashes[d:usable])
+        if k <= 0:
+            return
+        try:
+            mig = self.blocks.allocate(k)
+        except NoFreeBlocksError:
+            return  # pool contended; local prefill covers it
+        seq.table.extend(mig)
+        now = time.monotonic()
+        seq.pending_fetch = {d + j: (seq.hashes[d + j], now)
+                             for j in range(k)}
+        seq.tier_credit = (d + k) * bt
+
+    def _tier_grow(self, sel):
+        """Lazy tiered allocation (the demand-paging half of the
+        oversubscribed admission): grow each selected sequence's table
+        to cover its prefill chunk, swapping younger residents host-ward
+        under pressure (_tier_relieve) and shrinking the chunk, or
+        sitting the sequence out this iteration, when the device pool is
+        truly full.  Relief victims are strictly younger than their
+        requester, so they come LATER in the admit-ordered selection and
+        the resident guard drops them before their chunk is built."""
+        bt = self.blocks.block_tokens
+        out = []
+        for i, s, take in sel:
+            if not s.resident or s.pending_fetch is not None:
+                continue  # swapped out by an earlier entry's relief
+            need = ((s.prompt_pos + take - 1) // bt + 1 - len(s.table)
+                    if take > 0 else 0)
+            while need > 0:
+                try:
+                    s.table.extend(self.blocks.allocate(need))
+                    need = 0
+                except NoFreeBlocksError:
+                    if not self._tier_relieve(s):
+                        covered = len(s.table) * bt - s.prompt_pos
+                        take = max(min(take, covered), 0)
+                        need = 0
+            if take > 0:
+                out.append((i, s, take))
+        return out
+
+    def _tier_relieve(self, requester: _Seq) -> bool:
+        """Demote over preempt: on pool exhaustion, swap the youngest
+        eligible RESIDENT sequence host-ward instead of preempting it
+        back to the prompt (its tokens and K/V survive; it resumes after
+        a later swap-in).  Eligible: strictly younger than the requester,
+        a plain n == 1 sequence (fork families pin their shared blocks),
+        not mid-fetch, and aged past the swap quantum."""
+        q = self.tiering.quantum
+        with self._lock:
+            cands = [(j, t) for j, t in enumerate(self._slots)
+                     if t is not None and t is not requester
+                     and t.resident and t.group is None
+                     and t.pending_fetch is None and t.table
+                     and t.admit_seq > requester.admit_seq
+                     and (self.steps - t.swap_step) >= q]
+        if not cands:
+            return False
+        slot, victim = max(cands, key=lambda c: c[1].admit_seq)
+        self._tier_swap_out(slot, victim)
+        return True
+
+    def _tier_swap_out(self, slot: int, s: _Seq) -> None:
+        """Move one sequence's device blocks host-ward: copy the payloads
+        out (device IO, loop thread, no lock), then mark it non-resident
+        and release its blocks.  Registered prompt blocks become
+        retained prefix blocks as usual."""
+        payloads = [self.blocks.extract_block(bid) for bid in s.table]
+        with self._lock:
+            if self._slots[slot] is not s:
+                return
+            s.host_kv = payloads
+            s.resident = False
+            s.swap_step = self.steps
+            table, s.table = s.table, []
+        self.blocks.free_table(table)
+        self.blocks.count_swap(out_blocks=len(table))
+        self.metrics.count_tier_bytes(
+            spill=len(table) * (self.blocks.bytes_per_block or 0))
+
+    def _tier_swap_in(self, slot: int, s: _Seq) -> bool:
+        """Resume a swapped-out sequence: claim device blocks, insert the
+        host payloads, and issue fetches (the ahead-of-decode prefetch)
+        for payloads that demoted to the KV tier; the sequence turns
+        resident when the last fetch lands (_tier_apply)."""
+        n = len(s.host_kv) if s.host_kv else 0
+        if n == 0:
+            with self._lock:
+                if self._slots[slot] is s:
+                    s.resident = True
+                    s.swap_step = self.steps
+            return True
+        try:
+            fresh = self.blocks.allocate(n)
+        except NoFreeBlocksError:
+            q = self.tiering.quantum
+            with self._lock:
+                cands = [(j, t) for j, t in enumerate(self._slots)
+                         if t is not None and t is not s and t.resident
+                         and t.group is None and t.pending_fetch is None
+                         and t.table
+                         and (self.steps - t.swap_step) >= q]
+            if not cands:
+                return False  # nobody evictable; retry next iteration
+            vslot, victim = max(cands, key=lambda c: c[1].admit_seq)
+            self._tier_swap_out(vslot, victim)
+            try:
+                fresh = self.blocks.allocate(n)
+            except NoFreeBlocksError:
+                return False
+        now = time.monotonic()
+        pend: Dict[int, tuple] = {}
+        jobs = []
+        for idx, payload in enumerate(s.host_kv):
+            if isinstance(payload, tuple):  # ("kv", key): demoted
+                pend[idx] = (payload[1], now)
+                jobs.append(("fetch_swap", s, slot, idx, payload[1]))
+            else:
+                self.blocks.note_pending(fresh[idx], payload)
+                self.blocks.apply_pending(fresh[idx])
+        with self._lock:
+            if self._slots[slot] is not s:
+                self.blocks.free_table(fresh)
+                return False
+            s.table = fresh
+            s.host_kv = None
+            s.swap_step = self.steps
+            if pend:
+                s.pending_fetch = pend
+            else:
+                s.resident = True
+        for job in jobs:
+            self._tier_worker.submit(job)
+        if jobs:
+            # FIFO worker: the GC lands strictly after the fetches.
+            self._tier_worker.submit(("drop_swap", [j[4] for j in jobs]))
+        self.blocks.count_swap(in_blocks=n)
+        self.metrics.count_tier_bytes(
+            promote=n * (self.blocks.bytes_per_block or 0))
+        return True
+
+    def _tier_schedule(self) -> None:
+        """The iteration-top tier pass: arrivals → timeouts → rotation →
+        demotes → queue-peek prefetch."""
+        self.blocks.note_step(self.steps)
+        self._tier_event.clear()
+        while self._tier_arrivals:
+            self._tier_apply(self._tier_arrivals.popleft())
+        timeout = self.tiering.fetch_timeout_s
+        now = time.monotonic()
+        with self._lock:
+            stale = [(i, s) for i, s in enumerate(self._slots)
+                     if s is not None and s.pending_fetch
+                     and any(now - t0 > timeout
+                             for _, t0 in s.pending_fetch.values())]
+        for i, s in stale:
+            self._tier_cancel_pending(i, s)
+        # Rotation: the oldest swapped-out sequence comes back when its
+        # quantum expired, or at once when nothing resident can run (no
+        # starvation: admit order bounds every wait).
+        with self._lock:
+            swapped = [(i, s) for i, s in enumerate(self._slots)
+                       if s is not None and not s.resident
+                       and s.pending_fetch is None]
+            resident_work = any(
+                s is not None and s.resident and not s.parked
+                for s in self._slots)
+        if swapped:
+            swapped.sort(key=lambda t: t[1].admit_seq)
+            i, s = swapped[0]
+            if (not resident_work
+                    or (self.steps - s.swap_step) >= self.tiering.quantum):
+                self._tier_swap_in(i, s)
+        if self._tier_worker is not None:
+            for h, entry in self.blocks.demote_candidates():
+                self._tier_worker.submit(("demote", h, entry))
+            self._tier_demote_swapped()
+            self._tier_peek()
+
+    def _tier_demote_swapped(self) -> None:
+        """Swapped-out sequences cold past HVD_SERVE_TIER_DEMOTE_ITERS
+        export their host payloads to the KV-server tier (replica-private
+        swap blobs): the payload entry becomes a ("kv", key) sentinel the
+        next swap-in resolves with a fetch_swap.  The single worker queue
+        is FIFO, so the put lands before any later fetch of the key."""
+        di = self.tiering.demote_iters
+        with self._lock:
+            cold = [s for s in self._slots
+                    if s is not None and not s.resident
+                    and s.host_kv is not None
+                    and s.pending_fetch is None
+                    and (self.steps - s.swap_step) >= di]
+        moved = 0
+        for s in cold:
+            for idx, payload in enumerate(s.host_kv):
+                if isinstance(payload, tuple):
+                    continue
+                key = f"{self.replica_id}/{s.admit_seq}/{idx}"
+                self._tier_worker.submit(("put_swap", key, payload))
+                s.host_kv[idx] = ("kv", key)
+                moved += 1
+        if moved:
+            bpb = self.blocks.bytes_per_block or 0
+            self.blocks.count_demote(moved)
+            self.metrics.count_tier_bytes(demote=moved * bpb)
+
+    def _tier_peek(self) -> None:
+        """Queue-peek prefetch: hash the next HVD_SERVE_TIER_PREFETCH
+        queued prompts and fetch their unknown chain blocks from the
+        fleet tier into the HOST tier ahead of admission; when the peek
+        wins its race, admission's lookup_prefix promotes the staged
+        blocks synchronously and no in-band fetch is needed."""
+        depth = self.tiering.prefetch
+        if depth <= 0:
+            return
+        try:
+            peeked = self.batcher.peek(depth)
+        except Exception:
+            return
+        if len(self._tier_peeked) > 4096:
+            self._tier_peeked.clear()
+        bt = self.blocks.block_tokens
+        for prompt, model in peeked:
+            usable = (len(prompt) - 1) // bt
+            if usable <= 0:
+                continue
+            hs = chain_hashes(prompt, bt,
+                              salt=self._prefix_salt(model))[:usable]
+            for h in hs:
+                if h in self._tier_peeked:
+                    continue
+                self._tier_peeked.add(h)
+                if (self.blocks.registered_block(h) is not None
+                        or self.blocks.host_contains(h)):
+                    continue
+                self._tier_worker.submit(("peek", h))
+
+    def _tier_publish(self, jobs) -> None:
+        """Ship newly completed prefix chains to the fleet tier.  The
+        payload copy is synchronous (full prefix blocks are immutable)
+        but guarded: if the hash unregistered between the claim and the
+        copy (eviction, spill), the publication is abandoned; the
+        directory must never point at bytes that no longer match."""
+        for h, salt, bid in jobs:
+            if not self.blocks.mark_publishing(h):
+                continue
+            if self.blocks.registered_block(h) != bid:
+                self.blocks.note_published(h, salt, False)
+                continue
+            payload = self.blocks.extract_block(bid)
+            if self.blocks.registered_block(h) != bid:
+                self.blocks.note_published(h, salt, False)
+                continue
+            self._tier_worker.submit(("publish", h, salt, payload))
+
+    def _tier_apply(self, msg: tuple) -> None:
+        """Apply one worker arrival on the loop thread (the only thread
+        doing device IO).  Stale arrivals (the slot moved on, the fetch
+        was cancelled) are dropped; a None payload is a fetch that
+        exhausted its retries and degrades through cancel."""
+        kind = msg[0]
+        if kind == "staged":
+            _, h, payload, entry = msg
+            self.blocks.stage_host(h, payload, entry)
+            return
+        _, seq, slot, idx, payload = msg
+        with self._lock:
+            if (self._slots[slot] is not seq or not seq.pending_fetch
+                    or idx not in seq.pending_fetch):
+                return
+        if payload is None:
+            self._tier_cancel_pending(slot, seq)
+            return
+        bid = seq.table[idx]
+        self.blocks.note_pending(bid, payload)
+        self.blocks.apply_pending(bid)
+        done = False
+        with self._lock:
+            if self._slots[slot] is seq and seq.pending_fetch:
+                seq.pending_fetch.pop(idx, None)
+                if not seq.pending_fetch:
+                    seq.pending_fetch = None
+                    done = True
+        if done:
+            self._tier_finalize(slot, seq)
+
+    def _tier_finalize(self, slot: int, seq: _Seq) -> None:
+        """The last in-flight fetch landed: a migration admits the
+        sequence at its credit watermark (the migrated prefix is K/V it
+        never prefills), a swap-in turns it resident again.  Either way
+        an open stall episode ends here."""
+        bt = self.blocks.block_tokens
+        if seq.tier_credit > 0:
+            salt = self._prefix_salt(seq.request.model)
+            gained = 0
+            with self._lock:
+                if self._slots[slot] is seq:
+                    for b in range(seq.prompt_pos // bt,
+                                   seq.tier_credit // bt):
+                        self.blocks.register(seq.hashes[b], seq.table[b],
+                                             salt=salt)
+                    gained = seq.tier_credit - seq.prompt_pos
+                    seq.prompt_pos = seq.length = seq.tier_credit
+                    seq.published = max(seq.published,
+                                        seq.tier_credit // bt)
+                    seq.tier_credit = 0
+            if gained > 0:
+                self.blocks.count_migrated(gained // bt, gained)
+                self.metrics.count_tier_migration(gained)
+        else:
+            with self._lock:
+                if self._slots[slot] is seq:
+                    seq.resident = True
+                    seq.swap_step = self.steps
+        self._tier_stall_end(seq)
+
+    def _tier_cancel_pending(self, slot: int, seq: _Seq) -> None:
+        """A tier fetch died (dropped past the retry budget, timed out,
+        or its holder unpublished mid-flight).  A migration degrades to
+        recompute: the plan clears WITHOUT credit and chunked prefill
+        computes those blocks, the same tokens.  A swap-in has no
+        prompt-side recovery for its decoded state, so the sequence takes
+        the preempt path (restart from the prompt, equally exact)."""
+        with self._lock:
+            if self._slots[slot] is not seq or seq.pending_fetch is None:
+                return
+            migration = seq.tier_credit > 0
+            seq.pending_fetch = None
+            seq.tier_credit = 0
+        if migration:
+            self.blocks.count_migration_failure()
+        else:
+            self._preempt(slot, seq)
+        self._tier_stall_end(seq)
+
+    def _tier_stall_end(self, seq: Optional[_Seq] = None) -> None:
+        """Close an open tier-fault stall episode: count it, histogram it
+        and emit a ``tier-fault`` span on the request that resolved it."""
+        anchor = self._tier_stall_anchor
+        if anchor is None:
+            return
+        self._tier_stall_anchor = None
+        now = time.monotonic()
+        dt_ms = (now - anchor) * 1e3
+        self.tier_faults += 1
+        self.metrics.observe_tier_stall(dt_ms)
+        r = seq.request if seq is not None else None
+        if r is not None and r.trace is not None \
+                and _obs.TRACER is not None:
+            try:
+                _obs.TRACER.emit_span(
+                    r.trace, "tier-fault", anchor, now, self.replica_id,
+                    args={"stall_ms": round(dt_ms, 3)})
+            except Exception:
+                pass
+
+    def _tier_idle_wait(self, pre: int, dec: int) -> None:
+        """Stall accounting at the iteration bottom: no progress with
+        tier fetches in flight means the loop is FAULTING on the tier
+        (the prefetch lost its race).  Anchor the episode (one fault per
+        episode, however many iterations it spans) and sleep on the
+        arrival event instead of spinning."""
+        if pre or dec:
+            self._tier_stall_anchor = None
+            return
+        with self._lock:
+            pending = any(s is not None and s.pending_fetch
+                          for s in self._slots)
+        if not pending:
+            self._tier_stall_anchor = None
+            return
+        if self._tier_stall_anchor is None:
+            self._tier_stall_anchor = time.monotonic()
+        self._tier_event.wait(timeout=0.002)
+
     def _admit_paged(self, block_s: float) -> int:
         free = self._free_slots()
         if not free:
             return 0
         use_blocks = self._mb > 0
+        tiered = use_blocks and self.tiering is not None
         # Admission reserves each sequence's whole lifetime (prompt +
         # max_new_tokens; n>1 fork tails reserved, not allocated), so
         # decode-time growth cannot exhaust the pool and preemption
-        # stays a defensive path.
-        budget = (max(self.blocks.available() - self._reserved_blocks(), 0)
-                  if use_blocks else None)
+        # stays a defensive path.  Tiered: in-flight K/V beyond the
+        # device pool lives host-ward, so the budget oversubscribes the
+        # pool by HVD_SERVE_TIER_OVERSUB less what the live requests
+        # committed (cold sequences swap out instead of being
+        # preempted); the hard cap stays the device capacity.
+        budget = None
+        if tiered:
+            budget = max(int(self.blocks.capacity * self.tiering.oversub)
+                         - self._tier_committed_blocks(), 0)
+        elif use_blocks:
+            budget = max(self.blocks.available() - self._reserved_blocks(),
+                         0)
+        sp = self.seqpar
         admitted = self.batcher.get_admission(
             len(free), block_s=block_s, budget=budget,
             cost=self._request_cost_blocks if use_blocks else None,
-            hard_cap=self.blocks.capacity if use_blocks else None)
+            hard_cap=self.blocks.capacity if use_blocks else None,
+            sp_min_tokens=sp.min_tokens if sp is not None else None,
+            sp_capacity=sp.free_extent_blocks() if sp is not None else None,
+            sp_cost=((lambda r: sp.extent_cost_blocks(len(r.prompt)))
+                     if sp is not None else None))
         if not admitted:
             return 0
         self._observe_admission(admitted)
@@ -1907,8 +2535,17 @@ class InferenceEngine:
                                           salt=self._prefix_salt(r.model))
                     cached_ids, cached_tokens = \
                         self.blocks.lookup_prefix(r.prompt, hashes=hashes)
-                need = self._blocks_for_tokens(
-                    len(r.prompt) + r.max_new_tokens) - len(cached_ids)
+                # Tiered n == 1 admission is LAZY: the oversubscribed
+                # budget admitted more lifetimes than the device pool
+                # holds, so blocks are claimed chunk by chunk in
+                # _tier_grow (prefill) and _ensure_write_blocks (decode),
+                # with swap-out as the pressure valve.  n > 1 families
+                # keep the eager reservation.
+                if tiered and r.n == 1:
+                    need = 0
+                else:
+                    need = self._blocks_for_tokens(
+                        len(r.prompt) + r.max_new_tokens) - len(cached_ids)
                 try:
                     fresh = self.blocks.allocate(need) if need > 0 else []
                 except NoFreeBlocksError:
@@ -1920,6 +2557,14 @@ class InferenceEngine:
                     break
             seq = _Seq(r, cached_tokens, cached_ids + fresh, hashes,
                        self._admit_counter)
+            if (tiered and r.n == 1 and hashes
+                    and self._tier_worker is not None):
+                # Cross-replica prefix migration: where the LOCAL lookup
+                # stopped, probe the fleet block directory for a
+                # contiguous continuation and fetch those blocks over the
+                # KV transport instead of prefilling them; the sequence
+                # prefills only after they land or fail.
+                self._tier_plan_migration(seq)
             self._admit_counter += 1
             if r.sampled:
                 seq.base_key = _sampling.seq_key(r.seed, 0)
@@ -1938,7 +2583,8 @@ class InferenceEngine:
                 group.seqs.append(seq)
             r.replica_id = self.replica_id
             with self._lock:
-                self._slots[free[cursor]] = seq
+                slot = free[cursor]
+                self._slots[slot] = seq
                 cursor += 1
                 for i in range(1, r.n):
                     f = _Seq(r, 0, [], [], seq.admit_seq)
@@ -1951,6 +2597,17 @@ class InferenceEngine:
                     group.seqs.append(f)
                     self._slots[free[cursor]] = f
                     cursor += 1
+            if seq.pending_fetch:
+                # The slot is assigned, so arrivals can check (seq, slot)
+                # identity: issue the migration fetches.
+                for bidx, (h, _t0) in sorted(seq.pending_fetch.items()):
+                    self._tier_worker.submit(("fetch", seq, slot, bidx, h))
+        if tiered:
+            with self._lock:
+                inflight = len({id(s.request) for s in self._slots
+                                if s is not None})
+            # The in-flight high-water mark (what oversubscription buys).
+            self.inflight_peak = max(self.inflight_peak, inflight)
         return cursor
 
     def _prefill_step(self) -> int:
@@ -1960,7 +2617,9 @@ class InferenceEngine:
         with self._lock:
             pending = [(i, s) for i, s in enumerate(self._slots)
                        if s is not None and not s.parked
-                       and not s.decoding]
+                       and not s.decoding and s.resident
+                       and s.pending_fetch is None
+                       and s.sp_state is None]
         if not pending:
             return 0
         pending.sort(key=lambda t: t[1].admit_seq)
@@ -1973,6 +2632,10 @@ class InferenceEngine:
             take = int(min(len(s.request.prompt) - s.prompt_pos, budget))
             sel.append((i, s, take))
             budget -= take
+        if self.tiering is not None:
+            sel = self._tier_grow(sel)
+            if not sel:
+                return 0
         chunks = [s.request.prompt[s.prompt_pos:s.prompt_pos + take]
                   for _, s, take in sel]
         starts = [s.prompt_pos for _, s, _ in sel]
@@ -2020,6 +2683,10 @@ class InferenceEngine:
                     pass
         total = 0
         bt = self.blocks.block_tokens
+        tiered = self.tiering is not None
+        publishing = (tiered and self._tier_worker is not None
+                      and self.tiering.publish)
+        pub_jobs: List[Tuple[int, int, int]] = []
         with self._lock:
             for (i, s, take), tok in zip(sel, first):
                 if self._slots[i] is not s:
@@ -2029,9 +2696,20 @@ class InferenceEngine:
                 total += take
                 if self._mb and s.hashes:
                     # Publish the blocks this chunk completed for prefix
-                    # reuse (watermarked: never re-walk from 0).
+                    # reuse (watermarked: never re-walk from 0).  Tiered:
+                    # the salt rides along (the roll's scrub), and each
+                    # completed block becomes a candidate for the fleet
+                    # directory, migratable to a peer replica.
+                    salt = (self._prefix_salt(s.request.model)
+                            if tiered else 0)
                     for b in range(s.published, s.prompt_pos // bt):
-                        self.blocks.register(s.hashes[b], s.table[b])
+                        if tiered:
+                            self.blocks.register(s.hashes[b], s.table[b],
+                                                 salt=salt)
+                        else:
+                            self.blocks.register(s.hashes[b], s.table[b])
+                        if publishing:
+                            pub_jobs.append((s.hashes[b], salt, s.table[b]))
                     s.published = max(s.published, s.prompt_pos // bt)
                 if not s.decoding:
                     continue
@@ -2068,7 +2746,173 @@ class InferenceEngine:
                 if self._seq_finished(s, tok):
                     self._retire_seq(i, s)
         self._flush_trace_emits()
+        if pub_jobs:
+            self._tier_publish(pub_jobs)
         return total
+
+    # -- sequence-parallel prefill (serve/seqpar.py) -------------------------
+
+    def _sp_eligible(self, s: _Seq) -> bool:
+        """May this pending sequence prefill through the SP world?
+        Conservative: everything else takes the single-rank chunked path,
+        with the same tokens.
+
+        * plain n == 1 greedy / sampled requests only (grammar and
+          logprob requests need per-chunk host rows; a fork family
+          prefills once through its primary);
+        * not requeued (a kill-rank resubmission must make progress;
+          retrying through the component that just died would spin);
+        * not admission-denied (``sp_denied``, batcher._sp_charge);
+        * prompt untouched (``prompt_pos == 0``: a prefix-cache hit
+          already skipped ahead) with its WHOLE block table allocated
+          (which excludes tiered lazy admission: SP with tiering is left
+          out, as in JAX);
+        * long enough to pay for the ring."""
+        r = s.request
+        bt = self.adapter.block_tokens
+        return (s.sp_state is None and not s.parked and s.resident
+                and s.pending_fetch is None and s.group is None
+                and r.n == 1 and r.grammar is None
+                and r.logprobs is None and r.requeues == 0
+                and not getattr(r, "sp_denied", False)
+                and s.prompt_pos == 0
+                and len(r.prompt) >= self.seqpar.min_tokens
+                and len(s.table) * bt >= len(r.prompt))
+
+    def _sp_step(self) -> int:
+        """Drive the SP world one emulated-rank chunk: claim the oldest
+        eligible pending sequence when the world is idle, advance the
+        active job otherwise.  Returns the prompt tokens processed."""
+        from ..parallel import ring as _ring
+        sp = self.seqpar
+        job = sp.job
+        if job is None:
+            with self._lock:
+                cand = [(i, s) for i, s in enumerate(self._slots)
+                        if s is not None and self._sp_eligible(s)]
+            if not cand:
+                return 0
+            cand.sort(key=lambda t: t[1].admit_seq)
+            slot, s = cand[0]
+            job = sp.begin(s, slot)
+            if job is None:
+                return 0
+            s.sp_state = job
+            self._sp_wire_timeline()
+            _ring.emit_hop_schedule("sp_prefill", sp.ranks,
+                                    sp._hop_bytes())
+        # The faultline kill-rank drill: a rank dying mid-prefill aborts
+        # the job; every rank's blocks are freed and the request
+        # resubmits whole through the preemption path.
+        for f in _faultline.fire("sp.prefill", self.replica_id):
+            if f.kind == "kill-rank":
+                get_logger().warning(
+                    "%s: faultline kill-rank at sp.prefill (rank %d)",
+                    self.replica_id, job.rank)
+                self._sp_abort(job)
+                return 0
+        with self._lock:
+            alive = self._slots[job.slot] is job.seq
+        if not alive:
+            # Drained or expired under us: the slot's owner released the
+            # main table; only the rank-side blocks remain.
+            sp.abort(job)
+            job.seq.sp_state = None
+            return 0
+        before = sp.sp_tokens_total
+        sp.step(self, self._chunk_budget)
+        took = sp.sp_tokens_total - before
+        self._sp_emit(job)
+        if job.done:
+            self._sp_complete(job)
+        return took
+
+    def _sp_wire_timeline(self) -> None:
+        """Point the ring layer's hop-schedule events at the tracer's
+        timeline (``ring.set_ring_timeline``), re-armed per job so every
+        SP prefill writes its hop schedule."""
+        from ..parallel import ring as _ring
+        tl = (getattr(_obs.TRACER, "_timeline", None)
+              if _obs.TRACER is not None else None)
+        if tl is not None:
+            _ring.set_ring_timeline(
+                tl, tensor_name=f"serve:{self.replica_id}:sp")
+
+    def _sp_emit(self, job) -> None:
+        """Drain the job's span records (per-extent chunk compute and
+        handoff) into the tracer under the request's trace; they all fall
+        inside the prefill stage, so the stage partition stays exact."""
+        spans, job.spans = job.spans, []
+        r = job.seq.request
+        if r.trace is None or _obs.TRACER is None:
+            return
+        for name, t0, t1, args in spans:
+            try:
+                _obs.TRACER.emit_span(r.trace, name, t0, t1,
+                                      self.replica_id, args=args)
+            except Exception:
+                pass
+
+    def _sp_complete(self, job) -> None:
+        """SP prefill done: every extent's blocks already sit in the main
+        pool (the handoff ran ahead of decode), so this is
+        _prefill_step's completion for one sequence: register the prefix
+        blocks, draw the first token from the final extent's logits on
+        the host, stamp TTFT and hand the sequence to the single-rank
+        decode path."""
+        sp = self.seqpar
+        s = job.seq
+        r = s.request
+        now = time.monotonic()
+        with self._lock:
+            if self._slots[job.slot] is not s:
+                sp.abort(job)
+                s.sp_state = None
+                return
+            P = len(r.prompt)
+            s.prompt_pos = P
+            s.length = max(s.length, P)
+            bt = self.blocks.block_tokens
+            if self._mb and s.hashes:
+                for b in range(s.published, P // bt):
+                    self.blocks.register(s.hashes[b], s.table[b])
+                s.published = max(s.published, P // bt)
+            raw = job.final_logits
+            if r.sampled:
+                tok = _sampling.sample_host(raw, s.base_key, P,
+                                            r.temperature, r.top_k,
+                                            r.top_p)
+            else:
+                tok = int(np.argmax(raw))
+            tok = int(tok)
+            r.first_token_at = now
+            s.generated.append(tok)
+            self._publish_stream(r, s.generated, None)
+            r.stage_add("prefill", now)
+            self.metrics.observe_ttft((now - r.submitted_at) * 1e3)
+            self.metrics.count_sp_prefill(P, job.handoff_bytes,
+                                          job.ring_hops)
+            self._defer_flow(r)
+            s.sp_state = None
+            sp.finish(job)
+            if self._seq_finished(s, tok):
+                self._retire_seq(job.slot, s)
+        self._flush_trace_emits()
+
+    def _sp_abort(self, job) -> None:
+        """kill-rank / lost-slot abort: free the rank-side extent blocks
+        AND the sequence's main-pool table, then resubmit the request
+        whole (the preemption path).  The resubmission re-admits with
+        ``requeues > 0``, which _sp_eligible rejects: the retry prefills
+        single-rank, so the drill always makes progress."""
+        s = job.seq
+        self.seqpar.abort(job)
+        s.sp_state = None
+        self.metrics.count_sp_abort()
+        with self._lock:
+            alive = self._slots[job.slot] is s
+        if alive:
+            self._preempt(job.slot, s)
 
     def _preempt(self, slot: int, s: _Seq) -> None:
         """Victim path for pool exhaustion: release the sequence's blocks
@@ -2076,6 +2920,11 @@ class InferenceEngine:
         restarts from the prompt (position-keyed decoding, greedy or
         seeded, reproduces the answer; its prompt blocks likely still sit
         in the prefix cache).  A fork family is preempted as ONE unit."""
+        if s.sp_state is not None and self.seqpar is not None:
+            # An SP-prefilling victim also holds extent blocks on every
+            # SP rank: release those first.
+            self.seqpar.abort(s.sp_state)
+            s.sp_state = None
         members = s.group.seqs if s.group is not None else [s]
         with self._lock:
             if s.group is None:
@@ -2121,6 +2970,11 @@ class InferenceEngine:
         ok = []
         bt = self.blocks.block_tokens
         for i, s in sorted(active, key=lambda t: t[1].admit_seq):
+            if not s.resident:
+                # Swapped out host-ward as an earlier sequence's relief
+                # victim THIS pass (tiered; victims are strictly younger
+                # than their requester, so they sort after it).
+                continue
             span = extra.get(i, 0) if extra else 0
             placed = False
             while not placed:
@@ -2160,6 +3014,17 @@ class InferenceEngine:
                     placed = True
                     ok.append((i, s))
                 except NoFreeBlocksError:
+                    if self.tiering is not None:
+                        if self._tier_relieve(s):
+                            continue  # room made host-ward; retry the arm
+                        if s.group is None and s.pending_fetch is None \
+                                and s.table:
+                            # No younger victim: the requester itself
+                            # rides out the crunch host-ward (its decoded
+                            # state survives; it resumes after swap-in).
+                            self._tier_swap_out(i, s)
+                            placed = True
+                            continue
                     with self._lock:
                         live = [(j, t) for j, t in enumerate(self._slots)
                                 if t is not None]
@@ -2266,7 +3131,7 @@ class InferenceEngine:
     def _decode_once_paged(self) -> int:
         with self._lock:
             active = [(i, s) for i, s in enumerate(self._slots)
-                      if s is not None and s.decoding]
+                      if s is not None and s.decoding and s.resident]
         if active and self._mb:
             active = self._ensure_write_blocks(active)
         if not active:
@@ -2308,6 +3173,11 @@ class InferenceEngine:
                 if self._seq_finished(s, tok) \
                         or s.length >= self.adapter.max_len:
                     self._retire_seq(i, s)
+        if self.tiering is not None:
+            # Last-touch bookkeeping feeds the spill policy (coldest
+            # retained block first); loop-thread list writes.
+            for i, s in active:
+                self.blocks.touch(s.table, self.steps)
         self.steps += 1
         self._flush_trace_emits()
         self.metrics.observe_decode_step(dt_ms, len(active), len(active))
@@ -2332,7 +3202,7 @@ class InferenceEngine:
         reference."""
         with self._lock:
             active = [(i, s) for i, s in enumerate(self._slots)
-                      if s is not None and s.decoding]
+                      if s is not None and s.decoding and s.resident]
         if not active:
             self._step_anchor = None
             return 0
@@ -2502,6 +3372,12 @@ class InferenceEngine:
         cache (its rows are suspect and not individually reclaimable)."""
         get_logger().exception(
             "%s: engine step failed: %s", self.replica_id, e)
+        if self.seqpar is not None and self.seqpar.job is not None:
+            # The in-flight SP job's rank blocks must not leak across a
+            # recovery; its request fails with the rest below.
+            job = self.seqpar.job
+            job.seq.sp_state = None
+            self.seqpar.abort(job)
         with self._lock:
             failed = set()
             for i, s in enumerate(self._slots):
@@ -2517,6 +3393,8 @@ class InferenceEngine:
         self._flush_trace_emits()  # leftovers of the failed step
         if self.kv_mode == "slot":
             self._cache = self.adapter.init_cache(self.max_batch)
+        if self.tiering is not None:
+            self._tier_stall_anchor = None
         self._step_anchor = None
 
     def _run(self) -> None:
@@ -2527,6 +3405,12 @@ class InferenceEngine:
                 if _faultline.PLAN is not None:
                     self._faultline_step()
                 self._expire_inflight()
+                if paged and self.tiering is not None:
+                    # Tier bookkeeping at the iteration top: apply worker
+                    # arrivals, time out dead fetches, rotate swapped
+                    # sequences back in, issue demotes and queue-peek
+                    # prefetches, all ahead of this iteration's steps.
+                    self._tier_schedule()
                 busy = self.active_count > 0
                 # Iteration-level scheduling: admission happens BETWEEN
                 # decode steps — non-blocking while sequences are active,
@@ -2534,11 +3418,19 @@ class InferenceEngine:
                 block = 0.0 if busy else idle_block_s
                 if paged:
                     self._admit_paged(block)
-                    pre = self._prefill_step()
+                    pre = 0
+                    if self.seqpar is not None:
+                        # One emulated-rank SP chunk per iteration, BEFORE
+                        # the single-rank walk: SP claims eligible prompts
+                        # at position 0, the walk takes the rest.
+                        pre += self._sp_step()
+                    pre += self._prefill_step()
                     dec = (self._spec_once() if self._spec_ok()
                            else self._decode_once_paged())
                     if pre or dec:
                         self.metrics.observe_iteration(pre, dec)
+                    if self.tiering is not None:
+                        self._tier_idle_wait(pre, dec)
                 else:
                     self._admit(block)
                     self._decode_once()

@@ -130,6 +130,24 @@ class ServeMetrics:
         # queue, and replayed positions dropped.
         self.stream_tokens: Dict[str, int] = {
             "published": 0, "coalesced": 0, "duplicates": 0}
+        # Tiered KV (serve/tiering.py): fault-stall episodes (iterations
+        # where the prefetch lost its race and the loop had nothing
+        # runnable), the bytes moved each direction and the migrations.
+        self.tier_stall_ms = Histogram()
+        self.tier_faults_total = 0
+        self.tier_spill_bytes = 0
+        self.tier_promote_bytes = 0
+        self.tier_demote_bytes = 0
+        self.tier_migrated_tokens = 0
+        self.tier_migrations_total = 0
+        # Sequence-parallel prefill (serve/seqpar.py): jobs, prompt
+        # tokens they covered, handoff bytes shipped to the decode owner,
+        # ring hops folded and kill-rank / preemption aborts.
+        self.sp_prefills_total = 0
+        self.sp_tokens_total = 0
+        self.sp_handoff_bytes = 0
+        self.sp_ring_hops_total = 0
+        self.sp_aborts_total = 0
         self._timeline = None
         self._timeline_every = int(os.environ.get(
             "HVD_SERVE_TIMELINE_EVERY", "16"))
@@ -184,6 +202,45 @@ class ServeMetrics:
             self.spec_accepted_total += accepted
             self.spec_rejected_total += rejected
             self.spec_steps_total += 1
+
+    def count_sp_prefill(self, tokens: int, handoff_bytes: int,
+                         ring_hops: int) -> None:
+        """One completed sequence-parallel prefill (engine._sp_complete):
+        prompt tokens covered, handoff bytes, ring hops folded."""
+        with self._lock:
+            self.sp_prefills_total += 1
+            self.sp_tokens_total += int(tokens)
+            self.sp_handoff_bytes += int(handoff_bytes)
+            self.sp_ring_hops_total += int(ring_hops)
+
+    def count_sp_abort(self) -> None:
+        """One SP job abort (kill-rank drill, preemption, lost slot); the
+        request resubmits whole and is also counted preempted."""
+        with self._lock:
+            self.sp_aborts_total += 1
+
+    def observe_tier_stall(self, ms: float) -> None:
+        """One tier-fault stall episode: the engine loop waited ``ms`` for
+        an in-flight tier fetch with nothing else runnable."""
+        with self._lock:
+            self.tier_stall_ms.observe(ms)
+            self.tier_faults_total += 1
+
+    def count_tier_bytes(self, spill: int = 0, promote: int = 0,
+                         demote: int = 0) -> None:
+        """Bytes moved across tier boundaries: device → host (spill),
+        host → device (promote), host → KV server (demote)."""
+        with self._lock:
+            self.tier_spill_bytes += spill
+            self.tier_promote_bytes += promote
+            self.tier_demote_bytes += demote
+
+    def count_tier_migration(self, tokens: int) -> None:
+        """One cross-replica prefix migration worth ``tokens`` tokens of
+        skipped prefill."""
+        with self._lock:
+            self.tier_migrated_tokens += tokens
+            self.tier_migrations_total += 1
 
     def count_request(self, outcome: str,
                       tenant: Optional[str] = None) -> None:
@@ -441,6 +498,22 @@ class ServeMetrics:
                         / self.spec_drafted_total, 4)
                     if self.spec_drafted_total else 0.0,
                 },
+                "tier": {
+                    "faults": self.tier_faults_total,
+                    "fault_stall": self.tier_stall_ms.to_dict(),
+                    "spill_bytes": self.tier_spill_bytes,
+                    "promote_bytes": self.tier_promote_bytes,
+                    "demote_bytes": self.tier_demote_bytes,
+                    "migrations": self.tier_migrations_total,
+                    "migrated_tokens": self.tier_migrated_tokens,
+                },
+                "sp": {
+                    "prefills": self.sp_prefills_total,
+                    "tokens": self.sp_tokens_total,
+                    "handoff_bytes": self.sp_handoff_bytes,
+                    "ring_hops": self.sp_ring_hops_total,
+                    "aborts": self.sp_aborts_total,
+                },
                 "seq_forks": sum(s.get("seq_forks", 0)
                                  for s in kv.values()),
                 "kv_blocks": kv,
@@ -603,6 +676,42 @@ class ServeMetrics:
             rate = (self.spec_accepted_total / self.spec_drafted_total
                     if self.spec_drafted_total else 0.0)
             lines.append(f"hvd_serve_spec_acceptance_rate {rate:g}")
+            for name, n in (
+                    ("hvd_serve_sp_prefills_total", self.sp_prefills_total),
+                    ("hvd_serve_sp_tokens_total", self.sp_tokens_total),
+                    ("hvd_serve_sp_handoff_bytes_total",
+                     self.sp_handoff_bytes),
+                    ("hvd_serve_sp_ring_hops_total",
+                     self.sp_ring_hops_total),
+                    ("hvd_serve_sp_aborts_total", self.sp_aborts_total)):
+                lines.append(f"# TYPE {name} counter")
+                lines.append(f"{name} {n}")
+            # Tiered KV: the fault-stall histogram, bytes per direction,
+            # migrations and the per-replica host-tier occupancy.
+            hist("hvd_serve_tier_fault_stall_ms", self.tier_stall_ms,
+                 "Engine-loop stall waiting on a tier fetch that lost "
+                 "its prefetch race, ms")
+            lines.append("# TYPE hvd_serve_tier_faults_total counter")
+            lines.append(
+                f"hvd_serve_tier_faults_total {self.tier_faults_total}")
+            lines.append("# TYPE hvd_serve_tier_bytes_total counter")
+            for direction, n in (("spill", self.tier_spill_bytes),
+                                 ("promote", self.tier_promote_bytes),
+                                 ("demote", self.tier_demote_bytes)):
+                lines.append(
+                    f'hvd_serve_tier_bytes_total{{direction='
+                    f'"{direction}"}} {n}')
+            lines.append("# TYPE hvd_serve_tier_migrations_total counter")
+            lines.append(f"hvd_serve_tier_migrations_total "
+                         f"{self.tier_migrations_total}")
+            lines.append(
+                "# TYPE hvd_serve_tier_migrated_tokens_total counter")
+            lines.append(f"hvd_serve_tier_migrated_tokens_total "
+                         f"{self.tier_migrated_tokens}")
+            gauge_per_replica(
+                "hvd_serve_tier_host_blocks", "gauge",
+                lambda s: (s["tier"].get("host_blocks", 0)
+                           if "tier" in s else None))
             gauge_per_replica("hvd_serve_prefix_cache_hit_rate", "gauge",
                               lambda s: f'{s.get("prefix_hit_rate", 0.0):g}')
             gauge_per_replica(

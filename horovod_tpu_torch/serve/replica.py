@@ -84,12 +84,14 @@ class Replica:
         kv = self.engine.kv_stats()
         if kv is not None:
             # The fork counters and spec config ride healthz next to the
-            # block stats (an MLP's pool reports no bytes per block).
+            # block stats (an MLP's pool reports no bytes per block), and
+            # so do the SP prefill world's geometry and counters.
             out["kv_blocks"] = {k: kv[k] for k in
                                 ("total", "used", "free", "retained",
                                  "bytes_per_block", "pool_bytes",
                                  "weight_bytes", "kv_headroom_bytes",
-                                 "seq_forks", "forked_requests", "spec_k")
+                                 "seq_forks", "forked_requests", "spec_k",
+                                 "sp")
                                 if k in kv}
         return out
 
@@ -226,6 +228,15 @@ class ReplicaScheduler:
             req.requeues += 1  # engine.drain() bumps its own
             req.resubmitted_at = now
         orphans = queued + victim.engine.drain()
+        try:
+            # A tiered engine withdraws its fleet-directory entries: a
+            # peer mid-migration toward a dead holder must miss fast and
+            # recompute, not wait out fetch retries.
+            victim.engine.tier_unpublish()
+        except Exception:
+            get_logger().warning(
+                "serve: %s tier unpublish failed on mark_dead",
+                replica_id, exc_info=True)
         if not orphans:
             return
         if _obs.TRACER is not None:

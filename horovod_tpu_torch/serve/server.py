@@ -797,7 +797,14 @@ def run_commandline(argv=None) -> int:
                         not in ("0", "false"),
                         help="run the SLO-aware fleet controller "
                              "(HVD_SERVE_CTL_* knobs)")
+    parser.add_argument("--tier-kv", default=None, metavar="HOST:PORT",
+                        help="enable the tiered KV hierarchy and point its "
+                             "fleet block directory at a KV server "
+                             "(HVD_SERVE_TIER_* knobs)")
     args = parser.parse_args(argv)
+    if args.tier_kv:
+        os.environ["HVD_SERVE_TIER"] = "1"
+        os.environ["HVD_SERVE_TIER_KV"] = args.tier_kv
 
     import torch
     # Serving math is f32 (HVD_SERVE_DTYPE) and keeps the argmax far

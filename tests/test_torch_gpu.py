@@ -21,7 +21,11 @@ held to the filtered distribution by chi-square), and greedy
 speculative decoding on the kernels gives greedy's tokens.  The fleet:
 the router in front of two card endpoints gives one engine's greedy
 and seeded answers, and a request traced through it leaves a tree from
-the router's root down to the engine's prefill and decode spans.
+the router's root down to the engine's prefill and decode spans.  The
+tiered KV hierarchy: a card pool's block through the tier codec and
+back is bit-equal, and a tiered engine swapping under pressure answers
+as an untiered one; sequence-parallel prefill gives single-rank
+prefill's tokens on the card.
 """
 
 import threading
@@ -1882,3 +1886,98 @@ def test_traced_request_tree_reaches_the_engine_on_the_card(cuda_device):
         rsrv.stop()
         srv.stop()
         tr.uninstall()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["native", "int8", "fp8"])
+def test_tier_round_trip_on_card_pools(cuda_device, kv):
+    """A block of a card pool copied out by ``make_block_io``, through the
+    tier codec and back into another block is bit-equal in every leaf
+    (scale rows included); a tiered engine on the card, swapping under
+    pool pressure, answers as an untiered one and holds more requests."""
+    from horovod_tpu_torch.serve import Request, TierConfig
+    from horovod_tpu_torch.serve.tiering import (make_block_io,
+                                                 pack_payload,
+                                                 unpack_payload)
+    model = _surface_model(cuda_device, seed=5)
+
+    def engine(**kw):
+        ad = TransformerAdapter(_TINY, model, block_tokens=8, kv_dtype=kv,
+                                device=cuda_device)
+        return InferenceEngine(ad, max_batch=8, prefill_chunk=16,
+                               num_blocks=8, metrics=ServeMetrics(), **kw)
+
+    eng = engine(tiering=TierConfig(oversub=4.0, quantum=2))
+    eng._cache, _ = eng.adapter.prefill_chunk(
+        eng._cache, [list(range(3, 20))], [0], [[0, 1, 2]])
+    extract, insert = make_block_io(eng)
+    before = extract(1)
+    insert(5, unpack_payload(pack_payload(before)))
+    for key, a in eng._cache.items():
+        assert a.is_cuda
+        assert torch.equal(a[:, 5], a[:, 1]), key
+        assert torch.equal(a[:, 1].cpu(), before[key]), key
+    prompts = [np.random.RandomState(60 + i).randint(0, 61, (10,)).tolist()
+               for i in range(6)]
+    base, tiered = engine().start(), engine(
+        tiering=TierConfig(oversub=4.0, quantum=2)).start()
+    try:
+        want = [base.generate(p, max_new_tokens=12) for p in prompts]
+        reqs = [Request(p, max_new_tokens=12) for p in prompts]
+        for r in reqs:
+            tiered.batcher.submit(r)
+        assert [r.result(timeout=120) for r in reqs] == want
+        st = tiered.kv_stats()["tier"]
+        assert st["inflight_peak"] > 2   # untiered: 2 lifetimes of 3 blocks
+        assert st["spill_bytes"] > 0 and st["promote_bytes"] > 0
+    finally:
+        base.stop()
+        tiered.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plen", [23, 24, 25, 56])
+def test_sp_prefill_on_the_card_matches_single_rank(cuda_device, plen):
+    """SP prefill over 4 emulated ranks on the card gives single-rank
+    prefill's tokens (decode over the handed-off blocks on the decode
+    route), and ``sp_prefill_chunk`` on the card agrees with the CPU's
+    (logits 2e-3 / 2e-3, written K/V 2e-4 / 2e-5)."""
+    model = _surface_model(cuda_device, seed=6)
+    prompt = np.random.RandomState(plen).randint(0, 61, (plen,)).tolist()
+
+    def run(**kw):
+        ad = TransformerAdapter(_TINY, model, block_tokens=8,
+                                device=cuda_device)
+        eng = InferenceEngine(ad, max_batch=8, prefill_chunk=5,
+                              prefix_cache=False, metrics=ServeMetrics(),
+                              **kw).start()
+        try:
+            return eng.generate(prompt, max_new_tokens=6), eng.kv_stats()
+        finally:
+            eng.stop()
+
+    want, _ = run()
+    before = tpa.LAUNCHES["paged_attention_decode"]
+    got, stats = run(sp_ranks=4, sp_min_tokens=16)
+    assert got == want
+    assert stats["sp"]["jobs"] == 1 and stats["sp"]["sp_tokens"] == plen
+    assert tpa.LAUNCHES["paged_attention_decode"] > before
+    cpu_model = _surface_model(torch.device("cpu"), seed=6)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    kad = TransformerAdapter(_TINY, model, block_tokens=8,
+                             device=cuda_device)
+    cad = TransformerAdapter(_TINY, cpu_model, block_tokens=8,
+                             device="cpu")
+    rng = np.random.RandomState(plen)
+    hop = torch.from_numpy(rng.randn(2, 16, 2, 16).astype(np.float32))
+    kpool, cpool = kad.sp_pool(8), cad.sp_pool(8)
+    chunk = prompt[:6]
+    kpool, klog = kad.sp_prefill_chunk(kpool, chunk, 21, 16, [3, 1, 5],
+                                       hop_k=hop, hop_v=hop, hop_len=16)
+    cpool, clog = cad.sp_prefill_chunk(cpool, chunk, 21, 16, [3, 1, 5],
+                                       hop_k=hop, hop_v=hop, hop_len=16)
+    np.testing.assert_allclose(klog, clog, rtol=2e-3, atol=2e-3)
+    for key in cpool:
+        np.testing.assert_allclose(kpool[key].cpu().numpy(),
+                                   cpool[key].numpy(), rtol=2e-4, atol=2e-5)

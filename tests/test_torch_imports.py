@@ -1,5 +1,6 @@
 """The PyTorch port (``horovod_tpu_torch``) stands alone: it imports torch,
-numpy and the standard library, never jax, flax or the JAX package.
+numpy and the standard library, never jax, flax, ml_dtypes or the JAX
+package.
 
 Mind the prefix: ``horovod_tpu_torch`` starts with ``horovod_tpu``, so a
 module counts as the JAX package only when it IS ``horovod_tpu`` or lies
@@ -17,7 +18,10 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "horovod_tpu_torch")
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+# ml_dtypes too: JAX's payload codec falls back to it for bf16 / fp8, and
+# the card's machine does not have it.
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "horovod_tpu",
+                   "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -79,7 +83,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "serve.streaming", "serve.structured",
                  "serve.registry", "obs", "obs.tracing", "obs.merge",
                  "obs.cli", "serve.router", "serve.router_server",
-                 "serve.controller", "elastic.preemption"):
+                 "serve.controller", "elastic.preemption",
+                 "serve.tiering", "serve.seqpar"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"

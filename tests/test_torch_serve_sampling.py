@@ -459,9 +459,11 @@ def test_mlp_spec_accepts_every_draft():
                            metrics=ServeMetrics()).start()
     try:
         assert spec.generate([1, 2], max_new_tokens=new) == want
-        snap = spec.metrics.snapshot()
     finally:
         spec.stop()
+    # Read after stop: the request completes inside the step, before the
+    # loop records that step's metrics.
+    snap = spec.metrics.snapshot()
     assert snap["spec"]["acceptance_rate"] == 1.0
     # One target call for the first token (prefill), then (new-1)/(k+1)
     # verify steps.
