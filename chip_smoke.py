@@ -217,21 +217,40 @@ Phases, each of which exits non-zero on failure:
    handoff bytes, ring hops) and a kill-rank drill that leaks no block;
    every decode step of the phase launches the decode route once per
    layer and every prefill step the prefill route once per layer;
-16. print the card's name and power limit, one JSON line of phase 7's
+16. hvdlint's analyzers on the serving path, in two child processes,
+   first without, then with ``HVD_SANITIZE=1`` (the lock witness wraps the serve locks made after the serve package is
+   imported, which this process did in phase 4): each runs two
+   gpt2-small f32 replicas (random
+   weights from the seed) behind the ``ReplicaScheduler``, answers 4
+   fixed prompts greedily one at a time, then 4 s of chaos (a submit
+   storm, requests that expire in the queue, a scrape loop of healthz /
+   render / snapshot, a mark_dead / mark_alive flapper); the sanitized
+   run must leave zero HVD210 / HVD211 findings, both runs must give
+   the same tokens, each run's paged launches must be layers × its
+   steps, healthz
+   must show ``plan_go`` true and ``kv_headroom_bytes`` = the card's
+   memory − pool − weights, an engine one byte over its memory budget
+   must publish HVD302 and an SP engine one byte over its comm budget
+   HVD401; then ``python -m horovod_tpu_torch.analysis`` and ``--race``
+   over the port must exit 0; one ``{"analysis": ...}`` line has the
+   findings, launches, the stress's requests and tokens/s plain and
+   sanitized, and the verdicts;
+17. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
    commit with and without the spill and of a restore, images/s before
    and after), one of phase 13's (``{"serve_surface": ...}``), one of
    phase 14's (``{"fleet": ...}``), one of phase 15's
-   (``{"tiering": ...}``), one JSON
+   (``{"tiering": ...}``), one of phase 16's (``{"analysis": ...}``), one
+   JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
    phase 8's and one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop``
    and ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each
    with that path's launches, counted from 0, and the error and times at
-   its shape; the paged kernels' launches sum phases 4, 13, 14 and
-   15),
+   its shape; the paged kernels' launches sum phases 4, 13, 14, 15 and
+   16),
    and as
    the last line ``{"ok": true, "device": ...}``.
 
@@ -4776,6 +4795,340 @@ def tier_phase(torch, device, rehearsal, seed):
     return launches, out
 
 
+# -- phase 16: hvdlint's analyzers under the serving fleet -------------------
+
+#: The stress's chaos (the JAX package's tests/test_serve_races.py shape):
+#: seconds it runs, the storm's new tokens a request, the expiring
+#: requests' budget.
+STRESS_S = 4.0
+STRESS_NEW = 8
+EXPIRY_S = 0.004
+
+
+def analysis_fleet(torch, device, rehearsal, seed):
+    """Two replicas of gpt2-small f32 at full width and depth (random
+    weights from ``seed``) behind the ``ReplicaScheduler``: the fixed
+    greedy prompts one at a time, then ``STRESS_S`` seconds of chaos — a
+    submit storm, a storm of requests that expire in the queue, a scrape
+    loop of ``healthz`` / ``render`` / ``snapshot`` and a ``mark_dead`` /
+    ``mark_alive`` flapper — and the storm's requests drained.  Returns
+    the fleet's numbers; every paged launch of the drive is counted from
+    0 and held to the replicas' steps."""
+    from horovod_tpu_torch.serve import (DynamicBatcher, InferenceEngine,
+                                         QueueFullError, Replica,
+                                         ReplicaScheduler, Request,
+                                         ServeMetrics, TransformerAdapter)
+    from horovod_tpu_torch.serve import paged_attention as pa
+    cfg, model, prompts, max_new = serving_model(torch, device, rehearsal,
+                                                 seed)
+    kw = dict(max_batch=8, prefill_chunk=64, prefix_cache=False,
+              warmup=False)
+
+    def factory():
+        return TransformerAdapter(cfg, model, device=device)
+
+    metrics = ServeMetrics()
+    engines = [InferenceEngine(factory(), metrics=metrics,
+                               batcher=DynamicBatcher(max_queue=64),
+                               replica_id=f"replica-{i}", **kw)
+               for i in range(2)]
+    sched = ReplicaScheduler([Replica(e.replica_id, None, e)
+                              for e in engines], metrics=metrics)
+    out = {"lock_type": type(sched._lock).__name__}
+    reset_launches(pa)
+    sched.start()
+    rng = np.random.RandomState(seed + 16)
+    try:
+        greedy = []
+        for p in prompts[:4]:
+            r = Request(list(p), max_new_tokens=max_new)
+            sched.submit(r)
+            greedy.append(r.result(timeout=600))
+        out["greedy"] = greedy
+        stop = threading.Event()
+        errors, done = [], []
+        lo, hi = (3, 9) if rehearsal else (8, 33)
+
+        def storm():
+            while not stop.is_set():
+                n = int(rng.randint(lo, hi))
+                r = Request(rng.randint(0, cfg.vocab_size, (n,)).tolist(),
+                            max_new_tokens=STRESS_NEW)
+                try:
+                    sched.submit(r)
+                except QueueFullError:
+                    time.sleep(0.002)
+                    continue
+                except Exception as e:  # a window with no survivor
+                    errors.append(repr(e))
+                    return
+                done.append(r)
+                time.sleep(0.001)
+
+        def expiry_storm():
+            while not stop.is_set():
+                r = Request([1, 2, 3], max_new_tokens=2, timeout_s=EXPIRY_S)
+                try:
+                    sched.submit(r)
+                except QueueFullError:
+                    pass
+                except Exception as e:  # replica-1 never flaps
+                    errors.append(repr(e))
+                    return
+                time.sleep(0.002)
+
+        scrapes = [0]
+
+        def scrape():
+            while not stop.is_set():
+                metrics.render()
+                metrics.snapshot()
+                sched.healthz()
+                scrapes[0] += 1
+                time.sleep(0.002)
+
+        def flapper():
+            while not stop.is_set():
+                sched.mark_dead("replica-0", reason="stress flap")
+                time.sleep(0.05)
+                sched.mark_alive("replica-0", reason="stress flap")
+                time.sleep(0.05)
+
+        threads = [threading.Thread(target=fn, daemon=True)
+                   for fn in (storm, expiry_storm, scrape, flapper)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        time.sleep(STRESS_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        answers = [r.result(timeout=600) for r in done]
+        wall = time.monotonic() - t0
+        tokens = sum(len(a) for a in answers)
+        snap = metrics.snapshot()
+        out.update({
+            "errors": errors + [f"{t.name} did not stop" for t in threads
+                                if t.is_alive()],
+            "requests": len(answers), "tokens": tokens,
+            "wall_s": round(wall, 3),
+            "tokens_per_s": round(tokens / wall, 1),
+            "expired": snap["requests"].get("expired", 0),
+            "flaps": dict(snap["replica_events"]), "scrapes": scrapes[0],
+            "healthz": [{k: r["kv_blocks"].get(k) for k in (
+                "plan_go", "plan_findings", "kv_headroom_bytes",
+                "pool_bytes", "weight_bytes")}
+                for r in sched.healthz()["replicas"]]})
+    finally:
+        sched.stop()
+    out["launches"] = {"decode": pa.LAUNCHES["paged_attention_decode"],
+                       "prefill": pa.LAUNCHES["paged_attention_prefill"],
+                       "all": pa.LAUNCHES["paged_attention"]}
+    out["steps"] = sum(e.steps for e in engines)
+    out["prefill_steps"] = sum(e.prefill_steps for e in engines)
+    out["layers"] = cfg.num_layers
+    return out, factory, kw
+
+
+def analysis_child(device_name, rehearsal, seed):
+    """The child process of phase 16: ``analysis_fleet`` under whatever
+    ``HVD_SANITIZE`` says, then (sanitized) the plan verdicts: a third
+    engine with ``HVD_MEM_BUDGET_BYTES`` one byte below its pool plus
+    weights, and an SP engine (4 ranks) with ``HVD_COMM_BUDGET_BYTES``
+    one byte below its ring's bytes.  Prints one ``{"analysis_child":
+    ...}`` line; exits 1 on a failed check."""
+    import os
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import witness
+    import horovod_tpu_torch.serve  # noqa: F401  (installs the witness)
+    from horovod_tpu_torch.serve import InferenceEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device_name)
+    sanitized = witness.enabled()
+    failures = []
+    out, factory, kw = analysis_fleet(torch, device, rehearsal, seed)
+    out["sanitized"], out["witness_installed"] = sanitized, \
+        witness.installed()
+    out["findings"] = [f.format() for f in witness.findings()]
+    if out["witness_installed"] != sanitized:
+        failures.append("the witness is not installed as HVD_SANITIZE says")
+    if sanitized and out["lock_type"] != "SanitizedLock":
+        failures.append(f"the scheduler's lock is a {out['lock_type']}")
+    if out["findings"]:
+        failures.append(f"witness findings: {out['findings']}")
+    if out["errors"]:
+        failures.append(f"stress errors: {out['errors']}")
+    if out["requests"] < 10 or out["expired"] < 1 or \
+            out["flaps"].get("mark_dead", 0) < 1 or \
+            out["flaps"].get("mark_alive", 0) < 1:
+        failures.append("the stress did not run: requests "
+                        f"{out['requests']}, expired {out['expired']}, "
+                        f"flaps {out['flaps']}")
+    dec, pre = out["launches"]["decode"], out["launches"]["prefill"]
+    want = (out["layers"] * out["steps"], out["layers"] * out["prefill_steps"])
+    if not rehearsal and ((dec, pre) != want or min(dec, pre) < 1 or
+                          out["launches"]["all"] != dec + pre):
+        failures.append(f"paged launches {dec}, {pre} != {want}")
+    budget = (None if rehearsal else
+              torch.cuda.get_device_properties(device).total_memory)
+    out["budget_bytes"] = budget
+    for h in out["healthz"]:
+        if h["plan_go"] is not True or h["plan_findings"] != 0:
+            failures.append(f"plan not admitted: {h}")
+        if h["kv_headroom_bytes"] != (
+                None if budget is None
+                else budget - h["pool_bytes"] - h["weight_bytes"]):
+            failures.append(f"headroom is not budget - pool - weights: {h}")
+    if sanitized:
+        h = out["healthz"][0]
+        plan = h["pool_bytes"] + h["weight_bytes"]
+        mark = len(hvd.analysis_reports())
+        os.environ["HVD_MEM_BUDGET_BYTES"] = str(plan - 1)
+        try:
+            eng = InferenceEngine(factory(), replica_id="over-budget", **kw)
+        finally:
+            del os.environ["HVD_MEM_BUDGET_BYTES"]
+        reports = hvd.analysis_reports()[mark:]
+        out["over_budget"] = {
+            "plan_go": eng.kv_stats()["plan_go"],
+            "kv_headroom_bytes": eng.kv_headroom_bytes,
+            "reports": [[type(r).__name__, [f.rule for f in r.findings]]
+                        for r in reports]}
+        if out["over_budget"]["plan_go"] is not False or \
+                eng.kv_headroom_bytes != -1 or out["over_budget"][
+                    "reports"] != [["MemReport", ["HVD302"]],
+                                   ["PlanVerdict", ["HVD302"]]]:
+            failures.append(f"over budget: {out['over_budget']}")
+        del eng
+        sp_kw = dict(kw, sp_ranks=4, sp_min_tokens=16 if rehearsal else 512)
+        ring = InferenceEngine(factory(), replica_id="sp", **sp_kw)
+        ring_bytes = ring.sp_comm_bytes
+        del ring
+        mark = len(hvd.analysis_reports())
+        os.environ["HVD_COMM_BUDGET_BYTES"] = str(ring_bytes - 1)
+        try:
+            eng = InferenceEngine(factory(), replica_id="sp-over", **sp_kw)
+        finally:
+            del os.environ["HVD_COMM_BUDGET_BYTES"]
+        reports = hvd.analysis_reports()[mark:]
+        out["sp_over_budget"] = {
+            "sp_comm_bytes": ring_bytes, "plan_go": eng.kv_stats()["plan_go"],
+            "comm_headroom_bytes": eng.plan_verdict.comm["headroom_bytes"],
+            "reports": [[type(r).__name__, [f.rule for f in r.findings]]
+                        for r in reports]}
+        if ring_bytes <= 0 or out["sp_over_budget"]["plan_go"] is not False \
+                or out["sp_over_budget"]["reports"] != [
+                    ["PlanVerdict", ["HVD401"]]]:
+            failures.append(f"SP over budget: {out['sp_over_budget']}")
+        del eng
+        out["findings_after"] = [f.format() for f in witness.findings()]
+        if out["findings_after"]:
+            failures.append(f"witness findings: {out['findings_after']}")
+    out["failures"] = failures
+    print(json.dumps({"analysis_child": out}))
+    return 1 if failures else 0
+
+
+def analyzer_cli(root, args):
+    """``python -m horovod_tpu_torch.analysis <args> horovod_tpu_torch``:
+    (exit code, the summary line, seconds)."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.analysis"] + args
+        + ["horovod_tpu_torch"], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    return proc.returncode, summary, round(time.monotonic() - t0, 3)
+
+
+def analysis_phase(torch, device, rehearsal, seed):
+    """Phase 16: ``analysis_child`` in two child processes, plain then
+    ``HVD_SANITIZE=1`` (this process imported the serve package in phase
+    4, before any witness, so its locks are plain): the sanitized fleet
+    must leave zero witness findings, both runs must answer the fixed
+    prompts with the same tokens, and each run's paged launches must
+    match its steps.  Then the analyzers' CLI over the port, default
+    pass and ``--race``, must exit 0.  A failed child fails the phase.
+    Returns the phase's paged launches (both children) and its numbers;
+    the witness's cost is 1 − the sanitized run's tokens/s over the
+    plain run's."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    failures = []
+    runs = []
+    for name, flag in (("plain", "0"), ("sanitized", "1")):
+        env = dict(os.environ, HVD_SANITIZE=flag)
+        env.pop("HVD_MEM_BUDGET_BYTES", None)
+        env.pop("HVD_COMM_BUDGET_BYTES", None)
+        code = ("import sys, chip_smoke as c; sys.exit(c.analysis_child("
+                f"{str(device)!r}, {rehearsal!r}, {seed!r}))")
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        # The flapper's mark_dead / requeue / re-admit warnings are the
+        # chaos itself: the rest of the child's log is shown.
+        for line in [ln for ln in proc.stderr.splitlines()
+                     if "stress flap" not in ln
+                     and "serve: requeued" not in ln][-40:]:
+            log(f"  [{name}] {line}")
+        rec = None
+        for line in proc.stdout.splitlines():
+            if line.startswith('{"analysis_child"'):
+                rec = json.loads(line)["analysis_child"]
+        if proc.returncode != 0 or rec is None:
+            failures.append(f"{name} child exited {proc.returncode}: "
+                            f"{rec and rec.get('failures')}")
+            continue
+        rec["name"] = name
+        rec["seconds"] = round(time.monotonic() - t0, 3)
+        runs.append(rec)
+        log(f"  {name}: {rec['requests']} requests, {rec['tokens']} "
+            f"tokens in {rec['wall_s']} s ({rec['tokens_per_s']} tokens/s), "
+            f"{rec['expired']} expired, flaps {rec['flaps']}, "
+            f"{len(rec['findings'])} witness findings, launches "
+            f"{rec['launches']} for {rec['steps']} decode and "
+            f"{rec['prefill_steps']} prefill steps x {rec['layers']} layers")
+    if any(r["greedy"] != runs[0]["greedy"] for r in runs):
+        failures.append("the fleets' greedy tokens differ between runs")
+    cli = {}
+    for name, args in (("lint", []), ("race", ["--race"])):
+        rc, summary, sec = analyzer_cli(root, args)
+        cli[name] = {"rc": rc, "summary": summary, "seconds": sec}
+        log(f"  python -m horovod_tpu_torch.analysis {' '.join(args)} "
+            f"horovod_tpu_torch: exit {rc} ({summary}), {sec} s")
+        if rc != 0:
+            failures.append(f"the analyzer's {name} pass exited {rc}")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the analysis phase failed")
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("decode", "prefill")}
+    plain, san = runs
+    out = {
+        "card": None if rehearsal else card_tag(),
+        "order": [r["name"] for r in runs],
+        "witness_findings": len(san["findings"]),
+        "analyzer_cli": cli,
+        "greedy_equal": True,
+        "launches": [r["launches"] for r in runs],
+        "steps": [[r["steps"], r["prefill_steps"]] for r in runs],
+        "stress": [{k: r[k] for k in ("name", "requests", "tokens",
+                                      "wall_s", "tokens_per_s", "expired",
+                                      "flaps", "scrapes")}
+                   for r in runs],
+        "witness_cost": round(1 - san["tokens_per_s"]
+                              / plain["tokens_per_s"], 4),
+        "healthz": san["healthz"], "budget_bytes": san["budget_bytes"],
+        "over_budget": san["over_budget"],
+        "sp_over_budget": san["sp_over_budget"],
+        "child_seconds": [r["seconds"] for r in runs],
+    }
+    return launches, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -4886,6 +5239,13 @@ def main(argv=None) -> int:
     tier_launches, tiering = tier_phase(torch, device, rehearsal, args.seed)
     log(f"  phase 15 took {time.monotonic() - t15:.1f} s")
 
+    log("phase 16: hvdlint's analyzers (two GPT-2-small replicas under "
+        "the HVD_SANITIZE=1 lock witness, the plan verdicts, the CLI)")
+    t16 = time.monotonic()
+    analysis_launches, analysis = analysis_phase(torch, device, rehearsal,
+                                                 args.seed)
+    log(f"  phase 16 took {time.monotonic() - t16:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -4899,6 +5259,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_surface": surface}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"tiering": tiering}))
+    print(json.dumps({"analysis": analysis}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -4914,16 +5275,19 @@ def main(argv=None) -> int:
             "replaces": "horovod_tpu/serve/paged_attention.py:156",
             # Phase 4's drives, phase 13's (host-mode decode rows,
             # /score, warmup, the roll), phase 14's (the fleet behind
-            # the router, its controller and preemption) and phase 15's
-            # (swapped-in, migrated and handed-off blocks), each counted
-            # from 0.
+            # the router, its controller and preemption), phase 15's
+            # (swapped-in, migrated and handed-off blocks) and phase
+            # 16's (the two-replica fleet, twice plain and twice under
+            # the lock witness, in child processes), each counted from 0.
             "launches": (launches + surface_launches[route]
-                         + fleet_launches[route] + tier_launches[route]),
+                         + fleet_launches[route] + tier_launches[route]
+                         + analysis_launches[route]),
             "launches_by_phase": {"serving": launches,
                                   "request_surface":
                                       surface_launches[route],
                                   "fleet": fleet_launches[route],
-                                  "tiering": tier_launches[route]},
+                                  "tiering": tier_launches[route],
+                                  "analysis": analysis_launches[route]},
             "max_abs_err": rec["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

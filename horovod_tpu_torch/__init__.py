@@ -63,7 +63,12 @@ Ported so far:
   fusion threshold (``HOROVOD_AUTOTUNE``); BASELINE's elastic ResNet-50
   is ``python -m horovod_tpu_torch.examples.elastic_resnet``.
 
-Not exported yet (ROADMAP A9): ``analysis_reports``.
+* hvdlint's host-side analyzers (``analysis/``): the AST linter, the
+  lock-order graph (``--race``), the dead-mesh-axis pass (``--comm``)
+  and the ``HVD_SANITIZE=1`` lock witness, run as
+  ``python -m horovod_tpu_torch.analysis``; the serve engine's plan
+  verdict (``plan_go`` on healthz) and ``hvd.analysis_reports()``.
+
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
 
@@ -74,7 +79,7 @@ Entry points run on ``cuda`` unless the caller asks for
 from .version import __version__  # noqa: F401
 
 from .core import (  # noqa: F401
-    init, shutdown, is_initialized,
+    init, shutdown, is_initialized, analysis_reports,
     rank, size, local_rank, local_size, cross_rank, cross_size,
     num_slots, local_slots, is_homogeneous, device,
     mpi_threads_supported, mpi_enabled, mpi_built,

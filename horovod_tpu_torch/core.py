@@ -89,6 +89,11 @@ class _GlobalState:
         self.last_device: Optional[torch.device] = None
         # Bumped by every init and every shutdown.
         self.generation = 0
+        # Reports the analyzers published (analysis/: a failed serve
+        # pool budget or replica plan, the lock witness's findings);
+        # read through ``analysis_reports()``.  Survives shutdown, as in
+        # the JAX package, so post-run tooling can still read it.
+        self.analysis_reports: list = []
 
 
 _state = _GlobalState()
@@ -332,6 +337,14 @@ def _require_init() -> _GlobalState:
 
 def is_initialized() -> bool:
     return _state.initialized
+
+
+def analysis_reports() -> list:
+    """What the analyzers published, newest last: a serve engine's failed
+    pool budget (``MemReport``, HVD302) or replica plan
+    (``PlanVerdict``), and the lock witness's ``WitnessReport`` under
+    ``HVD_SANITIZE=1``.  Empty when nothing was published."""
+    return list(_state.analysis_reports)
 
 
 def rank() -> int:

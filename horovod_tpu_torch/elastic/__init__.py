@@ -275,17 +275,24 @@ class WorldWatch:
     def moved(self) -> bool:
         if self._moved or self._client is None:
             return self._moved
+        # The period is claimed under the lock, the GET runs outside it
+        # (a slow rendezvous must not stall every thread that asks), and
+        # the verdict is set under it again.
         with self._lock:
             now = time.monotonic()
             if now - self._last < self.period:
                 return self._moved
             self._last = now
-            try:
-                raw = self._client.get("rendezvous", "world")
-                world = json.loads(raw) if raw else {}
-                self._moved = int(world.get("version", 0)) > self.version
-            except Exception as e:
-                get_logger().debug("world watch read failed: %s", e)
+        try:
+            raw = self._client.get("rendezvous", "world")
+            world = json.loads(raw) if raw else {}
+            moved = int(world.get("version", 0)) > self.version
+        except Exception as e:
+            get_logger().debug("world watch read failed: %s", e)
+            return self._moved
+        if moved:
+            with self._lock:
+                self._moved = True
         return self._moved
 
     def check(self) -> Optional[str]:

@@ -240,7 +240,10 @@ def mismatch(device) -> dict:
                         torch.float32 if r == 0 else torch.float16)))):
         t0 = time.perf_counter()
         try:
-            hvd.allreduce(t, name=f"mismatch.{case}")
+            # The drill wants the verdict: the coordinator rejects the
+            # mismatched pair on every rank at once, so no rank is left
+            # blocked in it, and the matched call below proves it.
+            hvd.allreduce(t, name=f"mismatch.{case}")  # hvdlint: disable=HVD002
             verdict = None
         except CollectiveRejectedError as e:
             verdict = str(e)

@@ -8,8 +8,8 @@ The Horovod Timeline (timeline.py) is per-process and op-centric: it
 shows WHAT each rank was doing, but a serving request that crosses the
 HTTP front-end, the router, a replica's batcher, chunked prefill, the
 decode loop, KV-transport retries, tier-fault stalls (the ``tier-fault``
-span hvdtier emits when a host/fleet KV fetch loses its prefetch race,
-not ported yet), and possibly a failover resubmission leaves no single
+span the engine emits when a host/fleet KV fetch loses its prefetch
+race), and possibly a failover resubmission leaves no single
 artifact saying where ITS latency went.  This module adds the
 per-request plane:
 

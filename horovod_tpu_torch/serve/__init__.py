@@ -10,6 +10,15 @@ controller with its brownout ladder, and request tracing (``obs/``);
 the tiered KV hierarchy (host and fleet tiers, block migration, swap;
 ``--tier-kv``) and sequence-parallel prefill (``HVD_SERVE_SP``)."""
 
+# Lock-witness sanitizer (HVD_SANITIZE=1, analysis/witness.py): installed
+# BEFORE the submodule imports below, so every serve-plane lock — the
+# batcher's condition, the engine's slot table, metrics, the scheduler,
+# the block pool, the router, the tier worker, the controller — is built
+# through the instrumented factory.  One env read when off.
+from ..analysis import witness as _witness  # noqa: E402
+
+_witness.maybe_install_from_env()
+
 from .batcher import (DeadlineExceededError, DynamicBatcher,  # noqa: F401
                       QueueFullError, Request)
 from .blocks import (BlockManager, NoFreeBlocksError,  # noqa: F401

@@ -93,6 +93,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..analysis import memplan as _memplan
+from ..analysis import shardplan as _shardplan
 from ..faultline import runtime as _faultline
 from ..faultline.plan import FaultInjected
 from ..models.transformer import layer_norm
@@ -253,18 +255,7 @@ class TransformerAdapter:
 
     def weight_bytes(self) -> int:
         """Device bytes of the weights this adapter serves from."""
-        seen, total = set(), 0
-        stack = [self.params]
-        while stack:
-            node = stack.pop()
-            if isinstance(node, dict):
-                stack.extend(node.values())
-            elif isinstance(node, list):
-                stack.extend(node)
-            elif id(node) not in seen:
-                seen.add(id(node))
-                total += node.numel() * node.element_size()
-        return total
+        return _memplan.params_bytes(self.params)
 
     # -- cache --------------------------------------------------------------
 
@@ -795,8 +786,7 @@ class MLPAdapter:
         self.device = next(mlp.parameters()).device
 
     def weight_bytes(self) -> int:
-        return sum(p.numel() * p.element_size()
-                   for p in self.mlp.parameters())
+        return _memplan.params_bytes(self.mlp)
 
     @torch.no_grad()
     def _logits_of(self, tokens) -> torch.Tensor:
@@ -1112,13 +1102,11 @@ class InferenceEngine:
             self._cache = adapter.init_cache(self.max_batch)
             self.pool_bytes = 0
             self.kv_headroom_bytes = None
+            self.plan_verdict = None
+            self.sp_comm_bytes = 0
             self.tiering = None
             self._tier_client = None
             self.seqpar = None
-        # The ring's worst-case wire bytes of one SP prefill (the K/V
-        # rotation the emulated ranks stand for); 0 without an SP world.
-        self.sp_comm_bytes = (self.seqpar.ring_bytes_per_prefill()
-                              if self.seqpar is not None else 0)
         # The decode-algorithm layer: seeded sampling and n>1 forks need
         # the logits / sampled adapter programs and the paged engine
         # (fork tables are CoW block tables); speculative decoding also
@@ -1189,34 +1177,42 @@ class InferenceEngine:
         _obs.maybe_install_from_env()
 
     def _verify_pool_budget(self, num_blocks: int) -> None:
-        """The pool's and the resident weights' device bytes against the
-        memory budget, at construction and after each ``add_model`` /
-        ``swap_model`` (JAX ``_verify_pool_budget``,
-        ``horovod_tpu/serve/engine.py:1612``).  The budget is
-        ``HVD_MEM_BUDGET_BYTES``, else the card's memory (none on the
-        CPU); ``kv_headroom_bytes`` is what remains, and an overshoot is
-        logged.  Weight bytes sum over the distinct resident adapters (a
-        delta variant shares its untouched tensors with the base, so the
-        sum is an upper bound)."""
+        """hvdmem's HVD302 and hvdshard's replica plan at construction and
+        after each ``add_model`` / ``swap_model`` (JAX
+        ``_verify_pool_budget``): the pool's bytes
+        (``paged_block_bytes() * num_blocks``; none for the cache-free
+        MLP) plus the resident weights' against
+        ``HVD_MEM_BUDGET_BYTES`` / the adapter's card (no budget on the
+        CPU), before the first request can run the card out of memory.
+        ``kv_headroom_bytes`` is what remains.  The plan verdict combines
+        that with the per-step comm budget (HVD401) on the SP ring's
+        per-prefill K/V rotation (``sp_comm_bytes``; a data-parallel
+        replica's steps run no collective); ``plan_go`` / ``plan_findings``
+        ride ``kv_stats``.  A failed report or verdict is logged and
+        published to ``hvd.analysis_reports()``.  Weight bytes sum over
+        the distinct resident adapters (a delta variant shares its
+        untouched tensors with the base, so the sum is an upper
+        bound)."""
         self.pool_bytes = (self.blocks.bytes_per_block or 0) * num_blocks
         distinct = {id(ad): ad for ad in self._adapters.values()}
         self.weight_bytes = sum(ad.weight_bytes()
                                 for ad in distinct.values())
-        budget = os.environ.get("HVD_MEM_BUDGET_BYTES")
-        device = getattr(self.adapter, "device", None)
-        if budget is not None:
-            budget = int(budget)
-        elif device is not None and torch.device(device).type == "cuda":
-            budget = torch.cuda.get_device_properties(
-                torch.device(device)).total_memory
-        self.kv_headroom_bytes = (
-            None if budget is None
-            else int(budget) - self.pool_bytes - self.weight_bytes)
-        if self.kv_headroom_bytes is not None and self.kv_headroom_bytes < 0:
-            get_logger().warning(
-                "%s: KV pool %d B + weights %d B exceed the memory budget "
-                "%d B", self.replica_id, self.pool_bytes, self.weight_bytes,
-                budget)
+        device = getattr(self.adapter, "device", None) or "cpu"
+        label = f"serve:{self.replica_id}"
+        report = _memplan.check_pool_budget(
+            f"{label}:kv-pool", self.pool_bytes, self.weight_bytes,
+            device=device)
+        self.kv_headroom_bytes = report.headroom_bytes
+        if not report.ok():
+            _memplan.publish_report(report)
+        self.sp_comm_bytes = (self.seqpar.ring_bytes_per_prefill()
+                              if self.seqpar is not None else 0)
+        self.plan_verdict = _shardplan.check_replica_plan(
+            f"{label}:plan", pool_bytes=self.pool_bytes,
+            weight_bytes=self.weight_bytes,
+            step_comm_bytes=self.sp_comm_bytes, device=device)
+        if not self.plan_verdict.go:
+            _shardplan.publish_verdict(self.plan_verdict)
 
     # -- multi-model residency (serve/registry.py) ---------------------------
 
@@ -1395,6 +1391,11 @@ class InferenceEngine:
         stats["weight_bytes"] = self.weight_bytes
         if self.kv_headroom_bytes is not None:
             stats["kv_headroom_bytes"] = self.kv_headroom_bytes
+        # The replica plan's static go/no-go from construction (pool vs
+        # memory budget, HVD302; per-step comm vs its budget, HVD401).
+        if self.plan_verdict is not None:
+            stats["plan_go"] = self.plan_verdict.go
+            stats["plan_findings"] = len(self.plan_verdict.findings)
         if self.tiering is not None:
             # Loop-side tier counters beside the manager's: stall
             # episodes and the in-flight high-water mark.

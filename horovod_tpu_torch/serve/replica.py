@@ -90,6 +90,7 @@ class Replica:
                                 ("total", "used", "free", "retained",
                                  "bytes_per_block", "pool_bytes",
                                  "weight_bytes", "kv_headroom_bytes",
+                                 "plan_go", "plan_findings",
                                  "seq_forks", "forked_requests", "spec_k",
                                  "sp")
                                 if k in kv}

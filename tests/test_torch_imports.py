@@ -84,7 +84,11 @@ def test_importing_every_port_module_loads_no_jax():
                  "serve.registry", "obs", "obs.tracing", "obs.merge",
                  "obs.cli", "serve.router", "serve.router_server",
                  "serve.controller", "elastic.preemption",
-                 "serve.tiering", "serve.seqpar"):
+                 "serve.tiering", "serve.seqpar", "analysis",
+                 "analysis.findings", "analysis.rules", "analysis.linter",
+                 "analysis.lockgraph", "analysis.witness",
+                 "analysis.memplan", "analysis.shardplan", "analysis.cli",
+                 "analysis.__main__"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -221,6 +225,37 @@ COPY_EDITS = {
         # ``device_prefetch`` copies to the rank's device.
         changed={"ShardedDataLoader.__init__", "ShardedDataLoader._iterate"},
         added={"import torch", "_tree_to"}),
+    # hvdlint's host-side half.  The catalogue keeps the rules the port
+    # fires, worded for torch.
+    "analysis/findings.py": dict(
+        removed={"from typing import Dict, Optional"},
+        changed={"RULES"}, added={"from typing import Dict"}),
+    # The traced-code and serving rules read torch's spellings; the
+    # collective rules also torch.distributed's, HVD006 the port's axis
+    # keywords.
+    "analysis/rules.py": dict(
+        removed={"PRNG_KEY_FNS", "SYNC_DOTTED", "_HOST_NP_ALIASES",
+                 "_chain_attrs"},
+        changed={"HOST_EFFECT_DOTTED", "HOST_EFFECT_DOTTED_ROOTS",
+                 "MUTATOR_METHODS", "SYNC_METHODS", "TRACER_CALLS",
+                 "_Module._decorator_traces", "_Module._mark_traced_roots",
+                 "_axis_use", "_check_mutation", "_host_effect",
+                 "_is_collective_call", "_rule_lock_held_sync",
+                 "_rule_serve_prng", "_rule_traced_body_calls",
+                 "_sync_call_kind", "_unseeded_random"},
+        added={"AXIS_KEYWORDS", "DIST_BASES", "DIST_COLLECTIVES",
+               "TORCH_RANDOM_FNS", "_GLOBAL_RNG_BASES", "_is_tracer"}),
+    # The walk prunes the kernel build's directory.
+    "analysis/linter.py": {"changed": {"_SKIP_DIRS"}},
+    # HVD201's compiled-step arm names torch.compile; HVD202's message
+    # names the shape by its component.
+    "analysis/lockgraph.py": {"changed": {"_Analyzer._check_blocking",
+                                          "_Analyzer._check_callback"}},
+    "analysis/witness.py": {},
+    "analysis/__main__.py": {},
+    # No --mem pass (torch has no donate_argnums to read).
+    "analysis/cli.py": dict(removed={"_run_mem", "run_commandline"},
+                            changed={"PASSES", "build_parser"}),
 }
 
 
@@ -276,6 +311,27 @@ def test_copies_differ_from_their_source_only_where_stated(name):
     with open(os.path.join(PORT, name)) as f:
         doc = ast.get_docstring(ast.parse(f.read())) or ""
     assert f"horovod_tpu/{name}" in doc
+
+
+def test_analysis_package_is_under_the_ban():
+    """The analyzers are the port's own copies: every file of
+    ``analysis/`` is among the files the AST scan above holds to the
+    ban, and none of them imports torch at module level (the CLI runs
+    on a bare interpreter)."""
+    files = [f for f in _port_files()
+             if os.sep + "analysis" + os.sep in f]
+    assert sorted(os.path.basename(f) for f in files) == [
+        "__init__.py", "__main__.py", "cli.py", "findings.py",
+        "linter.py", "lockgraph.py", "memplan.py", "rules.py",
+        "shardplan.py", "witness.py"]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        top = [a.name for node in tree.body if isinstance(node, ast.Import)
+               for a in node.names]
+        top += [node.module for node in tree.body
+                if isinstance(node, ast.ImportFrom) and node.level == 0]
+        assert not [m for m in top if m and (m == "torch" or _forbidden(m))]
 
 
 def test_native_core_builds_from_the_port_alone():
