@@ -235,7 +235,23 @@ Phases, each of which exits non-zero on failure:
    over the port must exit 0; one ``{"analysis": ...}`` line has the
    findings, launches, the stress's requests and tokens/s plain and
    sanitized, and the verdicts;
-17. print the card's name and power limit, one JSON line of phase 7's
+17. the trace-time analyzers under ``HVD_ANALYZE=1`` (set for the phase
+   only): (a) gpt2-small f32 at full width and depth (random weights
+   from the seed; BT 16, chunks of 64, 8 slots) answers greedy prompts
+   of 5, 64, 65 and 900 tokens, 16 new tokens each, under the analysis
+   and on a fresh engine without it: the same tokens, every ``serve:``
+   report with an empty census and no finding but HVD303, one report
+   per (kind, key) and at most 12, ``decode_paged``'s peak live bytes
+   within [0.5, 2] x (weights + pool), the same paged launches (the
+   traces launched nothing), each trace's ms printed; (b) GPT-2 small
+   (bf16 compute, causal flash) in an NCCL world of one: two
+   ``DistributedOptimizer`` steps (one report; its allreduce count is
+   the fusion planner's bucket count, its bytes the f32 gradients'),
+   then a functional step through ``shard_step`` analyzed and not (one
+   report without HVD100-HVD102, the same flash launches and loss), and
+   the step's walks one byte over a memory and a comm budget (HVD302,
+   HVD401);
+18. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
@@ -243,14 +259,14 @@ Phases, each of which exits non-zero on failure:
    and after), one of phase 13's (``{"serve_surface": ...}``), one of
    phase 14's (``{"fleet": ...}``), one of phase 15's
    (``{"tiering": ...}``), one of phase 16's (``{"analysis": ...}``), one
-   JSON
+   of phase 17's (``{"trace_analysis": ...}``), one JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
-   phase 8's and one, ``*_gpt2_small``, for phase 9's, ``*_ring_hop``
-   and ``*_ulysses`` for phase 10's and ``*_moe`` for phase 11's, each
-   with that path's launches, counted from 0, and the error and times at
-   its shape; the paged kernels' launches sum phases 4, 13, 14, 15 and
-   16),
+   phase 8's and one, ``*_gpt2_small``, for phases 9 and 17's,
+   ``*_ring_hop`` and ``*_ulysses`` for phase 10's and ``*_moe`` for
+   phase 11's, each with that path's launches, counted from 0, and the
+   error and times at its shape; the paged kernels' launches sum phases
+   4, 13, 14, 15, 16 and 17),
    and as
    the last line ``{"ok": true, "device": ...}``.
 
@@ -5129,6 +5145,311 @@ def analysis_phase(torch, device, rehearsal, seed):
     return launches, out
 
 
+# -- phase 17: the trace-time analyzers (HVD_ANALYZE=1) ----------------------
+
+def device_bytes(torch, device, reset=False, peak=False):
+    """Bytes allocated on the card (0 on the CPU): now, after resetting
+    the peak when ``reset``; the peak since the reset when ``peak``."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    if peak:
+        return int(torch.cuda.max_memory_allocated(device))
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return int(torch.cuda.memory_allocated(device))
+
+
+def trace_serving(torch, device, rehearsal, seed, failures):
+    """(a) gpt2-small f32 (random weights from ``seed``; BT 16, chunks of
+    64, 8 slots) answers greedy prompts of 5, 64, 65 and 900 tokens, 16
+    new tokens each, one at a time, on an engine under ``HVD_ANALYZE=1``
+    and on a fresh one without it: the same tokens; every ``serve:``
+    report censuses no collective and has no finding but HVD303; one
+    report per (kind, key), at most 12; ``decode_paged``'s peak within
+    [0.5, 2] x (weights + pool); the same paged launches both times (the
+    traces launched nothing).  Returns the analyzed run's paged launches
+    and the numbers."""
+    import os
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import hook, memplan
+    from horovod_tpu_torch.serve import (InferenceEngine, ServeMetrics,
+                                         TransformerAdapter)
+    from horovod_tpu_torch.serve import paged_attention as pa
+    cfg, model, _, max_new = serving_model(torch, device, rehearsal, seed)
+    lens, chunk = ((3, 8, 9, 40), 8) if rehearsal else ((5, 64, 65, 900), 64)
+    rng = np.random.RandomState(seed + 17)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).tolist() for n in lens]
+
+    def run(analyze):
+        os.environ["HVD_ANALYZE"] = "1" if analyze else "0"
+        hook.reset()
+        n0 = len(hvd.analysis_reports())
+        reset_launches(pa)
+        base = device_bytes(torch, device, reset=True)
+        ad = TransformerAdapter(cfg, model, block_tokens=16, device=device)
+        eng = InferenceEngine(ad, max_batch=8, prefill_chunk=chunk,
+                              replica_id=f"trace-{analyze}",
+                              metrics=ServeMetrics())
+        eng.start()
+        try:
+            t0 = time.monotonic()
+            tokens = [eng.generate(p, max_new_tokens=max_new)
+                      for p in prompts]
+            wall = time.monotonic() - t0
+        finally:
+            eng.stop()
+        launches = {"decode": pa.LAUNCHES["paged_attention_decode"],
+                    "prefill": pa.LAUNCHES["paged_attention_prefill"]}
+        reports = [r for r in hvd.analysis_reports()[n0:]
+                   if r.label.startswith("serve:")]
+        # The run's device peak over what was allocated before it, plus
+        # the weights it holds (allocated before, with the model).
+        peak = device_bytes(torch, device, peak=True) - base + \
+            memplan.params_bytes(ad.params)
+        return ad, eng, tokens, launches, reports, wall, peak
+
+    ad, eng, tokens, launches, reports, wall, _ = run(True)
+    _, _, plain_tokens, plain_launches, plain_reports, plain_wall, \
+        real_peak = run(False)
+    labels = [r.label for r in reports]
+    for r in reports:
+        log(f"  {r.label}: traced in {r.trace_ms:.1f} ms, census "
+            f"{r.census}, peak {r.memory and r.memory['peak_live_bytes']} "
+            f"B, findings {[f.rule for f in r.findings]}")
+    if tokens != plain_tokens:
+        failures.append("(a) the analyzed engine's tokens differ")
+    if plain_reports:
+        failures.append("(a) the engine without HVD_ANALYZE reported")
+    if not reports or len(set(labels)) != len(labels) or len(labels) > 12:
+        failures.append(f"(a) reports {labels}: want one per (kind, key), "
+                        f"at most 12")
+    for r in reports:
+        if r.census:
+            failures.append(f"(a) {r.label} censuses {r.census}")
+        bad = [f.rule for f in r.findings if f.rule != "HVD303"]
+        if bad:
+            failures.append(f"(a) {r.label} findings {bad}")
+    weights = memplan.params_bytes(ad.params)
+    pool = memplan.params_bytes(eng._cache)
+    decode = [r for r in reports if r.label.startswith("serve:decode_paged")]
+    peak = decode[0].memory["peak_live_bytes"] if decode else 0
+    if not decode or not 0.5 <= peak / (weights + pool) <= 2.0:
+        failures.append(f"(a) decode_paged peak {peak} B against weights "
+                        f"{weights} + pool {pool} B")
+    if launches != plain_launches:
+        failures.append(f"(a) paged launches {launches} with the analysis, "
+                        f"{plain_launches} without")
+    log(f"  (a) {len(reports)} reports, weights {weights} B + pool {pool} "
+        f"B, decode_paged peak {peak} B, the run's device peak "
+        f"{real_peak} B; launches {launches} (without the analysis "
+        f"{plain_launches}); wall {wall:.2f} s (without "
+        f"{plain_wall:.2f} s)")
+    return launches, {
+        "reports": {r.label: {"trace_ms": round(r.trace_ms, 3),
+                              "census": r.census,
+                              "peak_live_bytes":
+                                  r.memory and r.memory["peak_live_bytes"],
+                              "findings": [f.rule for f in r.findings]}
+                    for r in reports},
+        "weights_bytes": weights, "pool_bytes": pool,
+        "decode_peak_over_actual": round(peak / (weights + pool), 4),
+        "run_device_peak_bytes": real_peak,
+        "launches": launches, "launches_without": plain_launches,
+        "wall_s": round(wall, 3), "wall_without_s": round(plain_wall, 3),
+        "tokens_equal": tokens == plain_tokens}
+
+
+def trace_training(torch, device, rehearsal, failures):
+    """(b) GPT-2 small (bf16 compute, f32 parameters, causal flash) in an
+    NCCL world of one under ``HVD_ANALYZE=1``: two DistributedOptimizer
+    steps (one ``DistributedOptimizer:`` report whose allreduce count is
+    the fusion planner's bucket count and whose bytes are the f32
+    gradients'); then a functional step (forward, ``autograd.grad``,
+    ``grouped_allreduce``) through ``shard_step``, once analyzed and once
+    not: one ``shard_step:`` report without HVD100-HVD102, the same flash
+    launches and the same loss.  Forced findings: the step's walks under
+    a memory budget one byte below their peak (HVD302) and a comm budget
+    one byte below their wire bytes (HVD401).  Returns the flash
+    launches of the phase and the numbers."""
+    import os
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import hook
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    from horovod_tpu_torch.ops.fusion import plan_fusion
+    from horovod_tpu_torch.parallel import flash as fl
+    kw = dict(attention_impl="flash", dtype=torch.bfloat16)
+    B, S = 4, 1024
+    if rehearsal:
+        kw.update(num_layers=2, num_heads=2, d_model=32, d_ff=64,
+                  vocab_size=97, max_len=64, dtype=torch.float32)
+        B, S = 2, 64
+    os.environ["HVD_ANALYZE"] = "1"
+    hvd.init(device="cpu" if rehearsal else None)   # resets the hook
+    out = {}
+    try:
+        model = create_gpt2("small", device=device, seed=9, **kw)
+        params = list(model.parameters())
+        tokens = torch.as_tensor(np.random.RandomState(4).randint(
+            0, model.cfg.vocab_size, (B, S)), device=device)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(params, lr=1e-4))
+        launches0 = dict(fl.LAUNCHES)
+        for _ in range(2):
+            opt.zero_grad()
+            lm_loss(model(tokens)[:, :-1], tokens[:, 1:]).backward()
+            opt.step()
+        reps = [r for r in hvd.analysis_reports()
+                if r.label.startswith("DistributedOptimizer:")]
+        st = hvd.core._state
+        threshold = st.param_manager.fusion_threshold_bytes \
+            if st.param_manager is not None \
+            else st.config.fusion_threshold_bytes
+        grad_bytes = sum(p.numel() * 4 for p in params)
+        buckets = len(plan_fusion(
+            [(str(i), "torch.float32", p.numel() * 4,
+              int(hvd.ReduceOp.AVERAGE), 0) for i, p in enumerate(params)],
+            threshold))
+        census = reps[0].census.get("allreduce", {}) if reps else {}
+        if len(reps) != 1 or census != {"count": buckets,
+                                         "bytes": grad_bytes}:
+            failures.append(f"(b) optimizer reports {[r.label for r in reps]}"
+                            f" census {census}: want one, {buckets} "
+                            f"allreduces of {grad_bytes} B")
+        if reps:
+            log(f"  (b) {reps[0].label}: traced in {reps[0].trace_ms:.1f} ms,"
+                f" census {reps[0].census} ({buckets} fusion buckets, "
+                f"{sum(p.numel() for p in params)} f32 parameters), peak "
+                f"{reps[0].memory['peak_live_bytes']} B, findings "
+                f"{[f.rule for f in reps[0].findings]}")
+            out["optimizer"] = {
+                "label": reps[0].label, "census": reps[0].census,
+                "buckets": buckets, "trace_ms": round(reps[0].trace_ms, 3),
+                "peak_live_bytes": reps[0].memory["peak_live_bytes"],
+                "findings": [f.rule for f in reps[0].findings]}
+
+        def train_step(p, tok):
+            logits = torch.func.functional_call(model, p, (tok,))
+            loss = lm_loss(logits[:, :-1], tok[:, 1:])
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return loss.detach(), hvd.grouped_allreduce(list(grads),
+                                                        op=hvd.Average)
+
+        named = dict(model.named_parameters())
+
+        def run(analyze):
+            os.environ["HVD_ANALYZE"] = "1" if analyze else "0"
+            n0 = len(hvd.analysis_reports())
+            before = dict(fl.LAUNCHES)
+            base = device_bytes(torch, device, reset=True)
+            loss, _ = hvd.shard_step(train_step)(named, tokens)
+            peak = device_bytes(torch, device, peak=True) - base
+            launches = {k: fl.LAUNCHES[k] - before[k] for k in before}
+            return float(loss), launches, hvd.analysis_reports()[n0:], peak
+
+        loss, launches, reps, _ = run(True)
+        plain_loss, plain_launches, plain_reps, step_peak = run(False)
+        step_reps = [r for r in reps if r.label.startswith("shard_step:")]
+        if len(step_reps) != 1 or plain_reps:
+            failures.append(f"(b) shard_step reports "
+                            f"{[r.label for r in reps]}, without the "
+                            f"analysis {[r.label for r in plain_reps]}")
+        if step_reps:
+            r = step_reps[0]
+            if [f for f in r.findings if f.rule in ("HVD100", "HVD101",
+                                                    "HVD102")]:
+                failures.append(f"(b) {r.label}: {[f.format() for f in r.findings]}")
+            log(f"  (b) {r.label}: traced in {r.trace_ms:.1f} ms, census "
+                f"{r.census}, peak {r.memory and r.memory['peak_live_bytes']}"
+                f" B, wire {r.comm and r.comm['total_wire_bytes']} B, "
+                f"findings {[f.rule for f in r.findings]}")
+            # The real step's device peak over what it found allocated,
+            # plus the inputs it holds (the walk counts those as live).
+            real = step_peak + (r.memory or {}).get("input_bytes", 0)
+            log(f"  (b) the real step's device peak + inputs {real} B")
+            out["shard_step"] = {
+                "label": r.label, "census": r.census,
+                "trace_ms": round(r.trace_ms, 3),
+                "peak_live_bytes": r.memory and r.memory["peak_live_bytes"],
+                "real_peak_bytes": real,
+                "by_primitive_top": sorted(
+                    ((k, v["bytes"]) for k, v in
+                     (r.memory or {}).get("by_primitive", {}).items()),
+                    key=lambda kv: -kv[1])[:5],
+                "wire_bytes": r.comm and r.comm["total_wire_bytes"],
+                "findings": [f.rule for f in r.findings]}
+        if launches != plain_launches or loss != plain_loss:
+            failures.append(f"(b) the analyzed step: loss {loss}, flash "
+                            f"launches {launches}; without: {plain_loss}, "
+                            f"{plain_launches}")
+        log(f"  (b) shard_step loss {loss} (without the analysis "
+            f"{plain_loss}); flash launches {launches}")
+        # Forced findings: the same step's walks under budgets one byte
+        # below what they measured.
+        if step_reps and step_reps[0].memory and step_reps[0].comm:
+            peak = step_reps[0].memory["peak_live_bytes"]
+            wire = step_reps[0].comm["total_wire_bytes"]
+            os.environ["HVD_ANALYZE"] = "1"
+            os.environ["HVD_MEM_BUDGET_BYTES"] = str(peak - 1)
+            os.environ["HVD_COMM_BUDGET_BYTES"] = str(wire - 1)
+            try:
+                forced = hook.analyze_traceable(
+                    train_step, (named, tokens), label="forced",
+                    axis_env=[(hvd.mesh_axis(), 1)], once=False)
+            finally:
+                os.environ.pop("HVD_MEM_BUDGET_BYTES")
+                os.environ.pop("HVD_COMM_BUDGET_BYTES")
+            rules = sorted({f.rule for f in forced.findings}) \
+                if forced else []
+            if not {"HVD302", "HVD401"} <= set(rules):
+                failures.append(f"(b) forced budgets gave {rules}")
+            out["forced"] = {"mem_budget_bytes": peak - 1,
+                             "comm_budget_bytes": wire - 1,
+                             "rules": rules,
+                             "trace_ms": round(forced.trace_ms, 3)
+                             if forced else None}
+            log(f"  (b) budgets one byte under the walks: {rules}")
+        out.update(loss=loss, loss_without=plain_loss,
+                   flash_launches=launches,
+                   flash_launches_without=plain_launches)
+        launches = {k: fl.LAUNCHES[k] - launches0[k] for k in launches0}
+    finally:
+        os.environ["HVD_ANALYZE"] = "0"
+        hvd.shutdown()
+    return launches, out
+
+
+def trace_phase(torch, device, rehearsal, seed):
+    """Phase 17: (a) ``trace_serving``, (b) ``trace_training``, with
+    ``HVD_ANALYZE`` set for the phase only (the environment is restored
+    after it).  Returns the paged launches of (a), the flash launches of
+    (b), and the ``{"trace_analysis": ...}`` numbers."""
+    import os
+    from horovod_tpu_torch.analysis import hook
+    saved = os.environ.get("HVD_ANALYZE")
+    failures = []
+    out = {"card": None if rehearsal else card_tag()}
+    try:
+        t0 = time.monotonic()
+        paged, out["serving"] = trace_serving(torch, device, rehearsal,
+                                              seed, failures)
+        out["serving"]["part_seconds"] = round(time.monotonic() - t0, 3)
+        t0 = time.monotonic()
+        flash, out["training"] = trace_training(torch, device, rehearsal,
+                                                failures)
+        out["training"]["part_seconds"] = round(time.monotonic() - t0, 3)
+    finally:
+        if saved is None:
+            os.environ.pop("HVD_ANALYZE", None)
+        else:
+            os.environ["HVD_ANALYZE"] = saved
+        hook.reset()
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the trace-time analyzers phase failed")
+    return paged, flash, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -5246,6 +5567,13 @@ def main(argv=None) -> int:
                                                  args.seed)
     log(f"  phase 16 took {time.monotonic() - t16:.1f} s")
 
+    log("phase 17: the trace-time analyzers under HVD_ANALYZE=1 (serve "
+        "programs, DistributedOptimizer, shard_step on GPT-2 small)")
+    t17 = time.monotonic()
+    trace_launches, trace_flash, trace_analysis = trace_phase(
+        torch, device, rehearsal, args.seed)
+    log(f"  phase 17 took {time.monotonic() - t17:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -5260,6 +5588,7 @@ def main(argv=None) -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"tiering": tiering}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"trace_analysis": trace_analysis}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -5278,16 +5607,20 @@ def main(argv=None) -> int:
             # the router, its controller and preemption), phase 15's
             # (swapped-in, migrated and handed-off blocks) and phase
             # 16's (the two-replica fleet, twice plain and twice under
-            # the lock witness, in child processes), each counted from 0.
+            # the lock witness, in child processes) and phase 17's (the
+            # engine under HVD_ANALYZE=1), each counted from 0.
             "launches": (launches + surface_launches[route]
                          + fleet_launches[route] + tier_launches[route]
-                         + analysis_launches[route]),
+                         + analysis_launches[route]
+                         + trace_launches[route]),
             "launches_by_phase": {"serving": launches,
                                   "request_surface":
                                       surface_launches[route],
                                   "fleet": fleet_launches[route],
                                   "tiering": tier_launches[route],
-                                  "analysis": analysis_launches[route]},
+                                  "analysis": analysis_launches[route],
+                                  "trace_analysis":
+                                      trace_launches[route]},
             "max_abs_err": rec["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -5348,22 +5681,28 @@ def main(argv=None) -> int:
                      "launches: the f32 step of phase 5"})
     for name, where in replaces.items():
         r = frec["gpt2-small"][name]
-        # The same wgmma kernels on phase 9's GPT-2-small path, apart
-        # from phase 5's counts: its launches, the error and times at
-        # its shape.
+        # The same wgmma kernels on phase 9's GPT-2-small path and phase
+        # 17 (b)'s (two optimizer steps, two shard_step steps), apart
+        # from phase 5's counts: their launches, the error and times at
+        # the shape.
         kernels.append({
             "name": name + "_gpt2_small", "route": "cuda",
             "source": "horovod_tpu_torch/csrc/" + (
                 "flash_attention_fwd_sm90.cu" if name == "flash_fwd"
                 else "flash_attention_bwd_sm90.cu"),
             "replaces": where,
-            "launches": eager_launches[name + "_wgmma"],
+            "launches": (eager_launches[name + "_wgmma"]
+                         + trace_flash[name + "_wgmma"]),
+            "launches_by_phase": {
+                "eager": eager_launches[name + "_wgmma"],
+                "trace_analysis": trace_flash[name + "_wgmma"]},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": "GPT-2 small [4, 1024, 12, 64] bf16, causal, cold L2; "
-                     "launches: phase 9's 3 steps under the timeline"})
+                     "launches: phase 9's 3 steps under the timeline and "
+                     "phase 17 (b)'s 4 steps"})
     from horovod_tpu_torch.parallel import flash as fl
     recs = seqpar["records"]
 

@@ -69,6 +69,15 @@ Ported so far:
   ``python -m horovod_tpu_torch.analysis``; the serve engine's plan
   verdict (``plan_go`` on healthz) and ``hvd.analysis_reports()``.
 
+* the trace-time analyzers (``analysis/graph_check.py``, the walks of
+  ``analysis/memplan.py`` and ``analysis/shardplan.py``,
+  ``analysis/hook.py``): under ``HVD_ANALYZE=1`` the first call of a
+  ``shard_step``, of a ``DistributedOptimizer``'s reduction and of each
+  serve program is traced by ``make_fx`` on fake tensors (no launch, no
+  peer contacted) and checked — the collective census, HVD100-HVD102,
+  peak live bytes, wire bytes — with the reports in
+  ``hvd.analysis_reports()``.
+
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
 

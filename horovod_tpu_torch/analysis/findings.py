@@ -3,12 +3,12 @@
 Copied from ``horovod_tpu/analysis/findings.py``.  The catalogue keeps
 the rules the port can fire: the AST rules HVD000-HVD011 (the traced-code
 and serving rules reworded for ``torch.compile``, ``.item()`` /
-``.cpu()`` syncs and ``torch.Generator`` seeds), the lock-order rules
-HVD200-HVD203, the witness rules HVD210 / HVD211, the serve pool's
-HVD302, the replica plan's HVD401 and the dead mesh axis HVD404.  The
-trace-time rules (HVD1xx, HVD300 / HVD303 / HVD304, HVD402 / HVD403)
-need a torch graph source and are not here yet; HVD301 and HVD400 have
-no torch construct (ROADMAP.md, "Left out").
+``.cpu()`` syncs and ``torch.Generator`` seeds), the trace-time rules
+HVD100-HVD102 over a ``make_fx`` graph, the lock-order rules
+HVD200-HVD203, the witness rules HVD210 / HVD211, the memory rules
+HVD300 (read as "not updated in place") and HVD302-HVD304, and the
+communication rules HVD401-HVD404 (HVD403 without its mixed-fabric arm).
+HVD301 and HVD400 have no torch construct (ROADMAP.md, "Left out").
 
 The reference catches the classic SPMD failure — ranks submitting
 different collective sequences — at RUNTIME, in the coordinator's
@@ -178,24 +178,62 @@ RULES: Dict[str, Rule] = {r.id: r for r in [
          "other lock is held until a wakeup that may never come",
          "wait with a bounded timeout and re-check, or release the "
          "second lock before waiting"),
-    # -- hvdmem budget rule --------------------------------------------------
+    # -- hvdmem liveness / in-place / budget rules ---------------------------
+    Rule("HVD300", WARNING,
+         "not-updated-in-place: a step input of at least 1 MiB that the "
+         "graph never writes sits next to a freshly allocated output of "
+         "its shape and dtype — the step holds both the old and the new "
+         "tensor live, doubling that value's footprint (updating the KV "
+         "pool in place halves decode memory)",
+         "write the result into the input (an in-place op, index_put_, "
+         "copy_ or out=) instead of returning a new tensor"),
     Rule("HVD302", ERROR,
-         "pool-exceeds-budget: the serve pool's bytes_per_block * "
-         "num_blocks plus the resident weight bytes exceed "
-         "HVD_MEM_BUDGET_BYTES / the card's memory — the replica runs out "
-         "of device memory under load, discovered only after it took "
-         "traffic",
+         "peak-exceeds-budget: the estimated peak live footprint of a "
+         "step (or the serve pool's bytes_per_block * num_blocks plus "
+         "the resident weight bytes) exceeds HVD_MEM_BUDGET_BYTES / the "
+         "card's memory — the step runs out of device memory, discovered "
+         "only when it runs",
          "shrink the pool (HVD_SERVE_NUM_BLOCKS), quantize KV blocks "
-         "(HVD_SERVE_KV_DTYPE=int8), or raise the budget if it "
-         "undershoots the card's real memory"),
+         "(HVD_SERVE_KV_DTYPE=int8), update inputs in place, or raise "
+         "the budget if it undershoots the card's real memory"),
+    Rule("HVD303", WARNING,
+         "silent-upcast blowup: bf16/f16 values flow through casts that "
+         "promote them to f32, widening the live set 2x — the "
+         "f32-serving-island footprint made visible (intentional f32 "
+         "islands under HVD_SERVE_DTYPE/documented knobs should be "
+         "small; a whole param/activation set widening is a leak)",
+         "keep the wide island minimal (layernorm-style), or store/"
+         "compute in the narrow dtype and cast per-tile inside the "
+         "kernel"),
+    Rule("HVD304", WARNING,
+         "fusion-buffer overshoot: a fused flat-buffer bucket exceeds "
+         "the tensor-fusion threshold knob (HOROVOD_FUSION_THRESHOLD) — "
+         "the bucket transiently costs its full size twice (copy-in + "
+         "collective result), past what the knob budgeted",
+         "lower the bucket size or raise the threshold knowingly; "
+         "autotune (HOROVOD_AUTOTUNE=1) finds the sweet spot"),
     # -- hvdshard communication-plan rules -----------------------------------
     Rule("HVD401", ERROR,
-         "comm-budget overshoot: the replica plan's per-step wire bytes "
-         "(the sequence-parallel ring's K/V rotation) exceed "
-         "HVD_COMM_BUDGET_BYTES; the step is communication-bound before "
-         "it ever runs",
+         "comm-budget overshoot: a step's estimated wire bytes (payload "
+         "x group size, summed over its collectives) or the replica "
+         "plan's per-step bytes (the sequence-parallel ring's K/V "
+         "rotation) exceed HVD_COMM_BUDGET_BYTES; the step is "
+         "communication-bound before it ever runs",
          "keep traffic inside the host (NVLink axes over cross-host "
          "ones), fuse/batch collectives, or raise the budget knowingly"),
+    Rule("HVD402", WARNING,
+         "replicated-large-operand: a multi-MB shard_step argument under "
+         "P() rides next to peers sharded over a mesh axis that divides "
+         "its leading dim — every rank holds a full copy a known spec "
+         "would split (the comm analogue of HVD300)",
+         "shard the argument over the peer axis (P(axis) on dim 0) and "
+         "gather the slices where they are needed"),
+    Rule("HVD403", ERROR,
+         "collective over an axis the mesh does not declare — it reduces "
+         "over a process set that does not exist in this deployment "
+         "(HVD102's negotiation mismatch, across meshes)",
+         "declare the axis on the mesh, or fix the process set / "
+         "axis_name the collective is given"),
     Rule("HVD404", WARNING,
          "declared-but-never-communicated mesh axis: an axis of size "
          "> 1 that no collective, no `reduce_axes=` and no sharding spec "
@@ -203,6 +241,28 @@ RULES: Dict[str, Rule] = {r.id: r for r in [
          "and the program replicates the same work on all of them",
          "drop the axis from the mesh, or actually shard/reduce over "
          "it (a P(...) spec, axis_name=, reduce_axes=, mesh.group(...))"),
+    # -- trace-level (make_fx graph) rules ------------------------------------
+    Rule("HVD100", ERROR,
+         "the step function failed to trace — the graph checker reports "
+         "the exception as a finding instead of crashing the caller",
+         "reproduce with make_fx(step, tracing_mode=\"fake\")(*args) and "
+         "fix the trace error (a host read of a tensor's value, a write "
+         "to state outside the step)"),
+    Rule("HVD101", ERROR,
+         "collective names a mesh axis that the step's mesh does not "
+         "declare (the static form of reducing over a communicator that "
+         "does not exist)",
+         "declare the axis on the mesh, or fix the axis_name / process "
+         "set argument"),
+    Rule("HVD102", WARNING,
+         "torch.cond branches carry different collective signatures "
+         "(kind/axis/shape/dtype sequence) — if the predicate ever "
+         "diverges across ranks, some ranks issue collectives the others "
+         "never post: the static analogue of Horovod's negotiation "
+         "mismatch",
+         "hoist collectives out of the cond, or make both branches issue "
+         "the identical collective sequence (the unused branch can reduce "
+         "zeros); safe only if the predicate is provably replicated"),
 ]}
 
 
@@ -218,7 +278,7 @@ class Finding:
     severity: str = ""
     fix_hint: str = ""
     suppressed: bool = False
-    # "lint" | "race" | "witness" | "mem" | "comm"
+    # "lint" | "race" | "witness" | "graph" | "mem" | "comm"
     source: str = "lint"
 
     def __post_init__(self):

@@ -1,28 +1,39 @@
-"""hvdshard's host-side half: the replica plan's go/no-go (HVD302 +
-HVD401) and the ``--comm`` AST pass (HVD404).
+"""hvdshard — communication-plan analysis (HVD4xx).
 
-Copied from ``horovod_tpu/analysis/shardplan.py``: ``comm_budget_bytes``,
-``CommReport`` (cut to the fields the budget check sets),
-``PlanVerdict``, ``check_replica_plan``, ``publish_verdict`` and the AST
-half's HVD404.  HVD404 reads the port's spellings of a collective over
-an axis besides ``P(...)`` specs and ``axis_name=``: ``reduce_axes=``
-(``DistributedOptimizer``), ``axis_names=`` / ``expert_axis=``, and the
-axis arguments of ``mesh.process_set`` / ``lines`` / ``line`` / ``axis``
-/ ``group``, ``axes_process_set`` and ``mark_sharded``.  The JAX
-package's jaxpr sharding walk (HVD400 implicit reshards, HVD402, HVD403,
-its comm census and ``publish_report``) needs a torch graph source and
-waits for it, as does the cross-host sub-budget
-(``HVD_COMM_DCN_BUDGET_BYTES``): no adapter of the port yields
-cross-host bytes yet.  The AST HVD400 (one value under two
-``with_sharding_constraint`` specs) has no torch construct: the port's
-``NamedSharding.shard`` / ``gather`` move data only where the code calls
-them (ROADMAP.md).
+Copied from ``horovod_tpu/analysis/shardplan.py``: the walk
+(``shardplan.py:159-231`` and ``:288-630``) over a ``make_fx`` graph
+(``analysis/graph_check.py``) in place of a jaxpr, the replica plan's
+go/no-go, and the ``--comm`` AST pass's HVD404.
 
-The serve engine folds the comm budget into ``check_replica_plan()`` —
-the static go/no-go combining hvdmem's HVD302 pool-vs-budget verdict
-with HVD401 (the sequence-parallel ring's per-prefill K/V rotation),
-exposed as ``plan_go`` / ``plan_findings`` on ``kv_stats`` /
-``healthz``.
+* **The communication walk** (``measure_graph_comm`` /
+  ``measure_step_fn_comm``): the census ``by_primitive`` / ``by_axis``
+  of every collective node — payload bytes, and wire bytes = payload x
+  group size (a ``ppermute`` hop moves its payload once) — with
+  ``axes_declared`` (the mesh's) and ``axes_used`` (named by a
+  collective or by ``shard_step``'s specs).  Rules: HVD401 (wire bytes
+  past ``HVD_COMM_BUDGET_BYTES``), HVD402 (a ``P()`` argument of at
+  least ``REPLICATED_MIN_BYTES`` whose dim 0 an axis its sharded peers
+  use divides — read from ``shard_step``'s ``in_specs``: the port has no
+  compiler shardings), HVD403 (a collective over an axis the mesh does
+  not declare) and HVD404 (a mesh axis of size > 1 that no collective
+  and no spec names).
+* **The replica plan** (``check_replica_plan``): the static go/no-go
+  combining hvdmem's HVD302 pool-vs-budget verdict with HVD401 on the
+  sequence-parallel ring's per-prefill K/V rotation, exposed as
+  ``plan_go`` / ``plan_findings`` on ``kv_stats`` / ``healthz``.
+* **The ``--comm`` AST pass** (HVD404): reads the port's spellings of a
+  collective over an axis besides ``P(...)`` specs and ``axis_name=``:
+  ``reduce_axes=`` (``DistributedOptimizer``), ``axis_names=`` /
+  ``expert_axis=``, and the axis arguments of ``mesh.process_set`` /
+  ``lines`` / ``line`` / ``axis`` / ``group``, ``axes_process_set`` and
+  ``mark_sharded``.
+
+Left out (ROADMAP.md): HVD400, implicit resharding, in the walk and in
+the AST pass — torch makes no implicit reshard: ``NamedSharding.shard``
+/ ``gather`` move data only where the code calls them; and the
+ICI / DCN split (the cross-host sub-budget
+``HVD_COMM_DCN_BUDGET_BYTES``, HVD403's mixed-fabric arm) — no
+configuration of the port crosses hosts.
 """
 
 from __future__ import annotations
@@ -30,9 +41,15 @@ from __future__ import annotations
 import ast
 import dataclasses
 import os
-from typing import Any, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, \
+    Tuple
 
 from .findings import Finding, rule_selected
+
+#: Floor for HVD402: a replicated bias vector next to a sharded batch is
+#: the normal data-parallel layout; a replicated multi-MB operand whose
+#: leading dim a declared axis divides evenly is a missed sharding.
+REPLICATED_MIN_BYTES = 1 << 20
 
 
 def comm_budget_bytes() -> Optional[int]:
@@ -53,11 +70,23 @@ def comm_budget_bytes() -> Optional[int]:
 
 @dataclasses.dataclass
 class CommReport:
-    """The comm half of a replica plan: the per-step wire bytes against
-    the budget (the JAX package's report, cut to these fields)."""
+    """Result of one communication walk (or of a replica plan's comm
+    half)."""
 
     label: str
+    # collective -> {"count": executions (loop-unrolled), "bytes": payload
+    # bytes in, "wire_bytes": payload x group size}
+    by_primitive: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    # axis name -> {"size", "count", "wire_bytes"}: a multi-axis
+    # collective's wire bytes charge each axis it names (an upper bound
+    # per axis, exact for single-axis collectives).
+    by_axis: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
     total_wire_bytes: int = 0
+    axes_declared: Dict[str, int] = dataclasses.field(default_factory=dict)
+    axes_used: Set[str] = dataclasses.field(default_factory=set)
+    dynamic_loops: int = 0
     budget_bytes: Optional[int] = None
     headroom_bytes: Optional[int] = None
     findings: List[Finding] = dataclasses.field(default_factory=list)
@@ -71,7 +100,194 @@ class CommReport:
             "total_wire_bytes": int(self.total_wire_bytes),
             "budget_bytes": self.budget_bytes,
             "headroom_bytes": self.headroom_bytes,
+            "dynamic_loops": int(self.dynamic_loops),
+            "axes_declared": dict(sorted(self.axes_declared.items())),
+            "axes_used": sorted(self.axes_used),
+            "by_primitive": {k: dict(v)
+                             for k, v in sorted(self.by_primitive.items())},
+            "by_axis": {k: dict(v)
+                        for k, v in sorted(self.by_axis.items())},
         }
+
+
+# ---------------------------------------------------------------------------
+# Graph communication walk
+# ---------------------------------------------------------------------------
+
+class _CommWalker:
+    """One pass over a graph accumulating the communication census and
+    HVD403 findings."""
+
+    def __init__(self, report: CommReport):
+        self.report = report
+
+    def _emit(self, rule: str, message: str) -> None:
+        self.report.findings.append(Finding(
+            rule=rule, path=self.report.label, line=0, col=0,
+            message=message, source="comm"))
+
+    def _record(self, kind: str, axes: Tuple[str, ...], group: int,
+                payload: int) -> None:
+        # Wire bytes: payload x communicator group size (the all-gather/
+        # reduce upper bound); a ppermute rotates the payload one hop, so
+        # the group size does not multiply.
+        wire = payload * (1 if kind == "ppermute" else group)
+        entry = self.report.by_primitive.setdefault(
+            kind, {"count": 0, "bytes": 0, "wire_bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += payload
+        entry["wire_bytes"] += wire
+        self.report.total_wire_bytes += wire
+        declared = self.report.axes_declared
+        for axis in axes:
+            self.report.axes_used.add(axis)
+            ax = self.report.by_axis.setdefault(
+                axis, {"size": int(declared.get(
+                    axis, group if len(axes) == 1 else 1)),
+                       "count": 0, "wire_bytes": 0})
+            ax["count"] += 1
+            ax["wire_bytes"] += wire
+            # HVD403: the axis is not on the mesh — the static form of
+            # reducing over a process set that does not exist in this
+            # deployment.
+            if declared and axis not in declared:
+                self._emit(
+                    "HVD403",
+                    f"collective '{kind}' communicates over axis "
+                    f"'{axis}' but the mesh only declares "
+                    f"{sorted(declared)} — no process set carries that "
+                    f"axis in this deployment")
+
+    def walk(self, gm) -> None:
+        from .graph_check import collective_of, payload_bytes, subgraphs
+        for node in gm.graph.nodes:
+            c = collective_of(node, gm)
+            if c is not None:
+                kind, axes, group, ts = c
+                self._record(kind, axes, group, payload_bytes(ts))
+                continue
+            if node.op != "call_function":
+                continue
+            kind, subs = subgraphs(node, gm)
+            if kind == "while":
+                self.report.dynamic_loops += 1
+            for sub in subs:
+                self.walk(sub)
+
+
+def _spec_axes(spec) -> Set[str]:
+    out: Set[str] = set()
+    for entry in spec or ():
+        if entry is None:
+            continue
+        out.update((entry,) if isinstance(entry, str) else tuple(entry))
+    return out
+
+
+def measure_graph_comm(gm, *, label: str = "<graph>",
+                       axis_sizes: Optional[Dict[str, int]] = None,
+                       spec_leaves: Sequence[Tuple] = (),
+                       spec_axes: Iterable[str] = (),
+                       budget_bytes: Optional[int] = None,
+                       replicated_min_bytes: int = REPLICATED_MIN_BYTES
+                       ) -> CommReport:
+    """Communication-walk an already-traced graph
+    (``graph_check.trace``).
+
+    ``axis_sizes`` are the mesh's axes (``shard_step`` passes its mesh's
+    shape, the optimizer hook the world's axes).  ``spec_leaves`` are
+    ``(spec, shape, dtype, bytes)`` of each tensor argument under
+    ``shard_step``'s ``in_specs`` (HVD402 reads them); ``spec_axes`` are
+    the axes its specs name besides.  ``budget_bytes`` defaults to
+    ``HVD_COMM_BUDGET_BYTES``; when known, HVD401 fires on overshoot."""
+    report = CommReport(label=label)
+    for axis, size in (axis_sizes or {}).items():
+        report.axes_declared[str(axis)] = int(size)
+    walker = _CommWalker(report)
+    walker.walk(gm)
+    report.axes_used.update(spec_axes)
+    peers: Set[str] = set()
+    for spec, _, _, _ in spec_leaves:
+        peers |= _spec_axes(spec)
+    report.axes_used |= peers
+
+    # HVD402: a large fully-replicated argument riding next to sharded
+    # peers — an axis they use that divides its leading dim would shard
+    # it instead of handing every rank a copy.
+    for spec, shape, dtype, b in spec_leaves:
+        if _spec_axes(spec) or b < replicated_min_bytes or not shape:
+            continue
+        for axis in sorted(peers):
+            size = report.axes_declared.get(axis, 0)
+            if size > 1 and shape[0] % size == 0:
+                walker._emit(
+                    "HVD402",
+                    f"replicated operand {dtype}{tuple(shape)} ({b} "
+                    f"bytes) rides next to peers sharded over '{axis}' "
+                    f"(size {size}, which divides dim 0) — sharding it "
+                    f"saves {b - b // size} bytes per device")
+                break
+
+    # HVD404: declared-but-never-communicated axes — cards reserved for
+    # a parallelism dimension the program never exercises.
+    for axis, size in sorted(report.axes_declared.items()):
+        if size > 1 and axis not in report.axes_used:
+            walker._emit(
+                "HVD404",
+                f"mesh axis '{axis}' (size {size}) is never named by a "
+                f"collective or a sharding spec — dead parallelism: "
+                f"{size}x the cards for 1x the work; drop the axis or "
+                f"shard over it")
+
+    budget = budget_bytes if budget_bytes is not None else \
+        comm_budget_bytes()
+    report.budget_bytes = budget
+    if budget is not None:
+        report.headroom_bytes = int(budget) - int(report.total_wire_bytes)
+        if report.headroom_bytes < 0:
+            walker._emit(
+                "HVD401",
+                f"estimated per-step wire bytes {report.total_wire_bytes} "
+                f"exceed the comm budget {budget} bytes "
+                f"(HVD_COMM_BUDGET_BYTES) by {-report.headroom_bytes} "
+                f"bytes")
+    return report
+
+
+def measure_step_fn_comm(fn, args=(), kwargs: Optional[dict] = None, *,
+                         label: Optional[str] = None,
+                         axis_env: Optional[Sequence[Tuple[str, int]]] =
+                         None, **measure_kwargs) -> CommReport:
+    """Trace ``fn(*args, **kwargs)`` and comm-walk it, with the
+    ``axis_env`` sizes as the mesh.  Trace failures come back as an empty
+    report (the graph checker owns trace-failure reporting, HVD100)."""
+    from .graph_check import trace
+    name = label or getattr(fn, "__name__", None) or "step"
+    try:
+        gm = trace(fn, args, kwargs, axis_env)
+    except Exception:
+        return CommReport(label=name)
+    return measure_graph_comm(gm, label=name,
+                              axis_sizes=dict(axis_env or ()),
+                              **measure_kwargs)
+
+
+def publish_report(report: CommReport) -> None:
+    """Log findings, append to ``core.analysis_reports()``, and chart the
+    comm census on the active timeline (``comm_census``).  Never
+    raises."""
+    from ..utils import get_logger
+    log = get_logger()
+    for f in report.findings:
+        log.warning("hvdshard: %s", f.format())
+    try:
+        from .. import core as _core
+        _core._state.analysis_reports.append(report)
+        tl = _core._state.timeline
+        if tl is not None:
+            tl.comm_census(report.label, report.to_dict())
+    except Exception as e:  # pragma: no cover - publication is best-effort
+        log.warning("hvdshard: could not publish report: %s", e)
 
 
 # ---------------------------------------------------------------------------

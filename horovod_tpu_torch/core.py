@@ -182,6 +182,13 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
     with _state.lock:
         if _state.initialized:
             return
+        from .analysis import hook as _analysis_hook
+        if _analysis_hook.enabled():
+            # Fresh world ⇒ fresh first-call analysis generation: an
+            # elastic re-init runs steps that deserve their own check
+            # (analysis/hook.py generation()).
+            _analysis_hook.reset()
+            _state.analysis_reports = []
         dev = resolve_device(device)
         cfg = _config.Config.from_env()
         elastic = _elastic()
@@ -340,10 +347,12 @@ def is_initialized() -> bool:
 
 
 def analysis_reports() -> list:
-    """What the analyzers published, newest last: a serve engine's failed
-    pool budget (``MemReport``, HVD302) or replica plan
-    (``PlanVerdict``), and the lock witness's ``WitnessReport`` under
-    ``HVD_SANITIZE=1``.  Empty when nothing was published."""
+    """What the analyzers published, newest last: under ``HVD_ANALYZE=1``
+    each step's ``GraphReport`` (collective census, memory and comm
+    walks), a serve engine's failed pool budget (``MemReport``, HVD302)
+    or replica plan (``PlanVerdict``), and the lock witness's
+    ``WitnessReport`` under ``HVD_SANITIZE=1``.  Empty when nothing was
+    published; ``init`` clears it under ``HVD_ANALYZE=1``."""
     return list(_state.analysis_reports)
 
 

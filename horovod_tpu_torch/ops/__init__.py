@@ -48,6 +48,13 @@ the forward's name with ``.grad`` appended (``eager.backward_name``), so
 negotiation, ``join`` and the timeline see it; every rank must run the
 backward, as every rank ran the forward.  A rank outside the set gets
 the cotangent back, as it got its input.
+
+Inside an ``HVD_ANALYZE`` trace (``analysis/graph_check.py``) each of
+``allreduce``, ``grouped_allreduce``, ``_fused_allreduce``,
+``allgather``, ``broadcast``, ``alltoall`` and ``reducescatter`` emits
+one ``hvd_analyze::collective`` node over its process set's mesh axes
+instead of dispatching: no engine, no negotiation, no host read of
+sizes, no peer.  On the real path that costs one flag read a call.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from .collective_ops import (  # noqa: F401
 from . import collective_ops as C
 from .eager import backward_name
 from .. import core as _core
+from ..analysis import graph_check as _gc
 from ..compression import Compression
 from ..process_sets import ProcessSet, global_process_set
 
@@ -143,8 +151,11 @@ def allreduce(tensor: torch.Tensor, average=None, name: Optional[str] = None,
               process_set: ProcessSet = global_process_set) -> torch.Tensor:
     """Reduce ``tensor`` over the set's ranks (``hvd.allreduce``)."""
     rop = _normalize_op(op, average)
-    m = members_of(process_set)
     x, ctx = compression.compress(tensor)
+    if _gc.active() is not None:
+        return compression.decompress(_gc.emit("allreduce", x, process_set),
+                                      ctx)
+    m = members_of(process_set)
     out = _engine().run(
         "allreduce",
         lambda: _reduce(x, rop, prescale_factor, postscale_factor, m),
@@ -162,9 +173,13 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], average=None,
     """Reduce a list of tensors, each compressed on its own, as one
     dispatch (``hvd.grouped_allreduce``)."""
     rop = _normalize_op(op, average)
-    m = members_of(process_set)
     pairs = [compression.compress(t) for t in tensors]
     xs = [x for x, _ in pairs]
+    if _gc.active() is not None:
+        outs = _gc.emit("allreduce", xs, process_set)
+        return [compression.decompress(o, ctx)
+                for o, (_, ctx) in zip(outs, pairs)]
+    m = members_of(process_set)
     outs = _engine().run(
         "grouped_allreduce",
         lambda: [_reduce(x, rop, prescale_factor, postscale_factor, m)
@@ -195,18 +210,22 @@ def _fused_allreduce(tensors: Sequence[torch.Tensor], op,
         raise ValueError("_fused_allreduce reduces with Average or Sum; "
                          "Adasum needs a coefficient pair per tensor "
                          "(grouped_allreduce)")
-    m = members_of(process_set)
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError("_fused_allreduce needs tensors of one dtype")
     flat = torch.cat([t.reshape(-1) for t in tensors])
     flat, ctx = compression.compress(flat)
-    out = _engine().run(
-        "allreduce",
-        lambda: _reduce(flat, rop, prescale_factor, postscale_factor, m,
-                        owned=True),
-        [flat], name=f"fusedbuf.{C.dtype_name(flat.dtype)}.{flat.numel()}",
-        op_id=int(rop), prescale=prescale_factor, postscale=postscale_factor,
-        **_wire_ps(process_set))
+    if _gc.active() is not None:
+        out = _gc.emit("allreduce", flat, process_set)
+    else:
+        m = members_of(process_set)
+        out = _engine().run(
+            "allreduce",
+            lambda: _reduce(flat, rop, prescale_factor, postscale_factor, m,
+                            owned=True),
+            [flat],
+            name=f"fusedbuf.{C.dtype_name(flat.dtype)}.{flat.numel()}",
+            op_id=int(rop), prescale=prescale_factor,
+            postscale=postscale_factor, **_wire_ps(process_set))
     out = compression.decompress(out, ctx)
     views, start = [], 0
     for t in tensors:
@@ -384,7 +403,11 @@ def allgather(tensor: torch.Tensor, name: Optional[str] = None,
               process_set: ProcessSet = global_process_set) -> torch.Tensor:
     """Every member's tensor concatenated along dim 0, in member order
     (``hvd.allgather``); dim 0 may differ between members.
-    Differentiable (module docstring)."""
+    Differentiable (module docstring).  Inside an analysis trace every
+    member's dim 0 is taken to be this one's, as JAX's ``all_gather``
+    has it."""
+    if _gc.active() is not None:
+        return _gc.emit("allgather", tensor, process_set)
     if _differentiable(tensor):
         return _AllgatherGrad.apply(tensor, name, process_set)
     return _allgather(tensor, name, process_set)[0]
@@ -406,6 +429,8 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               process_set: ProcessSet = global_process_set) -> torch.Tensor:
     """The root's tensor on every member (``hvd.broadcast``); a new
     tensor.  ``root_rank`` is the root's rank within the set."""
+    if _gc.active() is not None:
+        return _gc.emit("broadcast", tensor.detach(), process_set)
     m = members_of(process_set)
     if not 0 <= root_rank < m.size:
         raise ValueError(f"root_rank {root_rank} outside the set of "
@@ -445,7 +470,18 @@ def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None,
     ``splits`` (one row count per rank, summing to dim 0), returns
     ``(output, received_splits)``: the rows each rank sent here, in rank
     order, and their counts (int32).  The form without ``splits`` is
-    differentiable (module docstring)."""
+    differentiable (module docstring).  Inside an analysis trace, a call
+    with ``splits`` records the input's bytes and returns a tensor of the
+    input's shape (the received splits are the even ones): the real
+    sizes are a host read of the peers' splits, which a trace does not
+    make."""
+    if _gc.active() is not None:
+        out = _gc.emit("alltoall", tensor, process_set)
+        if splits is None:
+            return out
+        n = len(torch.as_tensor(splits).reshape(-1))
+        return out, torch.full((n,), tensor.shape[0] // max(n, 1),
+                               dtype=torch.int32, device=tensor.device)
     m = members_of(process_set)
     if splits is None:
         if tensor.dim() == 0 or tensor.shape[0] % m.size:
@@ -575,6 +611,8 @@ def reducescatter(tensor: torch.Tensor, op=ReduceOp.SUM,
     (``reducescatter_padded_size``), as in the JAX package.
     Differentiable (module docstring)."""
     rop = ReduceOp(op) if op is not None else ReduceOp.SUM
+    if _gc.active() is not None:
+        return _gc.emit("reducescatter", tensor, process_set)
     if _differentiable(tensor):
         return _ReducescatterGrad.apply(tensor, rop, name, prescale_factor,
                                         postscale_factor, process_set)

@@ -23,7 +23,10 @@ bucket (``_fused_allreduce``); Adasum, and any other ``Compressor``,
 reduce tensor by tensor, so each tensor gets its own Adasum coefficients
 or its own compression (a per-tensor quantizer's scale, say).
 ``groups`` / ``num_groups`` make each group one grouped allreduce, the
-planner bypassed, as in JAX.
+planner bypassed, as in JAX.  Under ``HVD_ANALYZE=1`` each instance's
+first reducing ``step()`` (per analysis generation) checks that
+reduction on fake copies of its gradients before running it
+(``analysis/hook.py``, label ``DistributedOptimizer:<n>``).
 
 With ``process_set``, the gradients reduce over the set's ranks, and a
 rank outside the set steps on its own gradients (the JAX package's
@@ -67,6 +70,8 @@ from torch.utils import _pytree
 
 from . import core as _core
 from . import ops as _ops
+from .analysis import graph_check as _gc
+from .analysis import hook as _analysis_hook
 from .compression import Compression
 from .ops import ReduceOp
 from .ops.adasum import adasum_allreduce
@@ -111,7 +116,7 @@ def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
                 [grads[i] for i in bucket], **kw)):
             out[i] = r
     if pm is not None and pm.enabled and not pm.converged and \
-            len(grads) > 1:
+            len(grads) > 1 and _gc.active() is None:
         # Autotune scores this window (JAX's optimizer.py:286-289): the
         # reductions are asynchronous on a card, so wait for them where
         # JAX blocks on its arrays.
@@ -201,6 +206,8 @@ class DistributedOptimizer:
         self._passes = 0
         self._axis_sets = None if reduce_axes is None else \
             _axis_sets(self._params, tuple(reduce_axes))
+        self._analysis_label: Optional[str] = None
+        self._analyzed_gen = None  # the analysis generation checked in
 
     def _index_groups(self, groups) -> Optional[List[List[int]]]:
         if not groups:
@@ -278,6 +285,16 @@ class DistributedOptimizer:
         n = self.backward_passes_per_step
         scaled = torch._foreach_div(self._acc, float(n)) if n > 1 \
             else list(self._acc)
+        if _analysis_hook.enabled() and \
+                self._analyzed_gen != _analysis_hook.generation():
+            # HVD_ANALYZE=1: check this instance's reduction once per
+            # analysis generation, on fake copies of these gradients
+            # (analysis/hook.py; JAX's optimizer.py:406-417).
+            self._analyzed_gen = _analysis_hook.generation()
+            if self._analysis_label is None:
+                self._analysis_label = _analysis_hook.next_instance()
+            _analysis_hook.analyze_reduction(self._allreduce, scaled,
+                                             self._analysis_label)
         reduced = self._allreduce(scaled)
         for p, g in zip(self._params, reduced):
             p.grad = g.to(p.dtype)

@@ -34,6 +34,12 @@ the axis (a tuple of axes indexes their sub-mesh row-major), ``P()``
 passes an argument whole; outputs under ``P(axis)`` are allgathered.
 ``data_parallel_sharding`` and ``replicated_sharding`` (``:134``,
 ``:143``) give the :class:`NamedSharding` that cuts a global batch.
+Under ``HVD_ANALYZE=1`` ``shard_step`` checks its step on the first call
+(``analysis/hook.py``, as JAX's ``:95-127``).  Inside that check's trace
+the axis functions here resolve from the trace's axis environment and
+register nothing: ``axis`` and ``Mesh.axis`` give the line as index 0
+sees it, ``Mesh.process_set`` and ``axes_process_set`` a set named by
+its axes.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ import torch.distributed as dist
 from torch.utils import _pytree
 
 from .. import core as _core
+from ..analysis import graph_check as _gc
+from ..analysis import hook as _analysis_hook
 from ..process_sets import ProcessSet, global_process_set
 
 
@@ -112,8 +120,11 @@ class Mesh:
         global set when it covers the world.  The first call for a
         combination of axes registers every such sub-mesh on this rank
         (collective: every rank calls it, for the same axes, in the same
-        order; ``make_mesh`` does it for each single axis)."""
+        order; ``make_mesh`` does it for each single axis).  Inside an
+        analysis trace it is the axes' trace set, registering nothing."""
         key = tuple(axes)
+        if _gc.active() is not None:
+            return _gc.axes_set(key, self)
         if key not in self._sets:
             st = _core._require_init()
             world = st.topology.size
@@ -128,13 +139,18 @@ class Mesh:
                         f"process set orders its members by rank")
                 ps = global_process_set if len(ln) == world else \
                     st.process_set_table.register(ProcessSet(list(ln)))
+                if ps is not global_process_set:
+                    ps.axes = key
                 if st.topology.rank in ln:
                     mine = ps
             self._sets[key] = mine
         return self._sets[key]
 
     def axis(self, name: str) -> Axis:
-        """``name`` as this rank sees it: size, index, line, set, group."""
+        """``name`` as this rank sees it: size, index, line, set, group
+        (inside an analysis trace, as rank 0 of the line sees it)."""
+        if _gc.active() is not None:
+            return _trace_axis(name, self)
         st = _core._require_init()
         ps = self.process_set(name)
         line = self.line(st.topology.rank, name)
@@ -187,10 +203,21 @@ def hierarchical_mesh() -> Mesh:
     return make_mesh({"cross": max(1, topo.size // local), "local": local})
 
 
+def _trace_axis(name: str, mesh: Optional[Mesh] = None) -> Axis:
+    """An axis inside an analysis trace: its size from ``mesh``, the axis
+    environment or the runtime's meshes (``NameError`` for an axis none
+    binds), seen from index 0."""
+    size = _gc.axis_size(_gc.active(), name, mesh)
+    return Axis(name, size, 0, tuple(range(size)),
+                _gc.AxesSet((name,), size), None)
+
+
 def axis(axis_name: str, mesh: Optional[Mesh] = None) -> Axis:
     """Resolve ``axis_name``: in ``mesh``, else in the most recent
     ``make_mesh`` that has it, else as the world's axis of
     ``core.mesh()``."""
+    if _gc.active() is not None:
+        return _trace_axis(axis_name, mesh)
     if mesh is not None:
         return mesh.axis(axis_name)
     st = _core._require_init()
@@ -212,6 +239,8 @@ def axes_process_set(axes: Sequence[str], mesh: Optional[Mesh] = None
     most recent ``make_mesh`` holding every axis, else the world's axis.
     Collective on first use for a combination (``Mesh.process_set``)."""
     axes = tuple(axes)
+    if _gc.active() is not None:
+        return _gc.axes_set(axes, mesh)
     st = _core._require_init()
     if mesh is None:
         mesh = next((m for m in reversed(st.meshes)
@@ -334,9 +363,16 @@ def shard_step(fn: Callable, *, mesh: Optional[Mesh] = None, in_specs=None,
     ``donate_argnums`` and ``check_vma`` are accepted for the JAX
     signature and change nothing: PyTorch runs eagerly and frees a
     buffer when its last reference goes, so there is nothing to donate,
-    and it has no varying-axes types to check.  JAX's analysis hook
-    (``HVD_ANALYZE``) has no counterpart yet (ROADMAP A9)."""
+    and it has no varying-axes types to check.
+
+    Under ``HVD_ANALYZE=1`` the first call of each arity (and analysis
+    generation) first checks ``fn`` on this rank's pieces
+    (``analysis/hook.py``: a ``make_fx`` trace on fake tensors, then the
+    collective census, HVD1xx, and the memory and comm walks, with the
+    mesh's axes and the specs; label ``shard_step:<fn>/<arity>``).  It
+    never raises into the step."""
     del donate_argnums, check_vma
+    analyzed_gen = {}  # arity -> analysis generation it was checked in
 
     def wrapper(*args, **kwargs):
         if kwargs:
@@ -351,12 +387,46 @@ def shard_step(fn: Callable, *, mesh: Optional[Mesh] = None, in_specs=None,
             ins = tuple(P(axis_) if i else P() for i in range(len(args)))
         local = _tree_map(lambda s, x: NamedSharding(m, s).shard(x),
                           tuple(ins), args)
-        out = fn(*local)
         outs = out_specs if out_specs is not None else P()
+        key = len(args)
+        if _analysis_hook.enabled() and \
+                analyzed_gen.get(key) != _analysis_hook.generation():
+            analyzed_gen[key] = _analysis_hook.generation()
+            _analyze_step(fn, m, ins, outs, args, local, key)
+        out = fn(*local)
         return _tree_map(lambda s, x: NamedSharding(m, s).gather(x), outs,
                          out)
 
     return wrapper
+
+
+def _analyze_step(fn, mesh: Mesh, ins, outs, args, local, arity: int
+                  ) -> None:
+    """``shard_step``'s ``HVD_ANALYZE`` check of ``fn`` on ``local``:
+    the mesh's axes bind and declare the trace's; each tensor argument's
+    spec feeds HVD402, and every axis a spec names counts as used."""
+    leaves: List[Tuple] = []
+
+    def leaf(spec, x):
+        if isinstance(x, torch.Tensor):
+            leaves.append((tuple(spec), tuple(x.shape),
+                           str(x.dtype).rpartition(".")[2],
+                           x.numel() * x.element_size()))
+        return x
+
+    _tree_map(leaf, tuple(ins), args)
+    named = set()
+    for spec in _pytree.tree_leaves(
+            outs, is_leaf=lambda s: isinstance(s, PartitionSpec)):
+        if isinstance(spec, PartitionSpec):
+            for entry in spec:
+                named.update(_entry_axes(entry))
+    _analysis_hook.analyze_traceable(
+        fn, local, label=f"shard_step:{getattr(fn, '__name__', 'fn')}/"
+                         f"{arity}",
+        axis_env=list(mesh.shape.items()),
+        declared_axes=tuple(mesh.axis_names), once=False,
+        spec_leaves=leaves, spec_axes=sorted(named))
 
 
 def data_parallel_sharding(mesh: Optional[Mesh] = None,

@@ -53,6 +53,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.autograd.function import once_differentiable
 
 NEG_INF = -1e30
@@ -412,6 +413,12 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale):
 
 
 def _on(q) -> str:
+    """Where a call runs: ``fake`` for a fake tensor (an analysis trace,
+    ``analysis/graph_check.py``: empty outputs of the kernel's shapes
+    and dtypes, no launch, no count), else ``cuda`` (the kernel) or
+    ``cpu`` (the plain version)."""
+    if isinstance(q, FakeTensor):
+        return "fake"
     if q.is_cuda:
         return "cuda"
     if q.device.type != "cpu":
@@ -424,7 +431,12 @@ def flash_fwd(q, k, v, mask_mode: int, scale: float, out_dtype=None):
     """Forward: ``(out [B, S, H, D], lse [B, H, S] f32)``; the kernel for
     CUDA tensors, the plain version for CPU tensors."""
     out_dtype = out_dtype or q.dtype
-    if _on(q) == "cuda":
+    on = _on(q)
+    if on == "fake":
+        B, S, H, _ = q.shape
+        return (q.new_empty(q.shape, dtype=out_dtype),
+                q.new_empty((B, H, S), dtype=torch.float32))
+    if on == "cuda":
         return _fwd_cuda(q, k, v, mask_mode, scale, out_dtype)
     return attention_fwd_reference(q, k, v, mask_mode=mask_mode,
                                    scale=scale, out_dtype=out_dtype)
@@ -433,7 +445,10 @@ def flash_fwd(q, k, v, mask_mode: int, scale: float, out_dtype=None):
 def flash_bwd_dq(q, k, v, do, lse, delta, mask_mode: int, scale: float):
     """dQ from the saved lse and delta: the dQ kernel for CUDA tensors,
     its plain version for CPU tensors."""
-    if _on(q) == "cuda":
+    on = _on(q)
+    if on == "fake":
+        return torch.empty_like(q)
+    if on == "cuda":
         return _bwd_dq_cuda(q, k, v, do, lse, delta, mask_mode, scale)
     return attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                       mask_mode=mask_mode, scale=scale)
@@ -442,7 +457,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask_mode: int, scale: float):
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask_mode: int, scale: float):
     """``(dk, dv)`` from the saved lse and delta: the dK/dV kernel for
     CUDA tensors, its plain version for CPU tensors."""
-    if _on(q) == "cuda":
+    on = _on(q)
+    if on == "fake":
+        return torch.empty_like(k), torch.empty_like(v)
+    if on == "cuda":
         return _bwd_dkv_cuda(q, k, v, do, lse, delta, mask_mode, scale)
     return attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                        mask_mode=mask_mode, scale=scale)

@@ -17,7 +17,9 @@ backward the inverse rotation, and split into a start (post the P2P ops)
 and a finish (wait on them), so the ``"overlap"`` schedule puts hop
 t + 1's transfer under hop t's compute and runs n - 1 rotations, against
 ``"serial"``'s compute-then-rotate n (its last rotation is dead).
-``ROTATIONS`` counts both directions.
+``ROTATIONS`` counts both directions.  Inside an analysis trace
+(``analysis/graph_check.py``) each rotated tensor is one ``ppermute``
+node of the graph, and nothing is sent.
 
 JAX's program is one SPMD trace, the same on every rank; the port's
 per-hop decisions are plain Python on each rank (``_hop_plan``: NONE
@@ -56,6 +58,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from . import axis as _axis
+from ..analysis import graph_check as _gc
 from .flash import MASK_CAUSAL, MASK_NONE, MASK_STRICT, flash_attention_lse
 
 SCHEDULES = ("overlap", "serial")
@@ -231,6 +234,9 @@ def _post(ax, tensors: List[torch.Tensor], shift: int):
     """Send each tensor to the rank ``shift`` places along the axis and
     receive as many from the rank ``shift`` places the other way;
     returns the receive buffers and the works."""
+    if _gc.active() is not None:   # an analysis trace: one hop each
+        return [_gc.emit("ppermute", t.contiguous(), ax.process_set)
+                for t in tensors], []
     n, i = ax.size, ax.index
     dst, src = ax.ranks[(i + shift) % n], ax.ranks[(i - shift) % n]
     outs, ops = [], []

@@ -34,6 +34,9 @@ class ProcessSet:
     assigned at registration (0 is the global set)."""
 
     process_set_id: Optional[int]
+    #: The mesh axes whose line this set is (``parallel.Mesh.process_set``
+    #: sets it); an analysis trace names the set's collectives by them.
+    axes: Optional[Tuple[str, ...]] = None
 
     def __init__(self, ranks: Optional[Sequence[int]] = None):
         self.process_set_id = None

@@ -93,6 +93,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..analysis import hook as _analysis_hook
 from ..analysis import memplan as _memplan
 from ..analysis import shardplan as _shardplan
 from ..faultline import runtime as _faultline
@@ -118,6 +119,23 @@ def _next_pow2(n: int, floor: int = 1) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _maybe_analyze(kind: str, key, fn, args) -> None:
+    """HVD_ANALYZE ride-along for the serve programs (JAX's
+    ``engine.py:298-311``): the first call of each program of either
+    adapter gets the collective census + HVD1xx walk and the memory and
+    comm walks a training step gets (``analysis/hook.py``), before the
+    real call.  Serve programs must census ZERO collectives: a replica is
+    self-contained.  ``key`` is the batch rows (and the chunk width of a
+    chunked kind), never starts or table widths: the port runs true
+    lengths, so one engine's reports stay bounded by the kinds it runs.
+    One env read when disabled; the trace runs on fake tensors, so it
+    launches no kernel and leaves the pool as it was."""
+    if not _analysis_hook.enabled():
+        return
+    _analysis_hook.analyze_traceable(
+        fn, args, label=f"serve:{kind}[{','.join(str(k) for k in key)}]")
 
 
 def byte_token_strings(vocab_size: int) -> Optional[List[str]]:
@@ -415,19 +433,27 @@ class TransformerAdapter:
             lengths[i] = len(p)
         dev = self.device
         n = len(prompts)
-        slot_t = torch.as_tensor(np.asarray(slots[:n], np.int64), device=dev)
-        x = self._embed(tokens, np.arange(p_bucket))
-        causal = torch.ones((p_bucket, p_bucket), dtype=torch.bool,
-                            device=dev).tril()
-        for layer, blk in enumerate(self.params["blocks"]):
-            q, k, v = self._qkv(x, blk)                  # [n, P, H, Dh]
-            cache["k"][layer, slot_t, :p_bucket] = k[:n].to(cache["k"].dtype)
-            cache["v"][layer, slot_t, :p_bucket] = v[:n].to(cache["v"].dtype)
-            out = self._dense_attend(q, k, v, causal)
-            x = self._ffn(self._proj(x, out, blk), blk)
-        last = torch.as_tensor(np.maximum(lengths - 1, 0), device=dev)
-        logits = self._logits(x[torch.arange(n_bucket, device=dev), last])
-        return cache, logits.argmax(dim=-1).cpu().numpy()[:n]
+
+        def body(cache):
+            slot_t = torch.as_tensor(np.asarray(slots[:n], np.int64),
+                                     device=dev)
+            x = self._embed(tokens, np.arange(p_bucket))
+            causal = torch.ones((p_bucket, p_bucket), dtype=torch.bool,
+                                device=dev).tril()
+            for layer, blk in enumerate(self.params["blocks"]):
+                q, k, v = self._qkv(x, blk)              # [n, P, H, Dh]
+                cache["k"][layer, slot_t, :p_bucket] = \
+                    k[:n].to(cache["k"].dtype)
+                cache["v"][layer, slot_t, :p_bucket] = \
+                    v[:n].to(cache["v"].dtype)
+                out = self._dense_attend(q, k, v, causal)
+                x = self._ffn(self._proj(x, out, blk), blk)
+            last = torch.as_tensor(np.maximum(lengths - 1, 0), device=dev)
+            return self._logits(
+                x[torch.arange(n_bucket, device=dev), last]).argmax(dim=-1)
+
+        _maybe_analyze("prefill", (n_bucket, p_bucket), body, (cache,))
+        return cache, body(cache).cpu().numpy()[:n]
 
     @torch.no_grad()
     def decode(self, cache, tokens, positions):
@@ -438,20 +464,25 @@ class TransformerAdapter:
         token 0 at position 0 and their output is ignored."""
         S = self.max_len
         pos = np.minimum(np.asarray(positions, np.int64), S - 1)
-        x = self._embed(np.asarray(tokens, np.int64), pos)     # [B, d]
         dev = self.device
-        pos_t = torch.as_tensor(pos, device=dev)
-        rows = torch.arange(len(pos), device=dev)
-        valid = (torch.arange(S, device=dev)[None, :]
-                 <= pos_t[:, None])[:, None, None, :]          # [B,1,1,S]
-        for layer, blk in enumerate(self.params["blocks"]):
-            q, k, v = self._qkv(x, blk)                         # [B, H, Dh]
-            cache["k"][layer, rows, pos_t] = k.to(cache["k"].dtype)
-            cache["v"][layer, rows, pos_t] = v.to(cache["v"].dtype)
-            out = self._dense_attend(q[:, None], cache["k"][layer],
-                                     cache["v"][layer], valid)[:, 0]
-            x = self._ffn(self._proj(x, out, blk), blk)
-        return cache, self._logits(x).argmax(dim=-1).cpu().numpy()
+
+        def body(cache):
+            x = self._embed(np.asarray(tokens, np.int64), pos)  # [B, d]
+            pos_t = torch.as_tensor(pos, device=dev)
+            rows = torch.arange(len(pos), device=dev)
+            valid = (torch.arange(S, device=dev)[None, :]
+                     <= pos_t[:, None])[:, None, None, :]       # [B,1,1,S]
+            for layer, blk in enumerate(self.params["blocks"]):
+                q, k, v = self._qkv(x, blk)                     # [B, H, Dh]
+                cache["k"][layer, rows, pos_t] = k.to(cache["k"].dtype)
+                cache["v"][layer, rows, pos_t] = v.to(cache["v"].dtype)
+                out = self._dense_attend(q[:, None], cache["k"][layer],
+                                         cache["v"][layer], valid)[:, 0]
+                x = self._ffn(self._proj(x, out, blk), blk)
+            return self._logits(x).argmax(dim=-1)
+
+        _maybe_analyze("decode", (len(pos),), body, (cache,))
+        return cache, body(cache).cpu().numpy()
 
     # -- chunked prefill ------------------------------------------------------
 
@@ -520,8 +551,12 @@ class TransformerAdapter:
         ``tables[i]``.  Returns ``(cache, next_tokens)`` — the argmax at
         each chunk's last position; the pool is updated in place."""
         args = self._pack_chunk_args(cache, chunks, starts, tables)
-        logits = self._chunk_forward(cache, *args)
-        return cache, logits.argmax(dim=-1).cpu().numpy()[:len(chunks)]
+
+        def body(cache):
+            return self._chunk_forward(cache, *args).argmax(dim=-1)
+
+        _maybe_analyze("prefill_chunk", args[0].shape, body, (cache,))
+        return cache, body(cache).cpu().numpy()[:len(chunks)]
 
     @torch.no_grad()
     def prefill_chunk_logits(self, cache, chunks, starts, tables):
@@ -531,8 +566,12 @@ class TransformerAdapter:
         (an n-way fork draws n tokens from one logit row, each with its
         own key).  Greedy batches keep ``prefill_chunk``."""
         args = self._pack_chunk_args(cache, chunks, starts, tables)
-        logits = self._chunk_forward(cache, *args)
-        return cache, logits[:len(chunks)].cpu().numpy()
+
+        def body(cache):
+            return self._chunk_forward(cache, *args)
+
+        _maybe_analyze("prefill_chunk_logits", args[0].shape, body, (cache,))
+        return cache, body(cache)[:len(chunks)].cpu().numpy()
 
     @torch.no_grad()
     def verify_chunk(self, cache, chunks, starts, tables):
@@ -545,9 +584,13 @@ class TransformerAdapter:
         like a prefill chunk, so on a card it runs the prefill route
         from a start that need not be block-aligned."""
         args = self._pack_chunk_args(cache, chunks, starts, tables)
-        x = self._chunk_body(cache, *args)
+
+        def body(cache):
+            return self._logits(self._chunk_body(cache, *args))
+
+        _maybe_analyze("verify_chunk", args[0].shape, body, (cache,))
         n, c = len(chunks), max(len(ch) for ch in chunks)
-        return cache, self._logits(x)[:n, :c].cpu().numpy()
+        return cache, body(cache)[:n, :c].cpu().numpy()
 
     @torch.no_grad()
     def prompt_logits(self, prompt: Sequence[int]) -> np.ndarray:
@@ -622,8 +665,12 @@ class TransformerAdapter:
     @torch.no_grad()
     def decode_paged(self, cache, tokens, positions, tables):
         """One greedy token step for the whole (fixed-width) batch."""
-        logits = self._paged_step_body(cache, tokens, positions, tables)
-        return cache, logits.argmax(dim=-1).cpu().numpy()
+        def body(cache):
+            return self._paged_step_body(cache, tokens, positions,
+                                         tables).argmax(dim=-1)
+
+        _maybe_analyze("decode_paged", (len(tokens),), body, (cache,))
+        return cache, body(cache).cpu().numpy()
 
     @torch.no_grad()
     def decode_paged_logits(self, cache, tokens, positions, tables,
@@ -633,7 +680,12 @@ class TransformerAdapter:
         ``horovod_tpu/serve/engine.py:1019``); ``on_device`` keeps them
         on the adapter's device, where the engine's host-mode decode
         step (rows with a grammar mask or a logprobs request) draws."""
-        logits = self._paged_step_body(cache, tokens, positions, tables)
+        def body(cache):
+            return self._paged_step_body(cache, tokens, positions, tables)
+
+        _maybe_analyze("decode_paged_logits", (len(tokens),), body,
+                       (cache,))
+        logits = body(cache)
         return cache, logits if on_device else logits.cpu().numpy()
 
     @torch.no_grad()
@@ -651,8 +703,14 @@ class TransformerAdapter:
         packed = torch.as_tensor(_sampling.pack_params(
             keys, np.asarray(positions, np.int64) + 1, temps, top_ks,
             top_ps), device=self.device)
-        logits = self._paged_step_body(cache, tokens, positions, tables)
-        return cache, _sampling.sample_batched(logits, packed).cpu().numpy()
+
+        def body(cache):
+            return _sampling.sample_batched(self._paged_step_body(
+                cache, tokens, positions, tables), packed)
+
+        _maybe_analyze("decode_paged_sampled", (len(tokens),), body,
+                       (cache,))
+        return cache, body(cache).cpu().numpy()
 
     @torch.no_grad()
     def draft_decode(self, cache, tokens, positions, tables):
@@ -666,9 +724,12 @@ class TransformerAdapter:
                 "no draft stack configured: set HVD_SERVE_DRAFT_LAYERS "
                 ">= 1 (or pass draft_layers=) to enable speculative "
                 "decoding")
-        logits = self._paged_step_body(cache, tokens, positions, tables,
-                                       self.draft_layers)
-        return cache, logits.argmax(dim=-1).cpu().numpy()
+        def body(cache):
+            return self._paged_step_body(cache, tokens, positions, tables,
+                                         self.draft_layers).argmax(dim=-1)
+
+        _maybe_analyze("draft_decode", (len(tokens),), body, (cache,))
+        return cache, body(cache).cpu().numpy()
 
     @torch.no_grad()
     def copy_block(self, cache, src: int, dst: int):
@@ -728,33 +789,41 @@ class TransformerAdapter:
         if hop_len:
             hop_k = torch.as_tensor(hop_k, dtype=torch.float32, device=dev)
             hop_v = torch.as_tensor(hop_v, dtype=torch.float32, device=dev)
-        x = self._embed(np.asarray(chunk, np.int64)[None], pos[None])
-        for layer, blk in enumerate(self.params["blocks"]):
-            q, k, v = self._qkv(x, blk)                  # [1, c, H, Dh]
-            self._scatter(pool, layer, rows, k, v)
-            q32 = q.float()
-            acc, m, l_ = _ring.ragged_fold_init(q32)
-            if hop_len:
-                # Hop buffers first, then the local extent: the ring
-                # schedule's fold order.
+
+        def body(pool):
+            x = self._embed(np.asarray(chunk, np.int64)[None], pos[None])
+            for layer, blk in enumerate(self.params["blocks"]):
+                q, k, v = self._qkv(x, blk)              # [1, c, H, Dh]
+                self._scatter(pool, layer, rows, k, v)
+                q32 = q.float()
+                acc, m, l_ = _ring.ragged_fold_init(q32)
+                if hop_len:
+                    # Hop buffers first, then the local extent: the ring
+                    # schedule's fold order.
+                    acc, m, l_ = _ring.ragged_fold(
+                        q32, hop_k[layer][None, :hop_len],
+                        hop_v[layer][None, :hop_len], q_start=int(q_start),
+                        k_start=0, k_len=int(hop_len), acc=acc, m=m, l=l_,
+                        scale=scale)
+                ek = pool["k"][layer][gather]
+                ev = pool["v"][layer][gather]
+                if self._kv_quantized:
+                    ek = _pa.dequantize_kv(ek,
+                                           pool["k_scale"][layer][gather])
+                    ev = _pa.dequantize_kv(ev,
+                                           pool["v_scale"][layer][gather])
                 acc, m, l_ = _ring.ragged_fold(
-                    q32, hop_k[layer][None, :hop_len],
-                    hop_v[layer][None, :hop_len], q_start=int(q_start),
-                    k_start=0, k_len=int(hop_len), acc=acc, m=m, l=l_,
-                    scale=scale)
-            ek = pool["k"][layer][gather]
-            ev = pool["v"][layer][gather]
-            if self._kv_quantized:
-                ek = _pa.dequantize_kv(ek, pool["k_scale"][layer][gather])
-                ev = _pa.dequantize_kv(ev, pool["v_scale"][layer][gather])
-            acc, m, l_ = _ring.ragged_fold(
-                q32, ek.float().reshape(1, nloc * BT, H, Dh),
-                ev.float().reshape(1, nloc * BT, H, Dh),
-                q_start=int(q_start), k_start=int(extent_start),
-                k_len=local_len, acc=acc, m=m, l=l_, scale=scale)
-            out = _ring.ragged_fold_finish(acc, m, l_, dtype=self._dtype)
-            x = self._ffn(self._proj(x, out, blk), blk)
-        return pool, self._logits(x[0, c - 1]).cpu().numpy()
+                    q32, ek.float().reshape(1, nloc * BT, H, Dh),
+                    ev.float().reshape(1, nloc * BT, H, Dh),
+                    q_start=int(q_start), k_start=int(extent_start),
+                    k_len=local_len, acc=acc, m=m, l=l_, scale=scale)
+                out = _ring.ragged_fold_finish(acc, m, l_,
+                                               dtype=self._dtype)
+                x = self._ffn(self._proj(x, out, blk), blk)
+            return self._logits(x[0, c - 1])
+
+        _maybe_analyze("sp_prefill_chunk", (c,), body, (pool,))
+        return pool, body(pool).cpu().numpy()
 
 
 class MLPAdapter:
@@ -789,15 +858,22 @@ class MLPAdapter:
         return _memplan.params_bytes(self.mlp)
 
     @torch.no_grad()
-    def _logits_of(self, tokens) -> torch.Tensor:
+    def _logits_of(self, tokens, kind: Optional[str] = None
+                   ) -> torch.Tensor:
         """f32 logits [..., V] of the next token after each of
-        ``tokens``."""
+        ``tokens``; ``kind`` names the program for ``_maybe_analyze``
+        (keyed on the token array's shape)."""
         t = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        if kind is not None:
+            _maybe_analyze(kind, tuple(t.shape), self._forward, (t,))
+        return self._forward(t)
+
+    def _forward(self, t: torch.Tensor) -> torch.Tensor:
         x = F.one_hot(t.reshape(-1), self.vocab_size).float()
         return self.mlp(x).float().reshape(*t.shape, self.vocab_size)
 
-    def _next(self, tokens) -> np.ndarray:
-        return self._logits_of(tokens).argmax(dim=-1).cpu().numpy()
+    def _next(self, tokens, kind: Optional[str] = None) -> np.ndarray:
+        return self._logits_of(tokens, kind).argmax(dim=-1).cpu().numpy()
 
     def init_cache(self, max_batch: int):
         return {}
@@ -806,15 +882,16 @@ class MLPAdapter:
         return {}
 
     def prefill(self, cache, prompts, slots):
-        return cache, self._next([p[-1] for p in prompts])
+        return cache, self._next([p[-1] for p in prompts], "prefill")
 
     def prefill_chunk(self, cache, chunks, starts, tables):
         # The next token depends only on the chunk's last token; a
         # non-final chunk's output is ignored by the engine.
-        return cache, self._next([ch[-1] for ch in chunks])
+        return cache, self._next([ch[-1] for ch in chunks], "prefill_chunk")
 
     def prefill_chunk_logits(self, cache, chunks, starts, tables):
-        return cache, self._logits_of([ch[-1] for ch in chunks]).cpu().numpy()
+        return cache, self._logits_of([ch[-1] for ch in chunks],
+                                      "prefill_chunk_logits").cpu().numpy()
 
     def verify_chunk(self, cache, chunks, starts, tables):
         # Markov chain: the logits at chunk position j depend only on the
@@ -823,17 +900,17 @@ class MLPAdapter:
         tok = np.zeros((n, c), np.int64)
         for i, ch in enumerate(chunks):
             tok[i, :len(ch)] = ch
-        return cache, self._logits_of(tok).cpu().numpy()
+        return cache, self._logits_of(tok, "verify_chunk").cpu().numpy()
 
     def decode(self, cache, tokens, positions):
-        return cache, self._next(tokens)
+        return cache, self._next(tokens, "decode")
 
     def decode_paged(self, cache, tokens, positions, tables):
-        return self.decode(cache, tokens, positions)
+        return cache, self._next(tokens, "decode_paged")
 
     def decode_paged_logits(self, cache, tokens, positions, tables,
                             on_device: bool = False):
-        logits = self._logits_of(tokens)
+        logits = self._logits_of(tokens, "decode_paged_logits")
         return cache, logits if on_device else logits.cpu().numpy()
 
     def prompt_logits(self, prompt) -> np.ndarray:
@@ -855,12 +932,12 @@ class MLPAdapter:
         packed = torch.as_tensor(_sampling.pack_params(
             keys, np.asarray(positions, np.int64) + 1, temps, top_ks,
             top_ps), device=self.device)
-        logits = self._logits_of(tokens)
+        logits = self._logits_of(tokens, "decode_paged_sampled")
         return cache, _sampling.sample_batched(logits, packed).cpu().numpy()
 
     def draft_decode(self, cache, tokens, positions, tables):
         # The draft IS the target (perfect proposer).
-        return self.decode(cache, tokens, positions)
+        return cache, self._next(tokens, "draft_decode")
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,11 @@ in split-precision TF32; its rounding bound is
 A wrapper given CUDA tensors launches the kernel or raises; given CPU
 tensors it computes the plain version, ``paged_attention_reference``
 (the JAX package's gather reference: clamped take over the tables,
-positional and hole masks, dense softmax).  The engine's
-``attn_impl="gather"`` calls the plain version directly on any device.
+positional and hole masks, dense softmax).  Given fake tensors (an
+``HVD_ANALYZE`` trace, ``analysis/graph_check.py``) it returns an empty
+output of the kernel's shape and dtype, launching and counting nothing.
+The engine's ``attn_impl="gather"`` calls the plain version directly on
+any device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..parallel.flash import MASK_CAUSAL, MASK_NONE, MASK_STRICT, NEG_INF
 
@@ -211,6 +215,10 @@ def _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
 
 def _paged_call(q, k_pool, v_pool, tables, positions, k_scale, v_scale,
                 scale, mask_mode):
+    if isinstance(q, FakeTensor):
+        # An analysis trace (analysis/graph_check.py): the kernel's
+        # output, empty — no launch, no count.
+        return q.new_empty(q.shape, dtype=torch.float32)
     if q.is_cuda:
         return _paged_cuda(q, k_pool, v_pool, tables, positions, k_scale,
                            v_scale, scale, mask_mode)

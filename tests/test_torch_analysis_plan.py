@@ -3,8 +3,9 @@ against the JAX package's.
 
 * ``check_pool_budget`` and ``check_replica_plan`` return ``to_dict()``s
   equal to the JAX package's on every key the port's reports keep (the
-  port's reports are cut to the fields a budget check sets; JAX's also
-  carry its trace-time census's empty fields), on the same sizes and
+  trace-time walks' fields too, empty in a budget check; the port's comm
+  report leaves out JAX's cross-host and reshard fields), on the same
+  sizes and
   budgets, given as arguments or read from ``HVD_MEM_BUDGET_BYTES`` /
   ``HVD_COMM_BUDGET_BYTES`` — set, unset, empty (read as unset) and
   malformed (read as "no budget").  A finding's ``fix_hint`` is left out
@@ -102,7 +103,8 @@ def test_pool_budget_matches_jax(pool, weights, budget):
     _same(got, want)
     assert set(got.to_dict()) == {"label", "peak_live_bytes", "input_bytes",
                                   "output_bytes", "budget_bytes",
-                                  "headroom_bytes"}
+                                  "headroom_bytes", "upcast_f32_bytes",
+                                  "by_primitive"}
     assert got.ok() == want.ok()
 
 
@@ -123,7 +125,9 @@ def test_replica_plan_matches_jax_under_env_budgets(monkeypatch, mem_env,
     want = jax_shardplan.check_replica_plan("serve:r:plan", **kw)
     _same(got, want)
     assert set(got.comm) == {"label", "total_wire_bytes", "budget_bytes",
-                             "headroom_bytes"}
+                             "headroom_bytes", "dynamic_loops",
+                             "axes_declared", "axes_used", "by_primitive",
+                             "by_axis"}
     assert got.go == want.go
     pool = memplan.check_pool_budget("serve:r:kv-pool", 1000, 500)
     jpool = jax_memplan.check_pool_budget("serve:r:kv-pool", 1000, 500)

@@ -1981,3 +1981,45 @@ def test_sp_prefill_on_the_card_matches_single_rank(cuda_device, plen):
     for key in cpool:
         np.testing.assert_allclose(kpool[key].cpu().numpy(),
                                    cpool[key].numpy(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_analysis_trace_on_card_tensors_launches_nothing(cuda_device):
+    """An ``HVD_ANALYZE`` trace (``analysis/graph_check.py``) of
+    ``decode_paged`` and of a flash forward and backward on card tensors
+    takes the wrappers' fake branch: ``LAUNCHES`` / ``LAUNCHES_BY_MODE``
+    do not move and the pool is untouched; the next real call still
+    launches each kernel."""
+    from horovod_tpu_torch.analysis import graph_check
+    model = _surface_model(cuda_device)
+    ad = TransformerAdapter(_TINY, model, block_tokens=8, attn_impl="kernel",
+                            device=cuda_device)
+    prompts = [list(range(3, 12)), list(range(5, 9))]
+    pool, tables = _prefilled(ad, prompts)
+    tab = np.full((2, ad.max_blocks_per_seq), 24)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    tokens, positions = np.array([3, 5]), np.array([9, 4])
+    saved = {k: v.clone() for k, v in pool.items()}
+    q = torch.randn(2, 128, 2, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+
+    def flash_step(q):
+        out = tfl.flash_attention(q, q, q, causal=True)
+        return torch.autograd.grad(out.float().sum(), [q])
+
+    counts = (dict(tpa.LAUNCHES), dict(tfl.LAUNCHES),
+              dict(tfl.LAUNCHES_BY_MODE))
+    graph_check.trace(
+        lambda c: ad._paged_step_body(c, tokens, positions, tab), (pool,))
+    graph_check.trace(flash_step, (q,))
+    assert (dict(tpa.LAUNCHES), dict(tfl.LAUNCHES),
+            dict(tfl.LAUNCHES_BY_MODE)) == counts
+    for k in pool:
+        assert torch.equal(pool[k], saved[k]), k
+    ad.decode_paged(pool, tokens, positions, tab)
+    assert tpa.LAUNCHES["paged_attention_decode"] - \
+        counts[0]["paged_attention_decode"] == _TINY.num_layers
+    flash_step(q)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert tfl.LAUNCHES[name] == counts[1][name] + 1, name

@@ -88,7 +88,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "analysis.findings", "analysis.rules", "analysis.linter",
                  "analysis.lockgraph", "analysis.witness",
                  "analysis.memplan", "analysis.shardplan", "analysis.cli",
-                 "analysis.__main__"):
+                 "analysis.__main__", "analysis.graph_check",
+                 "analysis.hook"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -256,6 +257,14 @@ COPY_EDITS = {
     # No --mem pass (torch has no donate_argnums to read).
     "analysis/cli.py": dict(removed={"_run_mem", "run_commandline"},
                             changed={"PASSES", "build_parser"}),
+    # The graph source is a make_fx trace: analyze_traceable walks its
+    # graph (no donation to read; shard_step's specs feed HVD402), and
+    # DistributedOptimizer calls analyze_reduction where optax's update
+    # was wrapped.
+    "analysis/hook.py": dict(
+        removed={"wrap_optimizer", "_maybe_analyze_update"},
+        changed={"analyze_traceable"},
+        added={"analyze_reduction", "next_instance"}),
 }
 
 
@@ -322,8 +331,8 @@ def test_analysis_package_is_under_the_ban():
              if os.sep + "analysis" + os.sep in f]
     assert sorted(os.path.basename(f) for f in files) == [
         "__init__.py", "__main__.py", "cli.py", "findings.py",
-        "linter.py", "lockgraph.py", "memplan.py", "rules.py",
-        "shardplan.py", "witness.py"]
+        "graph_check.py", "hook.py", "linter.py", "lockgraph.py",
+        "memplan.py", "rules.py", "shardplan.py", "witness.py"]
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
