@@ -251,7 +251,26 @@ Phases, each of which exits non-zero on failure:
    report without HVD100-HVD102, the same flash launches and loss), and
    the step's walks one byte over a memory and a comm budget (HVD302,
    HVD401);
-18. print the card's name and power limit, one JSON line of phase 7's
+18. the cluster integrations: (a) the three flash kernels at the
+   integrations' attention shape ([8, 256, 12, 64] bf16, causal) against
+   their plain versions, timed; (b) ``HorovodTpuEstimator.fit`` trains
+   GPT-2 small at full width and depth (bf16, causal flash, AdamW) on 96
+   rows of 257 tokens (validation 0.25, batch 8, 1 epoch) through
+   ``hvd.run`` in one NCCL worker process on the card: the history's
+   loss must be finite and below ln(vocab), the worker's flash launches
+   12 × steps (dQ, dK/dV) and 12 × (steps + validation forwards)
+   (forward), and ``TpuTransformer.load`` of the saved transformer must
+   predict 4 rows as the smoke's own model holding the checkpoint; (c)
+   ``spark.run_elastic`` over a thread task pool at ``num_proc=1``:
+   GPT-2 small at 2 layers for 6 steps under ``hvd.elastic.run``, the
+   first incarnation killed after its commit of step 3, the respawned
+   one resuming from the spill at step 3 to step 6 in world version >=
+   1; (d) the NIC probe CLI against a ``KVStoreServer`` in this process
+   over the machine's own interfaces, ``discover_common_address``
+   choosing the address; one ``{"integrations": ...}`` line with the
+   parts' seconds, the time from ``fit`` to the worker's first step, the
+   fit's steps a second, the kill-to-resume seconds and the launches;
+19. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
@@ -259,10 +278,11 @@ Phases, each of which exits non-zero on failure:
    and after), one of phase 13's (``{"serve_surface": ...}``), one of
    phase 14's (``{"fleet": ...}``), one of phase 15's
    (``{"tiering": ...}``), one of phase 16's (``{"analysis": ...}``), one
-   of phase 17's (``{"trace_analysis": ...}``), one JSON
+   of phase 17's (``{"trace_analysis": ...}``), one of phase 18's
+   (``{"integrations": ...}``), one JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
-   phase 8's and one, ``*_gpt2_small``, for phases 9 and 17's,
+   phase 8's and one, ``*_gpt2_small``, for phases 9, 17 and 18's,
    ``*_ring_hop`` and ``*_ulysses`` for phase 10's and ``*_moe`` for
    phase 11's, each with that path's launches, counted from 0, and the
    error and times at its shape; the paged kernels' launches sum phases
@@ -5450,6 +5470,452 @@ def trace_phase(torch, device, rehearsal, seed):
     return paged, flash, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the cluster integrations
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's attention shape on the integrations' path: 8 sequences of
+# 256 tokens, 12 heads of 64, causal.
+INTEGRATION_BATCH, INTEGRATION_SEQ = 8, 256
+
+
+def integration_gpt2(rehearsal, layers):
+    """GPT-2 small's overrides on the integrations' path: bf16 compute,
+    causal flash attention, ``layers`` blocks (a tiny f32 model in the
+    rehearsal)."""
+    import torch
+    if rehearsal:
+        return dict(num_layers=2, num_heads=2, d_model=32, d_ff=64,
+                    vocab_size=97, max_len=64, attention_impl="flash",
+                    dtype=torch.float32)
+    return dict(num_layers=layers, attention_impl="flash",
+                dtype=torch.bfloat16)
+
+
+def integration_tokens(rehearsal, seed, rows, vocab):
+    """``rows`` rows of S + 1 token ids from numpy at ``seed``, drawn from
+    the first 512 ids (a quarter of the tiny vocabulary in the rehearsal):
+    a distribution the model starts to learn in a few steps, so the
+    epoch's loss falls below ln(vocab)."""
+    S = 16 if rehearsal else INTEGRATION_SEQ
+    return np.random.RandomState(seed).randint(0, min(512, vocab // 4),
+                                               (rows, S + 1))
+
+
+def reset_flash_counts():
+    from horovod_tpu_torch.parallel import flash as fl
+    for counts in (fl.LAUNCHES, fl.LAUNCHES_BY_MODE):
+        for name in counts:
+            counts[name] = 0
+
+
+class FitProbe:
+    """A fit callback (pickled to the estimator's workers): sets the
+    worker's flash counts to 0 at train begin, notes the wall clock at
+    train and epoch begin and end, and writes the worker's counts, clocks
+    and device into each epoch's logs, which come back in the history."""
+
+    def on_train_begin(self, state=None):
+        reset_flash_counts()
+        self.t_train_begin = time.time()
+
+    def on_epoch_begin(self, epoch, state=None):
+        self.t_epoch_begin = time.time()
+
+    def on_epoch_end(self, epoch, logs=None, state=None):
+        import torch
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.parallel import flash as fl
+        dev = hvd.device()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        logs["probe"] = {
+            "t_train_begin": self.t_train_begin,
+            "t_epoch_begin": self.t_epoch_begin, "t_epoch_end": time.time(),
+            "launches": dict(fl.LAUNCHES),
+            "by_mode": dict(fl.LAUNCHES_BY_MODE),
+            "device": str(dev),
+            "card": torch.cuda.get_device_name(dev)
+            if dev.type == "cuda" else None}
+
+
+def estimator_fit(torch, device, rehearsal, seed, layers, failures):
+    """Phase 18 (b): ``HorovodTpuEstimator.fit`` trains GPT-2 small
+    (``layers`` blocks, full width, bf16, causal flash) through
+    ``hvd.run`` at ``num_proc=1``, one NCCL worker process on the card:
+    96 rows of 257 tokens (features the first 256, labels the shifted
+    256), ``validation=0.25``, batch 8, 1 epoch, AdamW.  Then
+    ``TpuTransformer.load`` of the saved transformer (rank 0's
+    checkpoint) predicts 4 rows against the smoke's own model holding
+    those weights.  Returns the numbers and the worker's flash counts."""
+    import functools
+    import os
+    import tempfile
+    import pandas as pd
+    import pyarrow.parquet as pq
+    from horovod_tpu_torch.models import create_gpt2
+    from horovod_tpu_torch.parallel import flash as fl
+    from horovod_tpu_torch.spark import (HorovodTpuEstimator, LocalStore,
+                                         TpuTransformer)
+    kw = integration_gpt2(rehearsal, layers)
+    model = create_gpt2("small", device="cpu", seed=seed, **kw)
+    V, L = model.cfg.vocab_size, model.cfg.num_layers
+    toks = integration_tokens(rehearsal, seed, 96, V)
+    df = pd.DataFrame({"tokens": list(toks[:, :-1]),
+                       "labels": list(toks[:, 1:])})
+    work = tempfile.mkdtemp(prefix="hvd_integrations_")
+    store = LocalStore(os.path.join(work, "store"))
+    est = HorovodTpuEstimator(
+        model=model, loss="sparse_categorical_crossentropy",
+        optimizer=functools.partial(torch.optim.AdamW, lr=1e-3,
+                                    weight_decay=1e-4),
+        feature_cols=["tokens"], label_cols=["labels"],
+        batch_size=INTEGRATION_BATCH, epochs=1, validation=0.25,
+        store=store, num_proc=1, verbose=0, random_seed=seed,
+        callbacks=[FitProbe()],
+        worker_platform="cpu" if rehearsal else None)
+    saved = os.environ.get("HVD_TPU_COORD_PORT")
+    t_fit = time.time()
+    try:
+        transformer = est.fit(df)
+    finally:
+        # The launcher picks the world's store port into the environment.
+        if saved is None:
+            os.environ.pop("HVD_TPU_COORD_PORT", None)
+        else:
+            os.environ["HVD_TPU_COORD_PORT"] = saved
+    t_done = time.time()
+    hist = est.history
+    probe = hist[0].pop("probe") if hist and "probe" in hist[0] else {}
+    train_rows = pq.ParquetFile(store.get_parquet_files(
+        store.get_train_data_path())[0]).metadata.num_rows
+    vfile = pq.ParquetFile(store.get_parquet_files(
+        store.get_val_data_path())[0])
+    val_groups = sum(1 for g in range(vfile.num_row_groups)
+                     if vfile.metadata.row_group(g).num_rows)
+    steps = train_rows // INTEGRATION_BATCH
+    launches = probe.get("launches", {})
+    by_mode = probe.get("by_mode", {})
+    loss = hist[0]["loss"] if hist else float("nan")
+    if not (len(hist) == 1 and np.isfinite(loss) and loss < np.log(V)
+            and np.isfinite(hist[0].get("val_loss", np.nan))):
+        failures.append(f"(b) history {hist}: want one epoch with a finite "
+                        f"loss below ln {V} = {np.log(V):.4f} and a val_loss")
+    want = {"flash_fwd": L * (steps + val_groups), "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    if not rehearsal:
+        got = {k: launches.get(f"{k}_wgmma") for k in want}
+        if got != want or any(launches.get(f"{k}_tf32x3") for k in want) \
+                or any(by_mode.get(f"{k}_wgmma_causal") != n
+                       for k, n in want.items()):
+            failures.append(f"(b) worker flash launches {launches}: want "
+                            f"{want} on the wgmma route, all causal")
+        if not (probe.get("device", "").startswith("cuda")):
+            failures.append(f"(b) the worker trained on {probe.get('device')}")
+    # The transformer from the saved file against the smoke's own model
+    # holding rank 0's checkpoint, on 4 rows, both on this process's
+    # device with the same kernels.
+    path = os.path.join(work, "transformer.pkl")
+    transformer.save(path)
+    loaded = TpuTransformer.load(path, device=device)
+    X = toks[:4, :-1]
+    pred = loaded.predict(X)
+    own = create_gpt2("small", device=device, seed=None, **kw)
+    ckpt = store.read_obj(store.get_checkpoint_path(transformer.run_id))
+    own.load_state_dict(ckpt["params"])
+    own.eval()
+    with torch.no_grad():
+        ref = own(torch.as_tensor(X, device=device))
+    err = float((pred.float() - ref.float()).abs().max())
+    (rt, at), _ = FLASH_TOL["bfloat16" if not rehearsal else "float32"]
+    if not rehearsal:
+        at *= float(ref.float().abs().max())
+    close = bool(torch.isfinite(pred).all()) and tuple(pred.shape) == (
+        4, X.shape[1], V) and bool(torch.allclose(pred.float(), ref.float(),
+                                                  rtol=rt, atol=at))
+    if not close:
+        failures.append(f"(b) the loaded transformer's logits differ from "
+                        f"the model holding the checkpoint: max abs err "
+                        f"{err:.3e} (rtol {rt}, atol {at:.3e})")
+    del loaded, own, pred, ref
+    numbers = {
+        "layers": L, "rows": int(toks.shape[0]), "train_rows": train_rows,
+        "val_row_groups": val_groups, "steps": steps,
+        "history": hist, "fit_s": t_done - t_fit,
+        "fit_to_train_begin_s": probe.get("t_train_begin", t_fit) - t_fit,
+        "fit_to_first_step_s": probe.get("t_epoch_begin", t_fit) - t_fit,
+        "epoch_s": probe.get("t_epoch_end", 0.0)
+        - probe.get("t_epoch_begin", 0.0),
+        "worker_device": probe.get("device"),
+        "worker_card": probe.get("card"),
+        "transform_max_abs_err": err, "transform_bits_equal": err == 0.0,
+        "launches": {k: launches.get(f"{k}_wgmma", 0) for k in want},
+        "launches_by_mode": {k: {m: by_mode.get(f"{k}_wgmma_{m}", 0)
+                                 for m in fl.MODE_NAMES} for k in want},
+        "want_launches": want}
+    # Steps a second over the epoch: its steps, first included, and its
+    # validation forwards.
+    numbers["steps_per_s"] = steps / numbers["epoch_s"] \
+        if numbers["epoch_s"] > 0 else None
+    log(f"  (b) fit of GPT-2 small ({L} layers): history {hist}; fit "
+        f"{numbers['fit_s']:.1f} s, to the worker's first step "
+        f"{numbers['fit_to_first_step_s']:.1f} s, {steps} steps + "
+        f"{val_groups} validation forwards in {numbers['epoch_s']:.2f} s; "
+        f"worker launches {numbers['launches']} (want {want}); transform "
+        f"max abs err {err:.3e}")
+    return numbers, {k: launches.get(f"{k}_wgmma", 0) for k in want}
+
+
+def elastic_gpt2_fn(spill_dir, marker, device_name, rehearsal, seed):
+    """Phase 18 (c)'s function, run by ``spark.run_elastic`` in a task's
+    worker process: GPT-2 small at 2 layers and full width (bf16, causal
+    flash, AdamW) for 6 steps under ``hvd.elastic.run`` with
+    ``TorchState`` committing (and spilling to ``spill_dir``) at step
+    3.  The first incarnation (no ``marker`` yet) writes its kill time
+    and flash counts to ``marker`` and exits with ``os._exit`` after the
+    commit of step 3."""
+    import os
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import create_gpt2, lm_loss
+    from horovod_tpu_torch.parallel import flash as fl
+    t_start = time.time()
+    hvd.init(device=device_name)
+    dev = hvd.device()
+    model = create_gpt2("small", device=dev, seed=seed,
+                        **integration_gpt2(rehearsal, 2))
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    toks = torch.as_tensor(integration_tokens(
+        rehearsal, seed, INTEGRATION_BATCH, model.cfg.vocab_size),
+        device=dev)
+    state = hvd.elastic.TorchState(model, opt, spill_dir=spill_dir, step=0)
+    seen = {}
+    reset_flash_counts()
+
+    @hvd.elastic.run
+    def train(state):
+        seen.setdefault("entry_step", state.step)
+        seen.setdefault("t_entry", time.time())
+        while state.step < 6:
+            opt.zero_grad()
+            loss = lm_loss(model(toks[:, :-1]), toks[:, 1:])
+            loss.backward()
+            opt.step()
+            state.step += 1
+            seen.setdefault("t_first_step", time.time())
+            seen["loss"] = float(loss.detach())
+            if state.step == 3:
+                state.commit()
+            if state.step == 3 and not os.path.exists(marker):
+                with open(marker, "w") as f:
+                    json.dump({"t_kill": time.time(),
+                               "launches": dict(fl.LAUNCHES)}, f)
+                os._exit(1)
+        return state.step
+
+    end = train(state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = dict(seen, end_step=end, t_start=t_start,
+               world_version=int(os.environ["HVD_TPU_WORLD_VERSION"]),
+               rank=hvd.rank(), size=hvd.size(), device=str(dev),
+               launches=dict(fl.LAUNCHES))
+    hvd.shutdown()
+    return out
+
+
+def thread_task_pool(num_tasks, addr, port):
+    """``run_elastic``'s task pool as threads of this process running the
+    real ``task_pool_loop`` (as ``tests/test_spark_elastic.py`` does); a
+    join callable."""
+    from horovod_tpu_torch.spark.elastic import task_pool_loop
+    threads = [threading.Thread(target=task_pool_loop, args=(addr, port, i),
+                                kwargs={"hostname": "localhost"},
+                                daemon=True, name=f"se-task-{i}")
+               for i in range(num_tasks)]
+    for t in threads:
+        t.start()
+
+    def join(timeout=30.0):
+        for t in threads:
+            t.join(timeout)
+
+    return join
+
+
+def spark_elastic(torch, device, rehearsal, seed, failures):
+    """Phase 18 (c): ``spark.run_elastic`` at ``num_proc=1`` over the
+    thread task pool; the function's first incarnation dies after its
+    commit of step 3, the driver relaunches it in the task, and the new
+    incarnation resumes from the spill at step 3 and ends at step 6."""
+    import os
+    import tempfile
+    from horovod_tpu_torch.spark import run_elastic
+    work = tempfile.mkdtemp(prefix="hvd_spark_elastic_")
+    marker = os.path.join(work, "killed.json")
+    t0 = time.time()
+    results = run_elastic(
+        elastic_gpt2_fn,
+        args=(os.path.join(work, "spill"), marker,
+              "cpu" if rehearsal else "cuda", rehearsal, seed),
+        num_proc=1, start_timeout=120, elastic_timeout=300, reset_limit=3,
+        _task_pool_factory=thread_task_pool)
+    t1 = time.time()
+    killed = {}
+    if os.path.exists(marker):
+        with open(marker) as f:
+            killed = json.load(f)
+    r = results[0] if len(results) == 1 else {}
+    first = {k: killed.get("launches", {}).get(f"{k}_wgmma", 0)
+             for k in KERNELS}
+    second = {k: r.get("launches", {}).get(f"{k}_wgmma", 0)
+              for k in KERNELS}
+    numbers = {
+        "run_s": t1 - t0, "killed": bool(killed),
+        "entry_step": r.get("entry_step"), "end_step": r.get("end_step"),
+        "world_version": r.get("world_version"), "device": r.get("device"),
+        "loss": r.get("loss"),
+        "kill_to_process_start_s": r["t_start"] - killed["t_kill"]
+        if killed and r else None,
+        "kill_to_resume_s": r["t_entry"] - killed["t_kill"]
+        if killed and r else None,
+        "kill_to_first_step_s": r["t_first_step"] - killed["t_kill"]
+        if killed and r and "t_first_step" in r else None,
+        "launches_first_incarnation": first,
+        "launches_second_incarnation": second}
+    ok = (len(results) == 1 and killed and r.get("entry_step") == 3
+          and r.get("end_step") == 6 and (r.get("world_version") or 0) >= 1
+          and np.isfinite(r.get("loss", np.nan)))
+    if not rehearsal:
+        # 2 layers: the first incarnation ran steps 1-3, the second 4-6.
+        ok = ok and first == second == {k: 2 * 3 for k in KERNELS} \
+            and r.get("device", "").startswith("cuda")
+    if not ok:
+        failures.append(f"(c) run_elastic: {json.dumps(numbers)}")
+    log(f"  (c) run_elastic: killed after step 3, resumed at step "
+        f"{numbers['entry_step']} in world {numbers['world_version']}, ended "
+        f"at {numbers['end_step']}; kill to resume "
+        f"{numbers['kill_to_resume_s']} s, to its first step "
+        f"{numbers['kill_to_first_step_s']} s; run {numbers['run_s']:.1f} s")
+    return numbers, {k: first[k] + second[k] for k in KERNELS}
+
+
+def nic_discovery(failures):
+    """Phase 18 (d): the launcher's NIC probe over this machine's own
+    interfaces: a ``KVStoreServer`` in this process, the probe CLI
+    (``python -m horovod_tpu_torch.runner.nic_probe``, what the launcher
+    runs over ssh on a remote host) started as a local process with every
+    local address as a candidate, and ``discover_common_address``
+    choosing the address."""
+    import os
+    from horovod_tpu_torch.runner import nic_probe
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+    ifaces = nic_probe.local_interfaces(include_loopback=True)
+    server = KVStoreServer()
+    port = server.start()
+    root = os.path.dirname(os.path.abspath(__file__))
+    candidates = [a for addrs in ifaces.values() for a in addrs]
+    cand_arg = ",".join(f"{a}:{port}" for a in candidates)
+    probes = []
+
+    def spawn_probe(host):
+        # The discovery returns on the report, before the probe exits:
+        # the process is kept to be waited for below.
+        probes.append(subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.nic_probe",
+             "--candidates", cand_arg, "--host", host], cwd=root,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        probes[-1].wait(timeout=120)
+
+    t0 = time.time()
+    try:
+        common, routable = nic_probe.discover_common_address(
+            server, ["probe-host"], spawn_probe, candidates, port,
+            timeout=120)
+        report = json.loads(server.get(nic_probe.PROBE_SCOPE,
+                                       "report/probe-host"))
+    finally:
+        for p in probes:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        server.stop()
+    numbers = {"interfaces": ifaces, "common_interfaces": common,
+               "chosen": routable, "reachable": report["reachable"],
+               "probe_rc": [p.returncode for p in probes],
+               "by_interface": {n: nic_probe.addr_for_interfaces([n])
+                                for n in ifaces},
+               "seconds": time.time() - t0}
+    if not candidates or routable not in candidates or \
+            numbers["probe_rc"] != [0]:
+        failures.append(f"(d) NIC probe: {json.dumps(numbers)}")
+    log(f"  (d) NIC probe: interfaces {ifaces}; reachable "
+        f"{report['reachable']}; chose {routable}")
+    return numbers
+
+
+def integrations_phase(torch, device, rehearsal, seed):
+    """Phase 18: (a) the flash kernels at the integrations' shape, (b)
+    ``estimator_fit``, (c) ``spark_elastic``, (d) ``nic_discovery``.
+    Returns the workers' flash launches of (b) + (c) and the
+    ``{"integrations": ...}`` numbers."""
+    import importlib.util
+    from horovod_tpu_torch.parallel import flash as fl
+    failures = []
+    out = {"card": None if rehearsal else card_tag(),
+           "packages": {m: importlib.util.find_spec(m) is not None
+                        for m in ("cloudpickle", "pandas", "pyarrow",
+                                  "fsspec", "pyspark", "ray")}}
+    missing = [m for m in ("cloudpickle", "pandas", "pyarrow", "fsspec")
+               if not out["packages"][m]]
+    if missing:
+        raise SystemExit(f"phase 18 needs {missing}: the estimator writes "
+                         f"Parquet and ships its function with them")
+    out["parquet"] = True
+    seconds = {}
+    t0 = time.monotonic()
+    shape = (INTEGRATION_BATCH, INTEGRATION_SEQ, 12, 64)
+    if not rehearsal:
+        rng = np.random.RandomState(seed)
+        errs, ok, inputs, _ = flash_case(torch, fl, rng, shape,
+                                         torch.bfloat16, fl.MASK_CAUSAL,
+                                         device)
+        if not ok:
+            failures.append(f"(a) flash kernels at {list(shape)}: {errs}")
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+        out["kernels"] = flash_timing(
+            torch, fl, f"integrations {list(shape)} bfloat16 causal", shape,
+            torch.bfloat16, fl.MASK_CAUSAL, inputs, flush)
+        for k, e in errs.items():
+            out["kernels"][k]["max_abs_err"] = e
+        del flush, inputs
+    seconds["a"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["estimator"], fit_launches = estimator_fit(torch, device, rehearsal,
+                                                   seed, 12, failures)
+    seconds["b"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["elastic"], elastic_launches = spark_elastic(torch, device,
+                                                     rehearsal, seed,
+                                                     failures)
+    seconds["c"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["nic"] = nic_discovery(failures)
+    seconds["d"] = time.monotonic() - t0
+    out["part_seconds"] = seconds
+    launches = {k: fit_launches[k] + elastic_launches[k] for k in KERNELS}
+    out["launches"] = {"estimator": fit_launches, "elastic":
+                       elastic_launches, "total": launches}
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the integrations phase failed")
+    return launches, out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -5574,6 +6040,15 @@ def main(argv=None) -> int:
         torch, device, rehearsal, args.seed)
     log(f"  phase 17 took {time.monotonic() - t17:.1f} s")
 
+    log("phase 18: the cluster integrations (the Spark estimator through "
+        "hvd.run, spark.run_elastic, NIC probing)")
+    t18 = time.monotonic()
+    if not rehearsal:
+        torch.cuda.empty_cache()  # the worker processes share the card
+    integration_launches, integrations = integrations_phase(
+        torch, device, rehearsal, args.seed)
+    log(f"  phase 18 took {time.monotonic() - t18:.1f} s")
+
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
         log("rehearsal ok (CPU, plain versions, no device numbers)")
@@ -5589,6 +6064,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tiering": tiering}))
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"trace_analysis": trace_analysis}))
+    print(json.dumps({"integrations": integrations}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",
@@ -5681,10 +6157,12 @@ def main(argv=None) -> int:
                      "launches: the f32 step of phase 5"})
     for name, where in replaces.items():
         r = frec["gpt2-small"][name]
-        # The same wgmma kernels on phase 9's GPT-2-small path and phase
-        # 17 (b)'s (two optimizer steps, two shard_step steps), apart
-        # from phase 5's counts: their launches, the error and times at
-        # the shape.
+        # The same wgmma kernels on phase 9's GPT-2-small path, phase 17
+        # (b)'s (two optimizer steps, two shard_step steps) and phase
+        # 18's workers (the estimator's fit, the elastic run), apart from
+        # phase 5's counts: their launches, the error and times at phase
+        # 3's shape, and at phase 18's beside them.
+        ri = integrations["kernels"][name]
         kernels.append({
             "name": name + "_gpt2_small", "route": "cuda",
             "source": "horovod_tpu_torch/csrc/" + (
@@ -5692,17 +6170,26 @@ def main(argv=None) -> int:
                 else "flash_attention_bwd_sm90.cu"),
             "replaces": where,
             "launches": (eager_launches[name + "_wgmma"]
-                         + trace_flash[name + "_wgmma"]),
+                         + trace_flash[name + "_wgmma"]
+                         + integration_launches[name]),
             "launches_by_phase": {
                 "eager": eager_launches[name + "_wgmma"],
-                "trace_analysis": trace_flash[name + "_wgmma"]},
+                "trace_analysis": trace_flash[name + "_wgmma"],
+                "integrations": integration_launches[name]},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "integration_shape": {
+                f"{[INTEGRATION_BATCH, INTEGRATION_SEQ, 12, 64]} causal": {
+                    k: ri[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}},
             "shape": "GPT-2 small [4, 1024, 12, 64] bf16, causal, cold L2; "
-                     "launches: phase 9's 3 steps under the timeline and "
-                     "phase 17 (b)'s 4 steps"})
+                     "launches: phase 9's 3 steps under the timeline, "
+                     "phase 17 (b)'s 4 steps and phase 18's workers "
+                     "([8, 256, 12, 64]: the fit's steps and validation, "
+                     "the elastic run's 6 steps at 2 layers)"})
     from horovod_tpu_torch.parallel import flash as fl
     recs = seqpar["records"]
 

@@ -78,6 +78,14 @@ Ported so far:
   peak live bytes, wire bytes — with the reports in
   ``hvd.analysis_reports()``.
 
+* the cluster integrations: ``hvd.run(fn, np=...)`` (``runner/``), the
+  launcher's LSF / jsrun spawn and NIC probe, the Spark estimator
+  (``spark/``: ``HorovodTpuEstimator`` over a Parquet ``Store``,
+  ``TpuTransformer``), ``spark.run`` and ``spark.run_elastic``, and the
+  Ray executors (``ray.py``: ``RayExecutor``, ``ElasticRayExecutor``);
+  pyspark, ray, pandas, pyarrow, fsspec and cloudpickle are imported
+  only where they are used.
+
 ``distributed_gradient_transformation`` is optax's form of the
 optimizer and has no torch counterpart.
 
@@ -142,3 +150,6 @@ from . import checkpoint  # noqa: F401
 from . import elastic  # noqa: F401
 from . import data  # noqa: F401
 from .parallel import shard_step  # noqa: F401  (the hvd.shard_step idiom)
+from . import runner  # noqa: F401
+from . import spark  # noqa: F401
+run = runner.run  # launcher API (reference: horovod.run, runner/__init__.py:95)

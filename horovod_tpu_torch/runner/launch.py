@@ -5,14 +5,15 @@ its own copy because the card's machine has no jax, and every import of
 the JAX package's launcher runs ``horovod_tpu/__init__.py``).  Kept: the
 flags whose knobs the port reads, the static ``-np`` path
 (``_run_static``), the elastic path (``_run_elastic`` →
-``elastic/driver.py``), ``pick_coordinator_base_port`` and ``_run``.
-Left out: LSF / jsrun and NIC probing (a multi-host job names a routable
-address with ``--network-interface``), and the flags of knobs the port
-does not read (``--cycle-time-ms``, ``--hierarchical-allreduce``,
-``--hierarchical-allgather``, ``--thread-affinity``,
-``--log-with-timestamp``), so passing one is an error.  ``--gloo``,
-``--mpi``, ``--mpi-threads-disable`` and ``--num-nccl-streams`` are
-accepted and print that they are ignored.  ``--check-build`` reports
+``elastic/driver.py``), ``pick_coordinator_base_port``, ``_run``, LSF
+host discovery, ``--jsrun`` (``_jsrun_spawn`` and ``jsrun_shim.py``)
+and the NIC probe of a multi-host job (``nic_probe.py``;
+``--network-interface`` names the address instead).  Left out: the
+flags of knobs the port does not read (``--cycle-time-ms``,
+``--hierarchical-allreduce``, ``--hierarchical-allgather``,
+``--thread-affinity``, ``--log-with-timestamp``), so passing one is an
+error.  ``--gloo``, ``--mpi``, ``--mpi-threads-disable`` and
+``--num-nccl-streams`` are accepted and print that they are ignored.  ``--check-build`` reports
 what this build of PyTorch has.
 
 Each worker gets the slot's ``HOROVOD_*`` variables, the rendezvous
@@ -129,7 +130,15 @@ def parse_args(argv=None):
                         dest="disable_cache",
                         help="Disable the response cache.")
     parser.add_argument("--start-timeout", dest="start_timeout", type=int,
-                        default=600)
+                        help="Seconds the NIC probe of a multi-host job "
+                             "waits for its reports (default "
+                             "HVD_TPU_NIC_PROBE_TIMEOUT or 30) and an "
+                             "elastic job for its first slots (default "
+                             "600).")
+    parser.add_argument("--binding-args", dest="binding_args",
+                        help="jsrun binding arguments (replaces the "
+                             "generated --erf_input rankfile; reference "
+                             "launch.py --binding-args).")
 
     group_host = parser.add_argument_group("host arguments")
     group_host.add_argument("-H", "--hosts", dest="hosts",
@@ -144,6 +153,11 @@ def parse_args(argv=None):
     group_controller.add_argument("--mpi", "--use-mpi", dest="use_mpi",
                                   action="store_true",
                                   help="Compatibility no-op (single backend).")
+    group_controller.add_argument("--jsrun", "--use-jsrun",
+                                  dest="use_jsrun",
+                                  action="store_true",
+                                  help="Spawn every rank with one jsrun "
+                                       "inside an LSF allocation.")
 
     group_params = parser.add_argument_group("tuneable parameter arguments")
     group_params.add_argument("--fusion-threshold-mb", action=Store,
@@ -214,6 +228,30 @@ def parse_args(argv=None):
     if args.check_build:
         print(check_build())
         raise SystemExit(0)
+    if args.use_jsrun:
+        # jsrun as the spawn transport (reference launch.py:760
+        # run_controller -> js_run): one jsrun covers every rank; each
+        # task runs the jsrun_shim, which maps its JSM rank onto the
+        # rendezvous slot record.  The world is still NCCL / gloo.
+        from . import lsf
+        if not lsf.using_lsf():
+            parser.error(
+                "--jsrun requires an LSF allocation (LSB_JOBID is not "
+                "set). Outside LSF, launch with -H/--hostfile over "
+                "ssh/loopback instead.")
+        if not lsf.is_jsrun_installed():
+            parser.error(
+                "--jsrun: the jsrun executable is not on PATH in this "
+                "LSF allocation.")
+        if args.min_np is not None or args.max_np is not None or \
+                args.host_discovery_script is not None:
+            # The elastic driver respawns workers per reshape over
+            # ssh/loopback; jsrun has no per-worker respawn.
+            parser.error(
+                "--jsrun cannot be combined with elastic flags "
+                "(--min-np/--max-np/--host-discovery-script): elastic "
+                "worlds respawn workers over ssh/loopback. Run elastic "
+                "without --jsrun, or run --jsrun static.")
     if args.use_mpi or args.use_gloo:
         flag = "--mpi" if args.use_mpi else "--gloo"
         print(f"horovodrun: note: {flag} is accepted for compatibility and "
@@ -338,13 +376,24 @@ def _run_static(args, on_rendezvous=None) -> int:
     """Static (fixed world) launch (launch.py:594 _run_static).
 
     ``on_rendezvous`` (internal): called with the live RendezvousServer
-    after init."""
+    after init; ``runner.run`` reads the workers' results from its store."""
     if args.hostfile:
         host_list = _hosts.parse_host_files(args.hostfile)
     elif args.hosts:
         host_list = _hosts.parse_hosts(args.hosts)
     else:
-        host_list = [_hosts.HostInfo("localhost", args.np or 1)]
+        from . import lsf
+        if lsf.using_lsf() and (args.np is None or
+                                getattr(args, "use_jsrun", False)):
+            # Inside an LSF allocation the granted hosts are the world
+            # (reference launch.py:295 makes -np optional under LSF).  An
+            # explicit -np without --jsrun keeps the localhost default.
+            try:
+                host_list = lsf.lsf_hosts()
+            except RuntimeError as e:
+                raise SystemExit(f"horovodrun: {e}")
+        else:
+            host_list = [_hosts.HostInfo("localhost", args.np or 1)]
     np_ = args.np or sum(h.slots for h in host_list)
     assignments = _hosts.get_host_assignments(host_list, np_)
 
@@ -356,11 +405,52 @@ def _run_static(args, on_rendezvous=None) -> int:
     has_remote = any(not _is_local(h.hostname) for h in host_list)
     addr = socket.gethostbyname(socket.gethostname()) if has_remote \
         else "127.0.0.1"
-    if has_remote and args.nics:
-        # An explicit --network-interface names the launcher's address.
-        explicit = _addr_for_interfaces(args.nics.split(","))
-        if explicit:
-            addr = explicit
+    if has_remote:
+        # NIC selection (driver_service.py:122-194): an explicit
+        # --network-interface wins; otherwise probe every remote host and
+        # pick a launcher address they can all reach.
+        from . import nic_probe
+        if args.nics:
+            explicit = nic_probe.addr_for_interfaces(args.nics.split(","))
+            if explicit:
+                addr = explicit
+        else:
+            try:
+                import shlex
+                remote = sorted({h.hostname for h in host_list
+                                 if not _is_local(h.hostname)})
+                candidates = [addr] + [
+                    a for addrs in
+                    nic_probe.local_interfaces().values() for a in addrs
+                    if a != addr]
+                cand_arg = ",".join(f"{a}:{port}" for a in candidates)
+
+                def spawn_probe(host):
+                    cmd = ["ssh", "-o", "StrictHostKeyChecking=no"]
+                    if args.ssh_port:
+                        cmd += ["-p", str(args.ssh_port)]
+                    if args.ssh_identity_file:
+                        cmd += ["-i", args.ssh_identity_file]
+                    cmd += [host,
+                            f"cd {shlex.quote(os.getcwd())} && "
+                            f"{shlex.quote(sys.executable)} -m "
+                            f"horovod_tpu_torch.runner.nic_probe "
+                            f"--candidates {cand_arg} --host {host}"]
+                    safe_shell_exec.execute(cmd, env=dict(os.environ))
+
+                _, routable = nic_probe.discover_common_address(
+                    rendezvous, remote, spawn_probe, candidates, port,
+                    timeout=args.start_timeout or float(os.environ.get(
+                        "HVD_TPU_NIC_PROBE_TIMEOUT", "30")))
+                if routable:
+                    addr = routable
+                else:
+                    print(f"horovodrun: no probed launcher address was "
+                          f"reachable from all hosts; falling back to "
+                          f"{addr}", file=sys.stderr)
+            except Exception as e:
+                print(f"horovodrun: NIC probing failed ({e}); using "
+                      f"{addr}", file=sys.stderr)
     # The world's TCPStore runs inside rank 0's process.  With any remote
     # worker in the job, loopback would point remote workers at
     # themselves — use a routable name for rank 0's host instead.
@@ -374,6 +464,13 @@ def _run_static(args, on_rendezvous=None) -> int:
 
     base_env = {k: v for k, v in os.environ.items()}
     base_env.update(env_from_args(args))
+
+    if getattr(args, "use_jsrun", False):
+        try:
+            return _jsrun_spawn(args, assignments, base_env, addr, port,
+                                coordinator)
+        finally:
+            rendezvous.stop()
 
     threads = []
     rets = [None] * len(assignments)
@@ -428,22 +525,62 @@ def _run_static(args, on_rendezvous=None) -> int:
     return 0
 
 
-def _addr_for_interfaces(names) -> str:
-    """The IPv4 address of the first named interface that has one, or
-    "" (Linux: ``SIOCGIFADDR``)."""
-    import fcntl
-    import struct
-    for name in names:
-        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        try:
-            packed = fcntl.ioctl(s.fileno(), 0x8915,  # SIOCGIFADDR
-                                 struct.pack("256s", name[:15].encode()))
-            return socket.inet_ntoa(packed[20:24])
-        except OSError:
-            continue
-        finally:
-            s.close()
-    return ""
+def _jsrun_spawn(args, assignments, base_env, addr, port,
+                 coordinator) -> int:
+    """Spawn every rank with ONE jsrun invocation (js_run.py:34 js_run).
+
+    The ERF rankfile (js_run.py:96 generate_jsrun_rankfile) pins each
+    rank to its assigned host; per-rank worker env comes from the
+    rendezvous ``rank/{n}`` records via the jsrun_shim (jsrun starts all
+    tasks with an identical command line, so the shim is how rank
+    identity reaches the worker — the reference gets it from the MPI
+    runtime instead).  The reference's cpu-range math rides on Summit's
+    CSM queries; without CSM the ERF carries host pinning only and
+    ``--binding-args`` (if given) is passed through verbatim."""
+    import shlex
+    import tempfile
+
+    rankfile = None
+    if getattr(args, "binding_args", None):
+        # User-supplied binding replaces the generated rankfile entirely;
+        # it must still start exactly len(assignments) tasks — the shim
+        # checks its JSM world size against the slot record and fails
+        # fast on a mismatch instead of hanging the collective.
+        binding = shlex.split(args.binding_args)
+    else:
+        fd, rankfile = tempfile.mkstemp(prefix="hvd_tpu_erf_",
+                                        suffix=".txt")
+        with os.fdopen(fd, "w") as f:
+            f.write("overlapping_rs: allow\ncpu_index_using: logical\n")
+            for slot in assignments:
+                f.write(f"rank: {slot.rank}: "
+                        f"{{ hostname: {slot.hostname} }}\n")
+        binding = ["--erf_input", rankfile]
+    env = dict(base_env)
+    env.update({
+        _config.HOROVOD_RENDEZVOUS_ADDR: addr,
+        _config.HOROVOD_RENDEZVOUS_PORT: str(port),
+        "HVD_TPU_COORDINATOR": coordinator,
+    })
+    if args.output_filename:
+        # Keep --output-filename's per-rank directory contract (rank.N/
+        # stdout|stderr): the SHIM redirects each task — jsrun's
+        # --stdio_* flags write one interleaved file, a different shape.
+        env["HVD_TPU_OUTPUT_DIR"] = args.output_filename
+    cmd = (["jsrun"] + binding
+           + [sys.executable, "-m", "horovod_tpu_torch.runner.jsrun_shim"]
+           + args.command)
+    if args.verbose:
+        print("horovodrun: " + " ".join(shlex.quote(c) for c in cmd),
+              file=sys.stderr)
+    try:
+        return safe_shell_exec.execute(cmd, env=env)
+    finally:
+        if rankfile is not None:
+            try:
+                os.remove(rankfile)
+            except OSError:
+                pass
 
 
 def _run_elastic(args) -> int:

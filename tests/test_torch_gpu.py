@@ -2023,3 +2023,23 @@ def test_analysis_trace_on_card_tensors_launches_nothing(cuda_device):
     flash_step(q)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         assert tfl.LAUNCHES[name] == counts[1][name] + 1, name
+
+
+@pytest.mark.gpu
+def test_estimator_fits_gpt2_through_hvd_run_on_the_card(cuda_device):
+    """chip_smoke.py phase 18 (b) at 2 layers: ``HorovodTpuEstimator.fit``
+    trains GPT-2 small's width (bf16, causal flash) through ``hvd.run`` in
+    one NCCL worker process; the loss is finite and below ln(vocab), the
+    worker launched each flash kernel on its wgmma route once per layer
+    of every step (and the forward of every validation group), and the
+    loaded transformer predicts as a model holding the checkpoint."""
+    import chip_smoke
+    failures = []
+    numbers, launches = chip_smoke.estimator_fit(torch, cuda_device, False,
+                                                 1234, 2, failures)
+    assert not failures, failures
+    assert numbers["worker_device"].startswith("cuda")
+    assert launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == \
+        2 * numbers["steps"] > 0
+    assert launches["flash_fwd"] == \
+        2 * (numbers["steps"] + numbers["val_row_groups"])

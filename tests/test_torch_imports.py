@@ -89,7 +89,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "analysis.lockgraph", "analysis.witness",
                  "analysis.memplan", "analysis.shardplan", "analysis.cli",
                  "analysis.__main__", "analysis.graph_check",
-                 "analysis.hook"):
+                 "analysis.hook", "runner.lsf", "runner.jsrun_shim",
+                 "runner.nic_probe", "spark", "spark.store",
+                 "spark.estimator", "spark.elastic", "spark_integration",
+                 "ray", "ray_integration", "ray_elastic"):
         assert f"horovod_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, json, sys\n"
@@ -208,15 +211,45 @@ COPY_EDITS = {
                  "KVStoreServer.get", "KVStoreServer.scan_scope",
                  "KVStoreServer.stop"}),
     "runner/launch.py": dict(
-        # No LSF / jsrun and no NIC probing (``--network-interface``
-        # names the address); no flags of knobs the port does not read;
-        # ``--check-build`` reports PyTorch, NCCL and gloo; the store's
-        # base port lies below the ephemeral range.
-        removed={"_jsrun_spawn"},
+        # No flags of knobs the port does not read; ``--check-build``
+        # reports PyTorch, NCCL and gloo; the store's base port lies below
+        # the ephemeral range; the jsrun shim and the NIC probe are the
+        # port's modules.
         changed={"check_build", "parse_args", "_apply_config_file",
-                 "env_from_args", "_run_static",
+                 "env_from_args", "_run_static", "_jsrun_spawn",
                  "pick_coordinator_base_port"},
-        added={"_addr_for_interfaces", "_ephemeral_port_range"}),
+        added={"_ephemeral_port_range"}),
+    # The pickled function's error names the port.
+    "runner/__init__.py": {"changed": {"run"}},
+    "runner/lsf.py": {},
+    "runner/jsrun_shim.py": {},
+    "runner/nic_probe.py": {},
+    "spark/store.py": {},
+    # A slot whose incarnation adopted the newer world and published
+    # that world's result is not launched again; it is settled for that
+    # world under the driver's lock (``_settle``).
+    "spark/elastic.py": {"changed": {"run_elastic"}, "added": {"_settle"}},
+    "spark/__init__.py": {},
+    # The missing-package errors name the port.
+    "spark_integration.py": {"changed": {"_require_pyspark", "run"}},
+    "ray_integration.py": {"changed": {"_require_ray"}},
+    "ray_elastic.py": {"changed": {"_require_ray"}},
+    "ray.py": {},
+    # The estimator's torch idiom: an nn.Module with its weights, an
+    # optimizer factory, named losses in torch.nn.functional, a state_dict
+    # checkpoint, a transformer holding the one trained module and
+    # predicting on a device (the workers' platform after a fit).  RowGroupStream and the data layer stay
+    # JAX's.
+    "spark/estimator.py": dict(
+        changed={"_resolve_loss", "_estimator_train_fn",
+                 "_estimator_train_loop", "HorovodTpuEstimator.__init__",
+                 "HorovodTpuEstimator.fit",
+                 "_append_predictions", "_transform_partition",
+                 "TpuTransformer.__init__", "TpuTransformer.predict",
+                 "TpuTransformer._udf_payload", "TpuTransformer.transform",
+                 "TpuTransformer.save", "TpuTransformer.load"},
+        added={"WORKER_PLATFORMS", "_mse", "_mae",
+               "_sparse_categorical_crossentropy", "_to_tensor"}),
     "data/service.py": dict(
         # Batches are pickled with their tensors on the host.
         removed=_LOGGER_IMPORT["removed"],
