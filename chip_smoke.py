@@ -116,8 +116,9 @@ Phases, each of which exits non-zero on failure:
    shape timed with CUDA events beside a device copy of one operand
    and its bytes bound;
 9. drive the negotiated eager engine in an NCCL world of one: build
-   the native core (``csrc/hvd_core.cc``, g++) and check each of its
-   parts; run phase 5's GPT-2-small path (bf16, causal flash, 4 x 1024
+   the native core (``csrc/hvd_core.cc`` and ``csrc/kv_server.cc``,
+   g++, one library) and check each of its parts, the KV server over
+   HTTP; run phase 5's GPT-2-small path (bf16, causal flash, 4 x 1024
    tokens, 3 steps) with ``hvd.start_timeline`` on and check the
    timeline: one ALLREDUCE and one NEGOTIATE_ALLREDUCE span per engine
    dispatch, every B with its E, no event dropped; and each flash kernel
@@ -270,7 +271,15 @@ Phases, each of which exits non-zero on failure:
    choosing the address; one ``{"integrations": ...}`` line with the
    parts' seconds, the time from ``fit`` to the worker's first step, the
    fit's steps a second, the kill-to-resume seconds and the launches;
-19. print the card's name and power limit, one JSON line of phase 7's
+19. the native KV server (``csrc/kv_server.cc``, built with the native
+   core in phase 9) and the Python backend, each in this process: host
+   µs a request of one ``KVStoreClient`` for PUT and GET at 64 B and at
+   a 1.18 MB fleet-tier block and for a satisfied min-keys scan, a
+   put-wait fan-out to 16 waiters, and ``kv_wire_exchange``, whose
+   responses must be equal byte for byte on both; every KV server that
+   phases 12, 14, 15 and 18 started must have been native; one
+   ``{"kv_server": ...}`` line;
+20. print the card's name and power limit, one JSON line of phase 7's
    times, one of phase 8's numbers, one of phase 9's, one of phase
    11's, one of phase 12's (``{"elastic": ...}``: seconds from the kill
    to the first step of the new incarnation, steps redone, host ms of a
@@ -279,7 +288,8 @@ Phases, each of which exits non-zero on failure:
    phase 14's (``{"fleet": ...}``), one of phase 15's
    (``{"tiering": ...}``), one of phase 16's (``{"analysis": ...}``), one
    of phase 17's (``{"trace_analysis": ...}``), one of phase 18's
-   (``{"integrations": ...}``), one JSON
+   (``{"integrations": ...}``), one of phase 19's (``{"kv_server":
+   ...}``), one JSON
    line describing every ported kernel (a bf16 flash kernel has one
    entry for phase 5's BERT-large path, one, ``*_gpt2_medium``, for
    phase 8's and one, ``*_gpt2_small``, for phases 9, 17 and 18's,
@@ -2487,8 +2497,9 @@ def adasum_phase(torch, device, rehearsal):
 # ---------------------------------------------------------------------------
 
 def native_core_check():
-    """Build the native core (g++, from the checkout's hvd_core.cc) and
-    exercise each of its parts once; returns (failures, build seconds)."""
+    """Build the native core (g++, one library from the checkout's
+    hvd_core.cc and kv_server.cc) and exercise each of its parts once,
+    the KV server over HTTP; returns (failures, build seconds)."""
     from horovod_tpu_torch.csrc import native
     t0 = time.monotonic()
     native.lib()
@@ -2515,6 +2526,16 @@ def native_core_check():
                                                         0),
                            ("c", "float32", 8, 1, 0)], 64) != [[0, 2], [1]]:
         bad.append("fusion plan")
+    kv = native.NativeKVServer()
+    conn = RawKV(kv.start(0))
+    got = [conn.request("PUT", "/s/k", b"v"), conn.request("GET", "/s/k")]
+    kv.put("s", "k2", b"w")
+    got.append(conn.request("GET", "/s"))
+    conn.close()
+    left = kv.stop()
+    if got != [(200, b""), (200, b"v"), (200, b'{"k": "dg==", "k2": "dw=="}')] \
+            or left or kv.get("s", "k") != b"v":
+        bad.append(f"KV server {got}, {left} connection threads left")
     return bad, build_s
 
 
@@ -5916,6 +5937,295 @@ def integrations_phase(torch, device, rehearsal, seed):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the native KV server
+# ---------------------------------------------------------------------------
+
+# One GPT-2-small KV block as the fleet tier moves it: K and V of 16 tokens
+# over 12 layers of width 768, f32 (phase 15's migrated blocks).
+KV_BLOB_BYTES = 2 * 12 * 16 * 768 * 4
+KV_FANOUT = 16     # put-wait waiters of the fan-out (a world of 16 ranks)
+
+
+class RawKV:
+    """One persistent HTTP/1.1 connection to a KV server: sends each
+    request as given and reads the response's status and body."""
+
+    def __init__(self, port):
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=60)
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.buf = b""
+
+    def _fill(self):
+        chunk = self.sock.recv(1 << 16)
+        if not chunk:
+            raise ConnectionError("the KV server closed the connection")
+        self.buf += chunk
+
+    def request(self, method, path, body=b"", headers=""):
+        self.sock.sendall(
+            f"{method} {path} HTTP/1.1\r\nHost: kv\r\n{headers}"
+            f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        while b"\r\n\r\n" not in self.buf:
+            self._fill()
+        head, _, self.buf = self.buf.partition(b"\r\n\r\n")
+        lines = head.split(b"\r\n")
+        clen = 0
+        for line in lines[1:]:
+            name, _, value = line.partition(b":")
+            if name.strip().lower() == b"content-length":
+                clen = int(value)
+        while len(self.buf) < clen:
+            self._fill()
+        body, self.buf = self.buf[:clen], self.buf[clen:]
+        return int(lines[0].split(b" ", 2)[1]), body
+
+    def close(self):
+        self.sock.close()
+
+
+def kv_path(scope, key=""):
+    """A request path quoted as ``KVStoreClient`` quotes it."""
+    from urllib.parse import quote
+    p = "/" + quote(scope, safe="")
+    if key:
+        p += "/" + "/".join(quote(k, safe="") for k in key.split("/"))
+    return p
+
+
+def kv_wire_exchange(port, blob):
+    """A scripted exchange with the KV server at ``port`` over raw HTTP:
+    every verb, long-polls woken and timed out, a put-wait fan-out to
+    ``KV_FANOUT`` waiters that announce in a fixed order, min-keys scans,
+    escaped and unicode names, 404s and 400s, trace headers and the
+    fleet tier's ``blob``.  Returns ``[(label, status, body)]`` in script
+    order; a label that starts with "scan" marks a scan's JSON body."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+    out = []
+    a = RawKV(port)
+    pool = ThreadPoolExecutor(KV_FANOUT + 2)
+    conns = []
+
+    def do(label, method, path, body=b"", headers=""):
+        out.append((label, *a.request(method, path, body, headers)))
+
+    def later(method, path, body=b""):
+        c = RawKV(port)
+        conns.append(c)
+        return pool.submit(c.request, method, path, body)
+
+    do("put", "PUT", kv_path("s", "k"), b"v1")
+    do("get", "GET", kv_path("s", "k"))
+    do("get missing key", "GET", kv_path("s", "missing"))
+    do("get missing scope", "GET", kv_path("other", "k"))
+    do("put binary", "PUT", kv_path("s", "k2"), b"\x00\xffbin")
+    do("put empty", "PUT", kv_path("s", "empty"))
+    do("get empty", "GET", kv_path("s", "empty"))
+    do("put again keeps the key's place", "PUT", kv_path("s", "k"), b"v1b")
+    do("scan s", "GET", kv_path("s"))
+    trace = "X-Trace-Id: 0af7651916cd43dd\r\nX-Parent-Span: b7ad6b7169203331\r\n"
+    do("put traced", "PUT", kv_path("s", "traced"), b"t", trace)
+    do("get traced", "GET", kv_path("s", "traced"), headers=trace)
+    names = ['quote"backslash\\', "unicode-é中\U0001f600", "query?frag#pct%20",
+             "nested/seg/ment", "spaces and\ttabs", "plus+sign",
+             "control\x01\x7f"]
+    for i, n in enumerate(names):
+        do(f"put name {i}", "PUT", kv_path("esc", n), f"v{i}".encode())
+    for i, n in enumerate(names):
+        do(f"get name {i}", "GET", kv_path("esc", n))
+    do("scan esc", "GET", kv_path("esc"))
+    batch = {n: base64.b64encode(f"b{i}".encode()).decode()
+             for i, n in enumerate(names + ["sub/key"])}
+    do("batch put", "POST", kv_path("escb"), json.dumps(batch).encode())
+    do("get batch key", "GET", kv_path("escb", "sub/key"))
+    do("scan escb", "GET", kv_path("escb"))
+    do("put unicode scope", "PUT", kv_path(names[1], "k"), b"scoped")
+    do("get unicode scope", "GET", kv_path(names[1], "k"))
+    do("scan unicode scope", "GET", kv_path(names[1]))
+    do("batch put of bad JSON", "POST", kv_path("bad"), b"not json")
+    do("batch put of no body", "POST", kv_path("none"))
+    do("scan none", "GET", kv_path("none"))
+    do("put-wait without ascope", "POST", kv_path("q", "k"))
+    do("delete key", "DELETE", kv_path("s", "k2"))
+    do("scan after delete", "GET", kv_path("s"))
+    do("delete missing key", "DELETE", kv_path("s", "nope"))
+    do("delete scope", "DELETE", kv_path("escb"))
+    do("scan deleted scope", "GET", kv_path("escb"))
+    do("delete missing scope", "DELETE", kv_path("escb"))
+    do("put gc", "PUT", kv_path("gc", "only"), b"1")
+    do("delete the scope's last key", "DELETE", kv_path("gc", "only"))
+    do("scan gc", "GET", kv_path("gc"))
+    do("get wait times out", "GET", kv_path("lp", "k") + "?wait=0.2")
+    do("get wait unparsable", "GET", kv_path("lp", "k") + "?wait=soon")
+    do("put-wait times out", "POST",
+       kv_path("req", "0") + "?ascope=resp&akey=verdict&wait=0.2", b"sig")
+    do("get the put half", "GET", kv_path("req", "0"))
+    do("scan min times out", "GET", kv_path("req") + "?min=5&wait=0.2")
+    do("put spaced scope", "PUT", kv_path("a b", "c"), b"spaced")
+    do("put-wait with + in the query", "POST",
+       kv_path("pw", "k") + "?ascope=a+b&akey=c&wait=5", b"x")
+    woken = later("GET", kv_path("lp", "k") + "?wait=20")
+    time.sleep(0.1)
+    do("put wakes the long-poll", "PUT", kv_path("lp", "k"), b"woken")
+    out.append(("long-poll woken", *woken.result()))
+    scan = later("GET", kv_path("mk") + "?min=3&wait=20")
+    time.sleep(0.1)
+    for i in range(3):
+        do(f"put min-keys {i}", "PUT", kv_path("mk", str(i)), str(i).encode())
+    out.append(("scan min-keys woken", *scan.result()))
+    waiters = []
+    for i in range(KV_FANOUT):
+        waiters.append(later(
+            "POST", kv_path("requests", f"rank{i}")
+            + "?ascope=verdicts&akey=round0&wait=20", f"req{i}".encode()))
+        while a.request("GET", kv_path("requests", f"rank{i}"))[0] != 200:
+            time.sleep(0.001)  # announce in rank order
+    do("scan min fan-out", "GET", kv_path("requests")
+       + f"?min={KV_FANOUT}&wait=20")
+    do("publish the verdict", "PUT", kv_path("verdicts", "round0"),
+       b"APPROVED")
+    for i, w in enumerate(waiters):
+        out.append((f"fan-out waiter {i}", *w.result()))
+    do("put block", "PUT", kv_path("tier", "blk"), blob)
+    do("get block", "GET", kv_path("tier", "blk"))
+    do("scan block", "GET", kv_path("tier"))
+    do("batch put block", "POST", kv_path("tierb"), json.dumps(
+        {"blk": base64.b64encode(blob).decode()}).encode())
+    do("get batch block", "GET", kv_path("tierb", "blk"))
+    pool.shutdown()
+    for c in conns + [a]:
+        c.close()
+    return out
+
+
+def kv_request_us(port, blob, n_small, n_large):
+    """Host µs per request of one ``KVStoreClient`` (a persistent
+    connection) against the server at ``port``: PUT and GET of 64 B and
+    of ``blob``, and a min-keys scan of a scope that already holds its
+    ``KV_FANOUT`` keys."""
+    from horovod_tpu_torch.runner.http_server import KVStoreClient
+    c = KVStoreClient("127.0.0.1", port)
+    small = bytes(range(64))
+    for i in range(KV_FANOUT):
+        c.put("scan", f"rank{i}", small)
+
+    def per_request(fn, n):
+        for _ in range(min(10, n)):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    return {
+        "put_64B": per_request(lambda: c.put("t", "small", small), n_small),
+        "get_64B": per_request(lambda: c.get("t", "small"), n_small),
+        "put_1.18MB": per_request(lambda: c.put("t", "blk", blob), n_large),
+        "get_1.18MB": per_request(lambda: c.get("t", "blk"), n_large),
+        "scan_min_keys": per_request(
+            lambda: c.scan("scan", wait=5.0, min_keys=KV_FANOUT), n_small)}
+
+
+def kv_fanout_ms(port):
+    """``KV_FANOUT`` clients each put-wait an announce and await one
+    verdict; a coordinator collects the announces with one min-keys scan
+    and publishes the verdict.  Returns ms from the first announce to the
+    last verdict, and from the publish to the last verdict."""
+    from horovod_tpu_torch.runner.http_server import KVStoreClient
+    got = [None] * KV_FANOUT
+    done = [0.0] * KV_FANOUT
+
+    def waiter(i):
+        got[i] = KVStoreClient("127.0.0.1", port).put_wait(
+            "fanout", f"rank{i}", b"req", "fanout_verdict", "go", wait=20.0)
+        done[i] = time.perf_counter()
+
+    threads = [threading.Thread(target=waiter, args=(i,))
+               for i in range(KV_FANOUT)]
+    coord = KVStoreClient("127.0.0.1", port)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    seen = coord.scan("fanout", wait=20.0, min_keys=KV_FANOUT)
+    t_pub = time.perf_counter()
+    coord.put("fanout_verdict", "go", b"go")
+    for t in threads:
+        t.join(timeout=60)
+    ok = len(seen) == KV_FANOUT and got == [b"go"] * KV_FANOUT
+    return ok, (max(done) - t0) * 1e3, (max(done) - t_pub) * 1e3
+
+
+def kv_phase(rehearsal, seed, starts):
+    """Phase 19: the port's KV server, native (the default) and Python,
+    in this process: host µs per request, the fan-out, and the scripted
+    exchange, whose responses must be equal byte for byte.  ``starts``
+    holds the servers phases 12, 14, 15 and 18 started, by backend:
+    every one must have been native."""
+    import os
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+    failures = []
+    blob = np.random.RandomState(seed).bytes(KV_BLOB_BYTES)
+    n_small, n_large = (200, 10) if rehearsal else (2000, 100)
+    out = {"card": None if rehearsal else card_tag(),
+           "blob_bytes": KV_BLOB_BYTES, "fanout_waiters": KV_FANOUT,
+           "requests_timed": {"64B": n_small, "1.18MB": n_large},
+           "phase_backends": starts}
+    for phase, n in starts.items():
+        if n["python"] or not n["native"]:
+            failures.append(f"phase {phase} started KV servers {n}: every "
+                            f"one should be native")
+    exchanges = {}
+    before = os.environ.get("HVD_TPU_KV_SERVER")
+    try:
+        for backend in ("native", "python"):
+            os.environ["HVD_TPU_KV_SERVER"] = backend
+            srv = KVStoreServer()
+            port = srv.start(0)
+            if (srv._native is not None) != (backend == "native"):
+                failures.append(f"{backend}: the other backend started")
+            try:
+                t0 = time.perf_counter()
+                exchanges[backend] = kv_wire_exchange(port, blob)
+                rec = {"exchange_s": time.perf_counter() - t0,
+                       "us_per_request": kv_request_us(port, blob, n_small,
+                                                       n_large)}
+                ok, rec["fanout_ms"], rec["release_ms"] = kv_fanout_ms(port)
+                if not ok:
+                    failures.append(f"{backend}: the fan-out lost a verdict")
+            finally:
+                srv.stop()
+            out[backend] = rec
+            log(f"  {backend}: µs per request "
+                + ", ".join(f"{k} {v:.1f}" for k, v in
+                            rec["us_per_request"].items())
+                + f"; fan-out to {KV_FANOUT} {rec['fanout_ms']:.2f} ms "
+                  f"(release {rec['release_ms']:.2f} ms)")
+    finally:
+        if before is None:
+            os.environ.pop("HVD_TPU_KV_SERVER", None)
+        else:
+            os.environ["HVD_TPU_KV_SERVER"] = before
+    diff = [n for n, p in zip(exchanges["native"], exchanges["python"])
+            if n != p]
+    out["exchange"] = {"responses": len(exchanges["native"]),
+                       "equal": not diff and len(exchanges["native"])
+                       == len(exchanges["python"]),
+                       "statuses": sorted({s for _, s, _ in
+                                           exchanges["native"]})}
+    if not out["exchange"]["equal"]:
+        failures.append(f"the backends answered differently: "
+                        f"{[d[0] for d in diff][:5]}")
+    log(f"  the scripted exchange: {out['exchange']}")
+    for f in failures:
+        log(f"  FAIL: {f}")
+    if failures:
+        raise SystemExit("the KV server phase failed")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--device", default="cuda",
@@ -6001,11 +6311,20 @@ def main(argv=None) -> int:
                                                      rehearsal)
     log(f"  phase 11 took {time.monotonic() - t11:.1f} s")
 
+    from horovod_tpu_torch.runner import http_server
+    kv_starts = {}
+
+    def kv_started(phase, before):
+        kv_starts[phase] = {b: http_server.STARTS[b] - before[b]
+                            for b in before}
+
+    s12 = dict(http_server.STARTS)
     log("phase 12: elastic kill-and-rejoin in a world of one (ResNet-50, "
         "TorchState, the port's launcher and driver)")
     t12 = time.monotonic()
     elastic = elastic_phase(torch, device, rehearsal)
     log(f"  phase 12 took {time.monotonic() - t12:.1f} s")
+    kv_started("12", s12)
 
     log("phase 13: the serving request surface (checkpoint, warmup, "
         "logprobs, /score, streaming, grammars, a model roll)")
@@ -6014,17 +6333,21 @@ def main(argv=None) -> int:
                                               args.seed)
     log(f"  phase 13 took {time.monotonic() - t13:.1f} s")
 
+    s14 = dict(http_server.STARTS)
     log("phase 14: the serving fleet (router over two endpoints, hedging, "
         "tracing, the fleet controller, preemption)")
     t14 = time.monotonic()
     fleet_launches, fleet = fleet_phase(torch, device, rehearsal, args.seed)
     log(f"  phase 14 took {time.monotonic() - t14:.1f} s")
+    kv_started("14", s14)
 
+    s15 = dict(http_server.STARTS)
     log("phase 15: the tiered KV hierarchy (host tier, fleet tier, "
         "migration, swap) and sequence-parallel prefill")
     t15 = time.monotonic()
     tier_launches, tiering = tier_phase(torch, device, rehearsal, args.seed)
     log(f"  phase 15 took {time.monotonic() - t15:.1f} s")
+    kv_started("15", s15)
 
     log("phase 16: hvdlint's analyzers (two GPT-2-small replicas under "
         "the HVD_SANITIZE=1 lock witness, the plan verdicts, the CLI)")
@@ -6040,6 +6363,7 @@ def main(argv=None) -> int:
         torch, device, rehearsal, args.seed)
     log(f"  phase 17 took {time.monotonic() - t17:.1f} s")
 
+    s18 = dict(http_server.STARTS)
     log("phase 18: the cluster integrations (the Spark estimator through "
         "hvd.run, spark.run_elastic, NIC probing)")
     t18 = time.monotonic()
@@ -6048,6 +6372,13 @@ def main(argv=None) -> int:
     integration_launches, integrations = integrations_phase(
         torch, device, rehearsal, args.seed)
     log(f"  phase 18 took {time.monotonic() - t18:.1f} s")
+    kv_started("18", s18)
+
+    log("phase 19: the native KV server (both backends: µs per request, "
+        "fan-out, the scripted exchange)")
+    t19 = time.monotonic()
+    kv_server = kv_phase(rehearsal, args.seed, kv_starts)
+    log(f"  phase 19 took {time.monotonic() - t19:.1f} s")
 
     log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearsal:
@@ -6065,6 +6396,7 @@ def main(argv=None) -> int:
     print(json.dumps({"analysis": analysis}))
     print(json.dumps({"trace_analysis": trace_analysis}))
     print(json.dumps({"integrations": integrations}))
+    print(json.dumps({"kv_server": kv_server}))
     kernels = []
     for name, source, launches, route, shape, what in (
             ("paged_attention", "paged_attention_decode_sm90.cu",

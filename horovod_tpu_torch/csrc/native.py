@@ -1,14 +1,17 @@
 """ctypes bindings for the port's native control-plane core.
 
-Port of ``horovod_tpu/csrc/__init__.py:186-358``: ``NativeResponseCache``,
+Port of ``horovod_tpu/csrc/__init__.py:165-424``: ``NativeResponseCache``,
 ``NativeMessageTable``, ``plan_fusion``, ``NativeTensorQueue`` and
-``NativeStallInspector`` over ``hvd_core.cc`` in this directory (a copy
-of the JAX package's source; the KV server is not part of the port).
+``NativeStallInspector`` over ``hvd_core.cc``, and ``NativeKVServer`` over
+``kv_server.cc`` (the KV / rendezvous server ``runner/http_server.py``
+runs by default), both in this directory (copies of the JAX package's
+sources).
 
-The host C++ compiler builds the library at first use, never at import:
-``g++ -O2 -std=c++17 -shared -fPIC`` into
-``_build/libhvdcore-<hash>.so`` beside this file (listed in
-.gitignore), where the hash covers the source and the flags, so an
+The host C++ compiler builds ONE library from both sources at first use,
+never at import, as the JAX package's Makefile does:
+``g++ -O2 -std=c++17 -shared -fPIC hvd_core.cc kv_server.cc -lpthread``
+into ``_build/libhvdcore-<hash>.so`` beside this file (listed in
+.gitignore), where the hash covers the sources and the flags, so an
 edited source builds anew.  Processes that race on the first use (the
 ranks of a world, the test workers) take an exclusive file lock; one
 builds, writing to a temporary name and renaming it, and the others
@@ -18,17 +21,22 @@ stand-in for the core.
 
 from __future__ import annotations
 
+import base64
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "hvd_core.cc")
+KV_SOURCE = os.path.join(_HERE, "kv_server.cc")
+SOURCES = (SOURCE, KV_SOURCE)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+LIBS = ("-lpthread",)
 ABI = 2  # hvd_core_abi_version() of the source
 
 _lock = threading.Lock()
@@ -44,10 +52,11 @@ def _cxx() -> str:
 
 
 def library_path() -> str:
-    """Where the build of this source and these flags lands."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    """Where the build of these sources and these flags lands."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(_HERE, "_build",
                         f"libhvdcore-{h.hexdigest()[:16]}.so")
 
@@ -62,12 +71,13 @@ def _build(path: str) -> None:
             if os.path.exists(path):
                 return  # another process built it while this one waited
             tmp = f"{path}.{os.getpid()}.tmp"
-            res = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, SOURCE],
-                                 capture_output=True, text=True)
+            res = subprocess.run(
+                [_cxx(), *CXX_FLAGS, "-o", tmp, *SOURCES, *LIBS],
+                capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(
-                    f"building the native core from {SOURCE} failed:\n"
-                    f"{res.stderr}")
+                    f"building the native core from "
+                    f"{' and '.join(SOURCES)} failed:\n{res.stderr}")
             os.replace(tmp, path)
         finally:
             fcntl.flock(fh, fcntl.LOCK_UN)
@@ -129,7 +139,18 @@ def lib() -> ctypes.CDLL:
                  [vp, cp, ctypes.c_int, ctypes.c_double]),
                 ("hvd_stall_done", None, [vp, cp]),
                 ("hvd_stall_check", ctypes.c_int,
-                 [vp, ctypes.c_double, ctypes.POINTER(cp)])):
+                 [vp, ctypes.c_double, ctypes.POINTER(cp)]),
+                ("hvd_kv_start", vp,
+                 [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
+                ("hvd_kv_stop", ctypes.c_int, [vp]),
+                ("hvd_kv_destroy", None, [vp]),
+                ("hvd_kv_port", ctypes.c_int, [vp]),
+                ("hvd_kv_put", None,
+                 [vp, cp, cp, cp, ctypes.c_int64]),
+                ("hvd_kv_get", ctypes.POINTER(ctypes.c_uint8),
+                 [vp, cp, cp, ctypes.POINTER(ctypes.c_int64)]),
+                ("hvd_kv_scan_json", vp, [vp, cp]),
+                ("hvd_kv_free", None, [vp])):
             fn = getattr(l, name)
             fn.restype = res
             fn.argtypes = args
@@ -307,3 +328,67 @@ class NativeStallInspector(_Handle):
                         [int(r) for r in ready.split(",") if r],
                         [int(r) for r in missing.split(",") if r]))
         return status, out
+
+
+class NativeKVServer:
+    """The C++ HTTP KV / rendezvous server (``kv_server.cc``), the
+    counterpart of ``horovod_tpu/csrc/__init__.py:365-424``: the same
+    wire protocol as the Python ``_KVHandler``.  The store stays readable
+    (``get`` / ``scan_scope``) after ``stop()`` until the object dies:
+    ``hvd.run`` gathers its results after the launcher's shutdown
+    (``runner/__init__.py``)."""
+
+    def __init__(self):
+        self._l = lib()
+        self._h = None
+        self.port = None
+
+    def start(self, port: int = 0) -> int:
+        actual = ctypes.c_int(0)
+        h = self._l.hvd_kv_start(port, ctypes.byref(actual))
+        if not h:
+            raise OSError(f"native KV server failed to bind port {port}")
+        self._h = h
+        self.port = actual.value
+        return self.port
+
+    def stop(self) -> int:
+        """Stop serving: the listening socket is closed and every
+        connection thread has left when this returns (the count of those
+        still alive after 10 s, else 0)."""
+        if self._h is None:
+            return 0
+        return self._l.hvd_kv_stop(self._h)
+
+    def put(self, scope: str, key: str, value: bytes) -> None:
+        self._l.hvd_kv_put(self._h, scope.encode(), key.encode(), value,
+                           len(value))
+
+    def get(self, scope: str, key: str) -> Optional[bytes]:
+        n = ctypes.c_int64(-1)
+        p = self._l.hvd_kv_get(self._h, scope.encode(), key.encode(),
+                               ctypes.byref(n))
+        if not p:
+            return None
+        try:
+            return ctypes.string_at(p, n.value)
+        finally:
+            self._l.hvd_kv_free(p)
+
+    def scan_scope(self, scope: str) -> Dict[str, bytes]:
+        p = self._l.hvd_kv_scan_json(self._h, scope.encode())
+        if not p:
+            return {}
+        try:
+            raw = ctypes.string_at(p)
+        finally:
+            self._l.hvd_kv_free(p)
+        return {k: base64.b64decode(v)
+                for k, v in json.loads(raw.decode()).items()}
+
+    def __del__(self):
+        try:
+            if self._h is not None:
+                self._l.hvd_kv_destroy(self._h)
+        except Exception:
+            pass

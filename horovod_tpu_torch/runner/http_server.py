@@ -1,13 +1,18 @@
 """HTTP KV store + rendezvous server.
 
 Copy of ``horovod_tpu/runner/http_server.py`` (framework-free; the port
-keeps its own copy because it imports nothing of the JAX package).  One
-part is left out: the C++ server backend (``csrc/kv_server.cc``; the
-Python ``_KVHandler`` is the one backend here).  The client fires the
-``kv.request`` fault point and, under a traced request's scope, sends
-``X-Trace-Id`` / ``X-Parent-Span``.  The elastic driver, the launcher,
-the data service and the serving fleet's preemption watcher use it; the
-eager engine negotiates over the world's c10d store instead.
+keeps its own copy because it imports nothing of the JAX package).  The
+server has the JAX package's two backends behind one API: the C++ server
+of ``csrc/kv_server.cc`` (the default, ``HVD_TPU_KV_SERVER=native``) and
+the Python ``_KVHandler`` (``HVD_TPU_KV_SERVER=python``).  Unlike the
+JAX package, a native server that cannot be built or bound raises, with
+the compiler's output, instead of falling back to Python.  The client
+fires the ``kv.request`` fault point and, under a traced request's
+scope, sends ``X-Trace-Id`` / ``X-Parent-Span``.  The launcher, the
+elastic driver, ``hvd.run``, Spark and Ray, the data service, the
+engine's KV client and the serving fleet's preemption watcher and KV
+tier use it; the eager engine negotiates over the world's c10d store
+instead.
 
 Reference: horovod/runner/http/http_server.py:35 (KVStoreHandler: PUT/GET
 scoped key-value store), :152 (RendezvousHandler), :192 (RendezvousServer:
@@ -284,19 +289,48 @@ class _KVHandler(BaseHTTPRequestHandler):
         return "/".join(parts[1:]) if len(parts) > 1 else ""
 
 
+#: Servers started in this process, by backend.
+STARTS = {"native": 0, "python": 0}
+
+
+class _KVHTTPServer(ThreadingHTTPServer):
+    """The Python backend's listener.  Its backlog is 128, not
+    ``socketserver``'s 5 (the JAX package's): a world's ranks connect at
+    once, the kernel drops the SYNs beyond the backlog, and each dropped
+    connect waits out a 1 s retransmit (a put-wait fan-out to 16 ranks
+    took ~1 s)."""
+
+    request_queue_size = 128
+
+
 class KVStoreServer:
-    """KV server (RendezvousServer base, http_server.py:192), the Python
-    ``_KVHandler`` backend.  The store stays readable through
-    ``get``/``scan_scope`` after ``stop()``."""
+    """KV server (RendezvousServer base, http_server.py:192).
+
+    Two interchangeable backends behind one API: the C++ server
+    (csrc/kv_server.cc, the default; chip_smoke.py phase 19 times both
+    per request) and this module's Python ``_KVHandler``
+    (``HVD_TPU_KV_SERVER=python``).  A native server that fails to build
+    or bind raises: nothing falls back quietly.  Both keep the store
+    readable through ``get``/``scan_scope`` after ``stop()`` — launcher
+    code gathers worker results after shutdown (runner/__init__.py)."""
 
     def __init__(self, verbose: bool = False):
         self.httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._native = None
         self._cache: Optional[dict] = None
         self._lock: Optional[threading.Lock] = None
 
     def start(self, port: int = 0) -> int:
-        self.httpd = ThreadingHTTPServer(("0.0.0.0", port), _KVHandler)
+        if os.environ.get("HVD_TPU_KV_SERVER", "native") != "python":
+            from ..csrc.native import NativeKVServer
+            native = NativeKVServer()
+            bound = native.start(port)
+            self._native = native
+            STARTS["native"] += 1
+            return bound
+        STARTS["python"] += 1
+        self.httpd = _KVHTTPServer(("0.0.0.0", port), _KVHandler)
         self.httpd.cache = self._cache = {}
         self.httpd.cache_lock = self._lock = threading.Lock()
         # Long-poll waiters sleep on per-scope conditions (all sharing the
@@ -312,9 +346,14 @@ class KVStoreServer:
 
     @property
     def port(self) -> int:
+        if self._native is not None:
+            return self._native.port
         return self.httpd.server_address[1]
 
     def put(self, scope: str, key: str, value: bytes):
+        if self._native is not None:
+            self._native.put(scope, key, value)
+            return
         with self._lock:
             self._cache.setdefault(scope, {})[key] = value
             if self.httpd is not None:
@@ -323,22 +362,31 @@ class KVStoreServer:
                     c.notify_all()
 
     def get(self, scope: str, key: str) -> Optional[bytes]:
+        if self._native is not None:
+            return self._native.get(scope, key)
         with self._lock:
             return self._cache.get(scope, {}).get(key)
 
     def scan_scope(self, scope: str) -> Dict[str, bytes]:
         """Server-side scope snapshot (no HTTP round-trip)."""
+        if self._native is not None:
+            return self._native.scan_scope(scope)
         with self._lock:
             return dict(self._cache.get(scope, {}))
 
     def stop(self):
+        if self._native is not None:
+            self._native.stop()
+            return
         if self.httpd:
             self.httpd.shutdown()
             self.httpd.server_close()
             self.httpd = None
         if self._thread is not None:
             # serve_forever was told to exit; join it so stop() leaves no
-            # acceptor thread behind.
+            # acceptor thread behind (daemon=True stays the interpreter-
+            # exit backstop — a handler blocked in a long-poll must never
+            # pin exit, module doc).
             self._thread.join(timeout=10)
             if not self._thread.is_alive():
                 self._thread = None
@@ -438,9 +486,10 @@ class KVStoreClient:
         return "/" + enc
 
     def _request(self, method: str, path: str, body: Optional[bytes] = None):
-        """Hand-rolled HTTP/1.1 over the persistent per-thread socket
-        (``http.client`` cost ~80 us of host CPU per request; this minimal
-        writer/parser runs ~25 us against the same server)."""
+        """Hand-rolled HTTP/1.1 over the persistent per-thread socket: a
+        minimal writer/parser in place of ``http.client``, whose per-request
+        host CPU would add to every control-plane round trip
+        (chip_smoke.py phase 19 times a round trip on both servers)."""
         import time as _time
 
         from ..faultline import runtime as _flrt

@@ -205,11 +205,12 @@ COPY_EDITS = {
         changed={"launch_elastic"}),
     "runner/http_server.py": dict(
         _LOGGER_IMPORT,
-        # The Python server is the one backend (no C++ ``kv_server``).
-        changed={"KVStoreServer.__init__", "KVStoreServer.start",
-                 "KVStoreServer.port", "KVStoreServer.put",
-                 "KVStoreServer.get", "KVStoreServer.scan_scope",
-                 "KVStoreServer.stop"}),
+        # A native server that fails to build or bind raises (no fallback
+        # to Python); ``STARTS`` counts the servers started by backend;
+        # the Python listener's backlog is 128.
+        changed={"KVStoreServer.start"},
+        added=_LOGGER_IMPORT["added"] | {
+            "STARTS", "_KVHTTPServer", "_KVHTTPServer.request_queue_size"}),
     "runner/launch.py": dict(
         # No flags of knobs the port does not read; ``--check-build``
         # reports PyTorch, NCCL and gloo; the store's base port lies below
@@ -377,17 +378,21 @@ def test_analysis_package_is_under_the_ban():
 
 
 def test_native_core_builds_from_the_port_alone():
-    """The native core is built from ``horovod_tpu_torch/csrc/hvd_core.cc``,
-    which includes system headers only, into the port's ``_build``; the
-    build command names no file outside the port."""
+    """The native core is built from ``horovod_tpu_torch/csrc/hvd_core.cc``
+    and ``kv_server.cc``, which include system headers only, into the
+    port's ``_build``; the build command names no file outside the
+    port."""
     from horovod_tpu_torch.csrc import native
     assert native.SOURCE == os.path.join(PORT, "csrc", "hvd_core.cc")
+    assert native.SOURCES == (native.SOURCE,
+                              os.path.join(PORT, "csrc", "kv_server.cc"))
     assert native.library_path().startswith(
         os.path.join(PORT, "csrc", "_build") + os.sep)
-    with open(native.SOURCE) as f:
-        includes = [line for line in f if line.startswith("#include")]
-    assert includes and all("<" in line and '"' not in line
-                            for line in includes)
+    for source in native.SOURCES:
+        with open(source) as f:
+            includes = [line for line in f if line.startswith("#include")]
+        assert includes and all("<" in line and '"' not in line
+                                for line in includes)
     with open(native.__file__) as f:
         text = f.read()
     assert "libhvdcore.so" not in text

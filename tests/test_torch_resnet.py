@@ -230,11 +230,13 @@ def test_sync_batch_norm_routes_and_refuses():
     bn = tsbn.SyncBatchNorm(4, momentum=0.9)
     assert isinstance(bn, tsbn.FusedBatchNorm) and bn.axis_name == "hvd"
     assert tsbn.SyncBatchNorm(4, axis_name=None).axis_name is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tsbn.SyncBatchNorm(4, axis_index_groups=[[0]])
+    flax_bn = tsbn.SyncBatchNorm(4, use_fast_variance=False)
+    assert isinstance(flax_bn, tsbn.FlaxBatchNorm)
+    assert flax_bn.axis_name == "hvd" and not flax_bn.use_fast_variance
     hvd.shutdown()
-    with pytest.raises(ValueError, match="initialized"):
-        bn(torch.ones(3, 4), use_running_average=False)
+    for module in (bn, flax_bn):
+        with pytest.raises(ValueError, match="initialized"):
+            module(torch.ones(3, 4), use_running_average=False)
 
 
 # -- ResNet-50 on converted weights ----------------------------------------------

@@ -16,6 +16,16 @@ each runs the checks on its half of the data and saves the results.
   backward would miss the cross-rank gradient terms.  Both ranks end
   bit-identical.
 * Sync without ``hvd.init()`` raises.
+* Each flax-only option of ``SyncBatchNorm`` (``FlaxBatchNorm``: feature
+  ``axis`` 1 and (1, 2), ``param_dtype``, both variance forms,
+  ``axis_index_groups`` [[0], [1]] and [[0, 1]], a call-time ``mask``,
+  bf16 inputs with and without f32 reductions) equals the JAX package's
+  ``SyncBatchNorm`` (``flax.linen.BatchNorm`` under ``jax.pmap`` over 2
+  CPU devices) on the same inputs: outputs, input and parameter
+  gradients, running statistics and the eval output within 2e-4 / 2e-4
+  (bf16 inputs 0.1 / 0.05), from one statistics collective per call
+  (two for the two-pass variance).  Without the world, the same math
+  with ``axis_name=None`` equals ``flax.linen.BatchNorm``.
 """
 
 import jax
@@ -32,6 +42,31 @@ from horovod_tpu_torch.models import resnet_params_from_jax
 
 STATS_SHAPE, STATS_AXES = (3, 4, 5, 6), (0, 2)
 LR, MOMENTUM, STEPS = 0.1, 0.9, 2
+# SyncBatchNorm's flax-only options, each on a [3, 4, 5, 6] input per rank:
+# the feature sizes, the input type, a mask or not, and the keywords
+# (``param_dtype`` by name).
+FLAX = {
+    "axis_1": ((4,), "float32", False, {"axis": 1}),
+    "axis_1_2": ((4, 5), "float32", False, {"axis": (1, 2)}),
+    "param_dtype_bf16": ((6,), "float32", False,
+                         {"param_dtype": "bfloat16"}),
+    "two_pass_variance": ((6,), "float32", False,
+                          {"use_fast_variance": False}),
+    "groups_each_rank": ((6,), "float32", False,
+                         {"axis_index_groups": [[0], [1]]}),
+    "groups_world_two_pass": ((4,), "float32", False,
+                              {"axis_index_groups": [[0, 1]], "axis": 1,
+                               "use_fast_variance": False}),
+    "mask": ((6,), "float32", True, {"use_fast_variance": True,
+                                     "axis": -1}),
+    "mask_two_pass_axis_1": ((4,), "float32", True,
+                             {"axis": 1, "use_fast_variance": False}),
+    "bf16_input": ((4,), "bfloat16", False, {"axis": 1}),
+    "bf16_no_f32_reductions": ((6,), "bfloat16", True,
+                               {"force_float32_reductions": False,
+                                "param_dtype": "bfloat16"}),
+}
+FLAX_SHAPE = (3, 4, 5, 6)
 
 WORKER = '''
 import sys
@@ -83,11 +118,37 @@ for i in range(%(steps)r):
     res[f"loss{i}"] = hvd.allreduce(loss.detach(), op=hvd.Average)
 for k, v in model.state_dict().items():
     res["w." + k] = v
+
+for name, (features, dtype, masked, kw) in %(flax)r.items():
+    kw = dict(kw)
+    if "param_dtype" in kw:
+        kw["param_dtype"] = getattr(torch, kw["param_dtype"])
+    bn = sbn.SyncBatchNorm(features if len(features) > 1 else features[0],
+                           **kw)
+    assert type(bn) is sbn.FlaxBatchNorm and bn.axis_name == "hvd"
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(data[f"flax_{name}_scale"]))
+        bn.bias.copy_(torch.from_numpy(data[f"flax_{name}_bias"]))
+    x = torch.from_numpy(data[f"flax_{name}_x{r}"]).to(
+        getattr(torch, dtype)).requires_grad_()
+    mask = torch.from_numpy(data[f"flax_{name}_m{r}"]) if masked else None
+    n0 = dict(sbn.STATS_ALLREDUCES)
+    y = bn(x, use_running_average=False, mask=mask)
+    (y.float() * torch.from_numpy(data[f"flax_{name}_c{r}"])).sum().backward()
+    res[f"flax_{name}_collectives"] = [
+        sbn.STATS_ALLREDUCES[k] - n0[k] for k in ("forward", "backward")]
+    res[f"flax_{name}_dtype"] = str(y.dtype).split(".")[-1]
+    for key, t in (("y", y), ("x_grad", x.grad), ("scale_grad", bn.scale.grad),
+                   ("bias_grad", bn.bias.grad), ("mean", bn.mean),
+                   ("var", bn.var),
+                   ("eval", bn(x.detach(), use_running_average=True))):
+        res[f"flax_{name}_{key}"] = t.detach().float()
 np.savez(out_path, **{k: np.asarray(v.detach().numpy() if
                                     isinstance(v, torch.Tensor) else v)
                       for k, v in res.items()})
 hvd.shutdown()
-''' % {"axes": STATS_AXES, "lr": LR, "momentum": MOMENTUM, "steps": STEPS}
+''' % {"axes": STATS_AXES, "lr": LR, "momentum": MOMENTUM, "steps": STEPS,
+       "flax": FLAX}
 
 
 def _data():
@@ -101,6 +162,17 @@ def _data():
         data[f"d{r}"] = rng.randn(*stat_shape).astype(np.float32)
     data["images"] = rng.randn(4, 32, 32, 3).astype(np.float32)
     data["labels"] = rng.randint(0, 10, (4,)).astype(np.int64)
+    for name, (features, _, masked, _) in FLAX.items():
+        data[f"flax_{name}_scale"] = (
+            1 + 0.5 * rng.randn(*features)).astype(np.float32)
+        data[f"flax_{name}_bias"] = rng.randn(*features).astype(np.float32)
+        for r in (0, 1):
+            data[f"flax_{name}_x{r}"] = (
+                rng.randn(*FLAX_SHAPE) * (2 + r) + r).astype(np.float32)
+            data[f"flax_{name}_c{r}"] = rng.randn(*FLAX_SHAPE).astype(
+                np.float32)
+            if masked:
+                data[f"flax_{name}_m{r}"] = rng.rand(3, 1, 5, 6) < 0.6
     return data
 
 
@@ -201,3 +273,128 @@ def test_sync_without_init_raises(setup):
     world, _, _ = setup
     assert int(world[0]["raises_uninitialized"]) == 1
     assert int(world[1]["raises_uninitialized"]) == 1
+
+
+# -- SyncBatchNorm's flax-only options (FlaxBatchNorm) ------------------------
+
+def _jax_kwargs(kw):
+    kw = dict(kw)
+    if "param_dtype" in kw:
+        kw["param_dtype"] = jnp.dtype(kw["param_dtype"])
+    return kw
+
+
+def _jax_flax_bn(name, data):
+    """The JAX package's SyncBatchNorm with the same keywords under
+    ``jax.pmap`` over 2 CPU devices (axis "hvd"): per device the output,
+    the gradients of sum(y * c), the new running statistics and the eval
+    output on them."""
+    import flax.linen as fnn
+    from horovod_tpu import sync_batch_norm as jsbn
+    features, dtype, masked, kw = FLAX[name]
+    bn = jsbn.SyncBatchNorm(**_jax_kwargs(kw))
+    assert isinstance(bn, fnn.BatchNorm)
+    xs = jnp.stack([data[f"flax_{name}_x{r}"] for r in (0, 1)]).astype(dtype)
+    cs = jnp.stack([data[f"flax_{name}_c{r}"] for r in (0, 1)])
+    ms = jnp.stack([data[f"flax_{name}_m{r}"] for r in (0, 1)]) \
+        if masked else None
+    variables = bn.init(jax.random.PRNGKey(0), xs[0],
+                        use_running_average=False)
+    pdt = variables["params"]["scale"].dtype
+    params = {"scale": jnp.asarray(data[f"flax_{name}_scale"], pdt),
+              "bias": jnp.asarray(data[f"flax_{name}_bias"], pdt)}
+
+    def per_device(x, c, m=None):
+        def loss(x, p):
+            y, mut = bn.apply({"params": p,
+                               "batch_stats": variables["batch_stats"]}, x,
+                              use_running_average=False, mask=m,
+                              mutable=["batch_stats"])
+            return jnp.sum(y.astype(jnp.float32) * c), (y, mut["batch_stats"])
+
+        (_, (y, stats)), (gx, gp) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(x, params)
+        y_eval = bn.apply({"params": params, "batch_stats": stats}, x,
+                          use_running_average=True)
+        return {"y": y, "x_grad": gx, "scale_grad": gp["scale"],
+                "bias_grad": gp["bias"], "mean": stats["mean"],
+                "var": stats["var"], "eval": y_eval}
+
+    args = (xs, cs) + ((ms,) if masked else ())
+    out = jax.pmap(per_device, axis_name="hvd",
+                   devices=jax.devices()[:2])(*args)
+    return jax.device_get(out)
+
+
+@pytest.mark.parametrize("name", sorted(FLAX))
+def test_flax_option_matches_jax_sync_batch_norm(setup, name):
+    world, data, _ = setup
+    features, dtype, masked, kw = FLAX[name]
+    want = _jax_flax_bn(name, data)
+    rtol, atol = (2e-4, 2e-4) if dtype == "float32" else (0.1, 0.05)
+    fast = kw.get("use_fast_variance", True)
+    for r in (0, 1):
+        assert world[r][f"flax_{name}_collectives"].tolist() == (
+            [1, 1] if fast else [2, 2])
+        assert str(world[r][f"flax_{name}_dtype"]) == str(want["y"].dtype)
+        for key in ("y", "x_grad", "scale_grad", "bias_grad", "mean", "var",
+                    "eval"):
+            np.testing.assert_allclose(
+                world[r][f"flax_{name}_{key}"],
+                np.asarray(want[key][r]).astype(np.float32), rtol=rtol,
+                atol=atol, err_msg=f"{name} rank {r} {key}")
+    # Each rank's statistics are its group's: [[0], [1]] keeps them apart.
+    apart = kw.get("axis_index_groups") == [[0], [1]]
+    same = np.array_equal(world[0][f"flax_{name}_mean"],
+                          world[1][f"flax_{name}_mean"])
+    assert same != apart
+
+
+@pytest.mark.parametrize("name", ["axis_1_2", "mask_two_pass_axis_1",
+                                  "bf16_no_f32_reductions"])
+def test_flax_math_without_sync_matches_flax(name):
+    """``axis_name=None``: no collective, no world; the module against
+    ``flax.linen.BatchNorm`` on one rank's input."""
+    import flax.linen as fnn
+    import torch
+    from horovod_tpu_torch import sync_batch_norm as tsbn
+    data = _data()
+    features, dtype, masked, kw = FLAX[name]
+    tkw = dict(kw)
+    if "param_dtype" in tkw:
+        tkw["param_dtype"] = getattr(torch, tkw["param_dtype"])
+    bn = tsbn.SyncBatchNorm(features, axis_name=None, **tkw)
+    jbn = fnn.BatchNorm(**_jax_kwargs(kw))
+    x = data[f"flax_{name}_x0"]
+    m = data[f"flax_{name}_m0"] if masked else None
+    jx = jnp.asarray(x).astype(dtype)
+    v = jbn.init(jax.random.PRNGKey(0), jx, use_running_average=False)
+    want, mut = jbn.apply(v, jx, use_running_average=False,
+                          mask=None if m is None else jnp.asarray(m),
+                          mutable=["batch_stats"])
+    n0 = dict(tsbn.STATS_ALLREDUCES)
+    got = bn(torch.from_numpy(x).to(getattr(torch, dtype)),
+             use_running_average=False,
+             mask=None if m is None else torch.from_numpy(m))
+    assert tsbn.STATS_ALLREDUCES == n0
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    rtol, atol = (2e-4, 2e-4) if dtype == "float32" else (0.1, 0.05)
+    for g, w in ((got, want), (bn.mean, mut["batch_stats"]["mean"]),
+                 (bn.var, mut["batch_stats"]["var"])):
+        np.testing.assert_allclose(g.detach().float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   rtol=rtol, atol=atol)
+
+
+def test_flax_options_refuse_what_flax_cannot_do():
+    """Groups are registered when the module is built, which needs a
+    world; a keyword of neither module is a TypeError."""
+    import torch
+    from horovod_tpu_torch import sync_batch_norm as tsbn
+    with pytest.raises(ValueError, match="hvd.init"):
+        tsbn.SyncBatchNorm(4, axis_index_groups=[[0]])
+    bn = tsbn.SyncBatchNorm(4, axis=1, axis_name=None)
+    with pytest.raises(ValueError, match="features"):
+        bn(torch.zeros(2, 3, 4), use_running_average=False)
+    with pytest.raises(TypeError, match="unexpected"):
+        tsbn.SyncBatchNorm(4, axes=1)
