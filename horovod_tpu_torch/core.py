@@ -256,9 +256,9 @@ def init(comm: Optional[Sequence[int]] = None, process_sets=None,
         if cfg.timeline_path and topo.rank == 0:
             # Rank 0 writes the trace, like the reference's coordinator.
             from .timeline import Timeline
-            _state.timeline = Timeline(cfg.timeline_path,
-                                       mark_cycles=cfg.timeline_mark_cycles,
-                                       rank=topo.rank)
+            _set_timeline(Timeline(cfg.timeline_path,
+                                   mark_cycles=cfg.timeline_mark_cycles,
+                                   rank=topo.rank, monotonic_zero=True))
         _state.initialized = True
         _state.generation += 1
         if elastic and topo.size > 1 and _state.backend == "nccl":
@@ -283,7 +283,7 @@ def shutdown() -> None:
             return
         if _state.timeline is not None:
             _state.timeline.close()
-            _state.timeline = None
+            _set_timeline(None)
         if _state.wedge_watch is not None:
             _state.wedge_watch.stop()
         if _state.param_manager is not None:
@@ -424,15 +424,16 @@ def device() -> torch.device:
 
 
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
-    """Start writing the timeline to ``file_path``
-    (``horovod_start_timeline``, operations.cc:1077); a running one is
-    closed first."""
+    """Start writing this rank's timeline to ``file_path``
+    (``horovod_start_timeline``, operations.cc:1077), on any rank (the
+    ``HOROVOD_TIMELINE`` knob records on rank 0 alone); a running one is
+    closed first.  It carries the step-phase spans (``timeline.py``)."""
     from .timeline import Timeline
     st = _require_init()
     if st.timeline is not None:
         st.timeline.close()
-    st.timeline = Timeline(file_path, mark_cycles=mark_cycles,
-                           rank=st.topology.rank)
+    _set_timeline(Timeline(file_path, mark_cycles=mark_cycles,
+                           rank=st.topology.rank, monotonic_zero=True))
 
 
 def stop_timeline() -> None:
@@ -440,7 +441,14 @@ def stop_timeline() -> None:
     st = _require_init()
     if st.timeline is not None:
         st.timeline.close()
-        st.timeline = None
+        _set_timeline(None)
+
+
+def _set_timeline(tl) -> None:
+    """The running timeline, in the state and as ``timeline.ACTIVE``,
+    which the step's instrumented sites read."""
+    from . import timeline as _timeline
+    _state.timeline = _timeline.ACTIVE = tl
 
 
 # ---------------------------------------------------------------------------

@@ -46,12 +46,29 @@ like the JAX adapter's:
 * ``wte.embedding`` [V, d], tied to the LM head; ``wpe.embedding``
   [max_len, d];
 * LayerNorms hold ``scale`` and ``bias``.
+
+While a timeline records (``timeline.ACTIVE``), the forward emits a span
+for each region of the step: ``embed``, per block ``attn`` (ln1 through
+the proj residual) and ``mlp`` (ln2 through the fc2 residual), with the
+block's index, ``head`` (``ln_f``, the tied head, the f32 cast), and
+``lm_loss`` its ``loss``.  The backward emits spans of the same names
+with ``bwd`` in their args: a hook on each region's output, whose
+gradient starts the region's backward, opens it and closes the region
+open before it (the one whose input that tensor is), and the end of the
+backward pass closes the last, ``embed``.  So the backward is covered
+end to end, the caller's work between the loss and the head (a slice of
+the logits) counted in ``loss``.  A checkpointed block's recompute, run
+inside its backward, adds no span of its own.  With no timeline, no
+hook is registered and nothing is emitted; inside an ``HVD_ANALYZE``
+trace neither.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import time
 from typing import Optional
 
 import torch
@@ -60,6 +77,8 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import parallel as _parallel
+from .. import timeline as _timeline
+from ..analysis import graph_check as _gc
 from ..parallel.flash import flash_attention
 from ..parallel.moe import expert_parallel_ffn
 from ..parallel.ring import (ring_attention, ring_flash_attention,
@@ -194,6 +213,67 @@ def experts_per_rank(cfg: TransformerConfig) -> int:
     return cfg.moe_experts // n
 
 
+class _StepSpans:
+    """The regions' spans on the running timeline (module doc).  One per
+    process: the forward runs before its backward, and the backward of
+    one step before the next forward."""
+
+    TID, BWD_TID = "model", "model.bwd"
+
+    def __init__(self):
+        self.open = None          # (timeline, name, start ns, args)
+        self.in_backward = False  # from the first backward hook to its end
+
+    @staticmethod
+    def timeline():
+        """The running timeline, None when none records or inside an
+        ``HVD_ANALYZE`` trace."""
+        tl = _timeline.ACTIVE
+        if tl is not None and _gc.active() is not None:
+            return None
+        return tl
+
+    def region(self, tl, name: str, args: dict, fn, *inputs):
+        """``fn(*inputs)`` as the region ``name``: its forward span, and
+        a hook on its output (the first of a tuple) for its backward."""
+        if self.in_backward:  # a checkpointed block's recompute
+            return fn(*inputs)
+        t0 = time.monotonic_ns()
+        out = fn(*inputs)
+        tl.span(name, t0, tid=self.TID, args=args)
+        y = out[0] if isinstance(out, tuple) else out
+        if y.requires_grad:
+            y.register_hook(functools.partial(self._opened, tl, name, args))
+        return out
+
+    def _opened(self, tl, name, args, grad):
+        now = time.monotonic_ns()
+        if not self.in_backward:
+            self.in_backward = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._ended)
+        self._close(now)
+        self.open = (tl, name, now, dict(args, bwd=True))
+
+    def _close(self, now: int) -> None:
+        if self.open is not None:
+            tl, name, t0, args = self.open
+            self.open = None
+            tl.span(name, t0, tid=self.BWD_TID, args=args, end_mono_ns=now)
+
+    def _ended(self) -> None:
+        self._close(time.monotonic_ns())
+        self.in_backward = False
+
+    def reset(self) -> None:
+        """Drop what a backward that never reached its end left open (a
+        forward starts)."""
+        self.open, self.in_backward = None, False
+
+
+_SPANS = _StepSpans()
+
+
 class Block(nn.Module):
     """ln1 → qkv → attention → proj residual → ln2 → fc1/gelu(tanh)/fc2
     residual, or with ``use_moe`` the mixture of experts in place of
@@ -232,7 +312,18 @@ class Block(nn.Module):
             self.fc1 = Dense((d, cfg.d_ff), (cfg.d_ff,), device)
             self.fc2 = Dense((cfg.d_ff, d), (d,), device)
 
-    def forward(self, x):
+    def forward(self, x, index: int = 0, tl=None):
+        """The block's output and its ``MoEOutput`` (or None); with a
+        timeline ``tl``, as the regions ``attn`` and ``mlp`` of block
+        ``index`` (module doc)."""
+        if tl is None:
+            return self._mlp(self._attn(x))
+        args = {"block": index}
+        x = _SPANS.region(tl, "attn", args, self._attn, x)
+        return _SPANS.region(tl, "mlp", args, self._mlp, x)
+
+    def _attn(self, x):
+        """ln1 → qkv → attention → proj residual."""
         cfg, dt = self.cfg, self.cfg.dtype
         h = self.ln1(x).to(dt)
         w, b = self.attn.qkv.cast(dt)
@@ -253,7 +344,12 @@ class Block(nn.Module):
         else:
             out = dense_attention(q, k, v, cfg.causal)
         w, b = self.attn.proj.cast(dt)
-        x = x + (torch.einsum("bshe,hed->bsd", out, w) + b)
+        return x + (torch.einsum("bshe,hed->bsd", out, w) + b)
+
+    def _mlp(self, x):
+        """ln2 → fc1/gelu(tanh)/fc2 (or the mixture of experts) residual,
+        and the ``MoEOutput`` (or None)."""
+        cfg, dt = self.cfg, self.cfg.dtype
         h = self.ln2(x).to(dt)
         if self.use_moe:
             B, S, d = h.shape
@@ -296,6 +392,31 @@ class Transformer(nn.Module):
         """``predict_positions`` ([B, K] int, BERT MLM): the final
         LayerNorm and the LM head run only at those K positions, giving
         [B, K, vocab] logits."""
+        tl = _SPANS.timeline()
+        if tl is None:
+            x = self._embed(tokens, positions)
+        else:
+            _SPANS.reset()
+            x = _SPANS.region(tl, "embed", {}, self._embed, tokens,
+                              positions)
+        # A checkpointed block's recompute runs inside the backward and
+        # its outputs are dropped, so each MoE block records once.
+        self.aux_losses, self.dropped_fracs = [], []
+        for i, blk in enumerate(self.blocks):
+            if self.cfg.remat and torch.is_grad_enabled():
+                x, res = checkpoint(blk, x, i, tl, use_reentrant=False)
+            else:
+                x, res = blk(x, i, tl)
+            if res is not None:
+                self.aux_losses.append(res.aux_loss)
+                self.dropped_fracs.append(res.dropped_frac.detach())
+        if tl is None:
+            return self._head(x, predict_positions)
+        return _SPANS.region(tl, "head", {}, self._head, x,
+                             predict_positions)
+
+    def _embed(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
         cfg, dt, S = self.cfg, self.cfg.dtype, tokens.shape[1]
         if positions is None and cfg.seq_parallel == "ring_striped":
             # This shard holds global tokens [i, i + n, i + 2n, ...].
@@ -307,19 +428,12 @@ class Transformer(nn.Module):
                 # Contiguous shards: this one holds [i·S, (i + 1)·S).
                 positions = positions + \
                     _parallel.axis(cfg.axis_name).index * S
-        x = self.wte.embedding[tokens].to(dt) \
+        return self.wte.embedding[tokens].to(dt) \
             + self.wpe.embedding[positions].to(dt)
-        # A checkpointed block's recompute runs inside the backward and
-        # its outputs are dropped, so each MoE block records once.
-        self.aux_losses, self.dropped_fracs = [], []
-        for blk in self.blocks:
-            if self.cfg.remat and torch.is_grad_enabled():
-                x, res = checkpoint(blk, x, use_reentrant=False)
-            else:
-                x, res = blk(x)
-            if res is not None:
-                self.aux_losses.append(res.aux_loss)
-                self.dropped_fracs.append(res.dropped_frac.detach())
+
+    def _head(self, x: torch.Tensor,
+              predict_positions: Optional[torch.Tensor]) -> torch.Tensor:
+        dt = self.cfg.dtype
         if predict_positions is not None:
             x = torch.take_along_dim(
                 x, predict_positions.long()[..., None], dim=1)
@@ -331,7 +445,16 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token cross-entropy in f32 (BERT MLM or GPT next-token; the caller
     shifts targets for a causal LM); with ``mask``, the masked mean with
-    the count floored at 1."""
+    the count floored at 1.  While a timeline records, the region
+    ``loss`` (module doc)."""
+    tl = _SPANS.timeline()
+    if tl is None:
+        return _lm_loss(logits, targets, mask)
+    return _SPANS.region(tl, "loss", {}, _lm_loss, logits, targets, mask)
+
+
+def _lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+             mask: Optional[torch.Tensor]) -> torch.Tensor:
     losses = F.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]),
         targets.reshape(-1).long(), reduction="none").view(targets.shape)

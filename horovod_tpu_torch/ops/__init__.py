@@ -60,6 +60,7 @@ sizes, no peer.  On the real path that costs one flag read a call.
 from __future__ import annotations
 
 import functools
+import time
 import warnings
 from typing import List, Optional, Sequence
 
@@ -72,6 +73,7 @@ from .collective_ops import (  # noqa: F401
 from . import collective_ops as C
 from .eager import backward_name
 from .. import core as _core
+from .. import timeline as _timeline
 from ..analysis import graph_check as _gc
 from ..compression import Compression
 from ..process_sets import ProcessSet, global_process_set
@@ -194,8 +196,8 @@ def _fused_allreduce(tensors: Sequence[torch.Tensor], op,
                      prescale_factor: float = 1.0,
                      postscale_factor: float = 1.0,
                      compression=Compression.none,
-                     process_set: ProcessSet = global_process_set
-                     ) -> List[torch.Tensor]:
+                     process_set: ProcessSet = global_process_set,
+                     bucket: int = 0) -> List[torch.Tensor]:
     """One collective for a whole fusion bucket: pack the tensors into
     one flat buffer, compress it once (a cast is elementwise, so this
     equals compressing each tensor), reduce, decompress, and hand back
@@ -204,7 +206,14 @@ def _fused_allreduce(tensors: Sequence[torch.Tensor], op,
     rank can replay.  All tensors share one dtype (the planner only
     buckets same-dtype entries).  Adasum is refused: one flat buffer
     would get one coefficient pair for the whole bucket (the JAX package
-    fuses only Average and Sum)."""
+    fuses only Average and Sum).
+
+    While a timeline records, the pack (``cat`` and compress) and the
+    unpack (decompress and the views) are its ``MEMCPY_IN_FUSION_BUFFER``
+    and ``MEMCPY_OUT_FUSION_BUFFER`` spans, under the buffer's name,
+    with the negotiation and the op state between them; each carries
+    ``bucket`` (its index in the caller's plan), the tensors and the
+    bytes handed to the collective."""
     rop = ReduceOp(op)
     if rop == ReduceOp.ADASUM:
         raise ValueError("_fused_allreduce reduces with Average or Sum; "
@@ -212,25 +221,37 @@ def _fused_allreduce(tensors: Sequence[torch.Tensor], op,
                          "(grouped_allreduce)")
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError("_fused_allreduce needs tensors of one dtype")
+    analyzing = _gc.active() is not None
+    tl = None if analyzing else _timeline.ACTIVE
+    t0 = time.monotonic_ns() if tl is not None else 0
     flat = torch.cat([t.reshape(-1) for t in tensors])
     flat, ctx = compression.compress(flat)
-    if _gc.active() is not None:
+    if analyzing:
         out = _gc.emit("allreduce", flat, process_set)
     else:
         m = members_of(process_set)
+        name = f"fusedbuf.{C.dtype_name(flat.dtype)}.{flat.numel()}"
+        args = None
+        if tl is not None:
+            args = {"bucket": bucket, "tensors": len(tensors),
+                    "bytes": flat.numel() * flat.element_size()}
+            tl.span(_timeline.MEMCPY_IN_FUSION_BUFFER, t0, tid=name,
+                    args=args)
         out = _engine().run(
             "allreduce",
             lambda: _reduce(flat, rop, prescale_factor, postscale_factor, m,
                             owned=True),
-            [flat],
-            name=f"fusedbuf.{C.dtype_name(flat.dtype)}.{flat.numel()}",
-            op_id=int(rop), prescale=prescale_factor,
-            postscale=postscale_factor, **_wire_ps(process_set))
+            [flat], name=name, op_id=int(rop), prescale=prescale_factor,
+            postscale=postscale_factor, span_args=args,
+            **_wire_ps(process_set))
+        t0 = time.monotonic_ns() if tl is not None else 0
     out = compression.decompress(out, ctx)
     views, start = [], 0
     for t in tensors:
         views.append(out[start:start + t.numel()].view(t.shape))
         start += t.numel()
+    if tl is not None:
+        tl.span(_timeline.MEMCPY_OUT_FUSION_BUFFER, t0, tid=name, args=args)
     return views
 
 

@@ -117,20 +117,33 @@ class EagerEngine:
         self._join_gather_sizes = None
         self._join_alltoall_recv = None
         self.dispatches = 0      # every run() since init
+        # While a timeline records: bytes of the tensors handed to the
+        # collectives, and host ns spent negotiating (the optimizer's
+        # per-step counter reads both).
+        self.bytes_handed = 0
+        self.negotiate_ns = 0
 
     # -- generic dispatch ---------------------------------------------------
 
     def run(self, kind: str, fn: Callable[[], Any],
             tensors: List[torch.Tensor], name: Optional[str] = None,
             op_id: int = 0, prescale: float = 1.0, postscale: float = 1.0,
-            ps_id: int = 0, ps_ranks=None):
+            ps_id: int = 0, ps_ranks=None, span_args: Optional[dict] = None):
         """Dispatch one collective: ``fn()`` runs its data plane and its
         result is returned.  ``tensors`` give the signature (dtype and
         shape; a ``meta`` tensor does for a rank that only negotiates).
 
         ``name`` is the reference's tensor-name contract: a second
         in-flight collective under the same name raises
-        DuplicateNameError (common.h:239)."""
+        DuplicateNameError (common.h:239).
+
+        The timeline gets ``NEGOTIATE_<KIND>`` and then the op state
+        around ``fn()``.  In a world of one (or a dispatch without
+        tensors) the negotiation is the JAX package's zero-length phase
+        with this rank's ready instant; else it spans the real
+        negotiation, its end carrying ``cache_hit``, and rank 0 marks
+        each rank's request as it arrives.  ``span_args`` (a fusion
+        bucket's index, tensors and bytes) ride on both."""
         from .. import core as _core
         tl = _core._state.timeline
         if tl is not None:
@@ -155,43 +168,45 @@ class EagerEngine:
         with prof:
             self.claim_name(name)
             try:
-                if tl is not None:
-                    tl.negotiate_start(label, kind.upper())
+                op = kind.upper()
+                if self.n > 1 and tensors and self.negotiator.enabled:
+                    self._negotiate(kind, label, tensors, op_id, prescale,
+                                    postscale, ps_id, ps_ranks, tl,
+                                    span_args)
+                elif tl is not None:
+                    tl.negotiate_start(label, op)
                     tl.negotiate_rank_ready(label, self.topo.rank)
-                    tl.negotiate_end(label, kind.upper())
-                    tl.start(label, kind.upper())
+                    tl.negotiate_end(label, op, span_args)
+                if tl is not None:
+                    self.bytes_handed += sum(t.numel() * t.element_size()
+                                             for t in tensors)
+                    tl.start(label, op, span_args)
                 try:
-                    if self.n > 1 and tensors:
-                        self._negotiate(kind, label, tensors, op_id,
-                                        prescale, postscale, ps_id,
-                                        ps_ranks, tl)
-                    try:
-                        return fn()
-                    except RuntimeError as e:
-                        if isinstance(e, HorovodInternalError) or \
-                                not _transport_failure(e):
-                            raise
-                        # A dead peer or a broken communicator: the
-                        # elastic retry loop owns it.
-                        raise HorovodInternalError(
-                            f"{kind} {label!r} failed in the "
-                            f"communication backend: {e}") from e
+                    return fn()
+                except RuntimeError as e:
+                    if isinstance(e, HorovodInternalError) or \
+                            not _transport_failure(e):
+                        raise
+                    # A dead peer or a broken communicator: the
+                    # elastic retry loop owns it.
+                    raise HorovodInternalError(
+                        f"{kind} {label!r} failed in the "
+                        f"communication backend: {e}") from e
                 finally:
                     if tl is not None:
-                        tl.end(label, kind.upper())
+                        tl.end(label, op)
             finally:
                 self.release_name(name)
 
     def _negotiate(self, kind, label, tensors, op_id, prescale, postscale,
-                   ps_id, ps_ranks, tl) -> None:
+                   ps_id, ps_ranks, tl, span_args=None) -> None:
         """Coordinator negotiation (controller.cc:74) before anything is
         enqueued: a mismatched order or shape fails here, on every rank,
         instead of hanging NCCL.  The signature combines all tensors, so
         a mismatch in any member of a grouped collective fails; the
-        allgather family's dim 0 may differ."""
+        allgather family's dim 0 may differ.  With a timeline ``tl`` it
+        is one ``NEGOTIATE_<KIND>`` phase, hit or miss (``run``)."""
         neg = self.negotiator
-        if not neg.enabled:
-            return
         ragged = kind.startswith("allgather") or kind == "alltoallv"
         shape_sig: List[int] = []
         for t in tensors:
@@ -200,11 +215,23 @@ class EagerEngine:
                 dims[0] = -1
             shape_sig.append(len(dims))
             shape_sig.extend(dims)
-        neg.negotiate(label, kind, ",".join(dtype_name(t.dtype)
-                                            for t in tensors),
-                      tuple(shape_sig), op_id, prescale=prescale,
-                      postscale=postscale, ps_id=ps_id, ps_ranks=ps_ranks,
-                      timeline=tl)
+        args = (label, kind, ",".join(dtype_name(t.dtype) for t in tensors),
+                tuple(shape_sig), op_id)
+        kw = dict(prescale=prescale, postscale=postscale, ps_id=ps_id,
+                  ps_ranks=ps_ranks, timeline=tl)
+        if tl is None:
+            neg.negotiate(*args, **kw)
+            return
+        op = kind.upper()
+        t0 = time.monotonic_ns()
+        tl.negotiate_start(label, op)
+        cached = neg.cached
+        try:
+            neg.negotiate(*args, **kw)
+        finally:
+            tl.negotiate_end(label, op, dict(span_args or {},
+                                             cache_hit=neg.cached > cached))
+            self.negotiate_ns += time.monotonic_ns() - t0
 
     # -- native core hooks --------------------------------------------------
 
@@ -241,6 +268,19 @@ class EagerEngine:
                 flush_store if addr is not None else None,
                 liveness=watch.check if watch is not None else None)
         return self._negotiator
+
+    def counts(self) -> Dict[str, int]:
+        """What this engine has done so far: dispatches, and while a
+        timeline recorded, the bytes handed to collectives and the host
+        ns spent negotiating; its negotiator's ``negotiated`` and
+        ``cached`` (0 in a world of one)."""
+        neg = self._negotiator
+        enabled = neg is not None and neg.enabled
+        return {"dispatches": self.dispatches,
+                "bytes_handed": self.bytes_handed,
+                "negotiate_ns": self.negotiate_ns,
+                "negotiated": neg.negotiated if enabled else 0,
+                "cached": neg.cached if enabled else 0}
 
     def close(self) -> None:
         """Stop the negotiator's flusher after shipping its records."""

@@ -206,7 +206,9 @@ class Negotiator:
         """Block until every rank has announced this collective and rank 0
         validated consistency; raises CollectiveRejectedError on a
         mismatch.  A response-cache HIT dispatches at once, with no
-        round-trip."""
+        round-trip.  On rank 0, ``timeline`` gets an instant for each
+        rank's request as it arrives; the engine spans the whole
+        negotiation (``EagerEngine.run``)."""
         if not self.enabled:
             return
         kind_id = _KINDS.get(kind, 0) + op
@@ -244,22 +246,16 @@ class Negotiator:
         epoch = self._epochs.get(name, 0)
         self._epochs[name] = epoch + 1
         self.publish_dispatch(name, epoch, sig, kind)
-        if timeline is not None:
-            timeline.negotiate_start(name, kind.upper())
-        try:
-            if self.rank == 0:
-                if epoch > 1:
-                    # A worker may still be between its wait for the
-                    # previous epoch's verdict and its read; the epoch
-                    # before that one everybody has left (their requests
-                    # for the previous epoch all arrived).
-                    self._collect(self._resp_key(name, epoch - 2))
-                verdict = self._coordinate(name, epoch, sig, timeline, kind)
-            else:
-                verdict = self._submit_and_wait(name, epoch, sig)
-        finally:
-            if timeline is not None:
-                timeline.negotiate_end(name, kind.upper())
+        if self.rank == 0:
+            if epoch > 1:
+                # A worker may still be between its wait for the
+                # previous epoch's verdict and its read; the epoch
+                # before that one everybody has left (their requests
+                # for the previous epoch all arrived).
+                self._collect(self._resp_key(name, epoch - 2))
+            verdict = self._coordinate(name, epoch, sig, timeline, kind)
+        else:
+            verdict = self._submit_and_wait(name, epoch, sig)
         if verdict:
             raise CollectiveRejectedError(
                 f"collective {name!r} rejected by coordinator: {verdict}")

@@ -28,6 +28,17 @@ first reducing ``step()`` (per analysis generation) checks that
 reduction on fake copies of its gradients before running it
 (``analysis/hook.py``, label ``DistributedOptimizer:<n>``).
 
+While a timeline records (``timeline.ACTIVE``), ``step()`` emits its
+parts as spans: ``opt.accumulate`` (the add into the accumulators and,
+over several passes, the divide), ``opt.reduce`` (the reduction, each
+fusion bucket's pack, negotiation, op state and unpack inside it),
+``opt.writeback`` (each ``grad`` set, the accumulators zeroed) and
+``opt.inner`` (the wrapped optimizer's ``step()``), and one ``opt``
+counter a reducing step: buckets, bytes handed to the collectives,
+engine dispatches, negotiations and negotiation-cache hits, and host
+µs spent negotiating.  Nothing is emitted inside the ``HVD_ANALYZE``
+pass.
+
 With ``process_set``, the gradients reduce over the set's ranks, and a
 rank outside the set steps on its own gradients (the JAX package's
 non-member passthrough).  ``reduce_axes=("dp", "sp")`` (``:354``)
@@ -70,6 +81,7 @@ from torch.utils import _pytree
 
 from . import core as _core
 from . import ops as _ops
+from . import timeline as _timeline
 from .analysis import graph_check as _gc
 from .analysis import hook as _analysis_hook
 from .compression import Compression
@@ -82,16 +94,20 @@ from .process_sets import ProcessSet, global_process_set
 # casts only, so only they may compress a fusion bucket once.
 _ELEMENTWISE = (Compression.none, Compression.fp16, Compression.bf16)
 
+# The timeline thread (``tid``) of ``DistributedOptimizer.step``'s spans.
+_SPAN_TID = "DistributedOptimizer"
+
 
 def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
                     compression, prescale: float, postscale: float,
                     process_set: ProcessSet,
-                    groups: Optional[List[List[int]]] = None
-                    ) -> List[torch.Tensor]:
+                    groups: Optional[List[List[int]]] = None,
+                    counts: Optional[dict] = None) -> List[torch.Tensor]:
     """Reduce a list of gradients by the JAX package's ``_allreduce_tree``
     rules: each of ``groups`` as one grouped allreduce; else Average and
     Sum under an elementwise compressor through the fusion planner, one
-    ``_fused_allreduce`` per bucket; else tensor by tensor."""
+    ``_fused_allreduce`` per bucket; else tensor by tensor.  ``counts``
+    gets the buckets (a group is one) added to its ``"buckets"``."""
     kw = dict(op=op, compression=compression, prescale_factor=prescale,
               postscale_factor=postscale, process_set=process_set)
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
@@ -103,6 +119,8 @@ def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
             for i, r in zip(g, _ops.grouped_allreduce(
                     [grads[i] for i in g], **kw)):
                 out[i] = r
+        if counts is not None:
+            counts["buckets"] += len(groups)
         return out
     st = _core._require_init()
     pm = st.param_manager
@@ -111,10 +129,13 @@ def _allreduce_list(grads: Sequence[torch.Tensor], op: ReduceOp,
     entries = [(str(i), str(g.dtype), g.numel() * g.element_size(),
                 int(op), 0) for i, g in enumerate(grads)]
     t0 = time.perf_counter()
-    for bucket in plan_fusion(entries, threshold):
+    buckets = plan_fusion(entries, threshold)
+    for k, bucket in enumerate(buckets):
         for i, r in zip(bucket, _ops._fused_allreduce(
-                [grads[i] for i in bucket], **kw)):
+                [grads[i] for i in bucket], bucket=k, **kw)):
             out[i] = r
+    if counts is not None:
+        counts["buckets"] += len(buckets)
     if pm is not None and pm.enabled and not pm.converged and \
             len(grads) > 1 and _gc.active() is None:
         # Autotune scores this window (JAX's optimizer.py:286-289): the
@@ -208,6 +229,9 @@ class DistributedOptimizer:
             _axis_sets(self._params, tuple(reduce_axes))
         self._analysis_label: Optional[str] = None
         self._analyzed_gen = None  # the analysis generation checked in
+        # A traced reducing step's bucket count (``_allreduce_list``'s
+        # ``counts``), None otherwise.
+        self._counts: Optional[dict] = None
 
     def _index_groups(self, groups) -> Optional[List[List[int]]]:
         if not groups:
@@ -272,6 +296,10 @@ class DistributedOptimizer:
         """Accumulate this pass's gradients; on the aggregation boundary
         reduce them and run the wrapped optimizer's step (returning its
         result), else return None having changed no parameter."""
+        tl = _timeline.ACTIVE
+        if tl is not None and _gc.active() is not None:
+            tl = None
+        t0 = time.monotonic_ns() if tl is not None else 0
         if self._acc is None:
             self._acc = [torch.zeros_like(p, dtype=torch.float32)
                          for p in self._params]
@@ -281,10 +309,14 @@ class DistributedOptimizer:
             torch._foreach_add_([a for a, _ in live], [g for _, g in live])
         self._passes += 1
         if self._passes < self.backward_passes_per_step:
+            if tl is not None:
+                tl.span("opt.accumulate", t0, tid=_SPAN_TID)
             return None
         n = self.backward_passes_per_step
         scaled = torch._foreach_div(self._acc, float(n)) if n > 1 \
             else list(self._acc)
+        if tl is not None:
+            tl.span("opt.accumulate", t0, tid=_SPAN_TID)
         if _analysis_hook.enabled() and \
                 self._analyzed_gen != _analysis_hook.generation():
             # HVD_ANALYZE=1: check this instance's reduction once per
@@ -295,33 +327,69 @@ class DistributedOptimizer:
                 self._analysis_label = _analysis_hook.next_instance()
             _analysis_hook.analyze_reduction(self._allreduce, scaled,
                                              self._analysis_label)
-        reduced = self._allreduce(scaled)
+        if tl is None:
+            reduced = self._allreduce(scaled)
+        else:
+            reduced = self._traced_allreduce(tl, scaled)
+            t0 = time.monotonic_ns()
         for p, g in zip(self._params, reduced):
             p.grad = g.to(p.dtype)
         torch._foreach_zero_(self._acc)
         self._passes = 0
+        if tl is not None:
+            tl.span("opt.writeback", t0, tid=_SPAN_TID)
+            t0 = time.monotonic_ns()
         if closure is not None:
             with torch.enable_grad():
-                return self.optimizer.step(closure)
-        return self.optimizer.step()
+                out = self.optimizer.step(closure)
+        else:
+            out = self.optimizer.step()
+        if tl is not None:
+            tl.span("opt.inner", t0, tid=_SPAN_TID)
+        return out
+
+    def _traced_allreduce(self, tl, grads: List[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+        """``_allreduce`` as the ``opt.reduce`` span, then the step's
+        ``opt`` counter (module doc)."""
+        eng = _core._require_init().engine
+        before = eng.counts()
+        self._counts = {"buckets": 0}
+        t0 = time.monotonic_ns()
+        try:
+            reduced = self._allreduce(grads)
+        finally:
+            counts, self._counts = self._counts, None
+        tl.span("opt.reduce", t0, tid=_SPAN_TID)
+        d = {k: v - before[k] for k, v in eng.counts().items()}
+        tl.counter("opt", {"buckets": counts["buckets"],
+                           "bytes": d["bytes_handed"],
+                           "dispatches": d["dispatches"],
+                           "negotiations": d["negotiated"],
+                           "cache_hits": d["cached"],
+                           "negotiate_us": d["negotiate_ns"] / 1e3})
+        return reduced
 
     def _allreduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         if self._axis_sets is None:
             return _allreduce_list(grads, self.op, self.compression,
                                    self._prescale, self._postscale,
-                                   self.process_set, self._groups)
+                                   self.process_set, self._groups,
+                                   self._counts)
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         n_all, sets = self._axis_sets
         for ps, idx in sets:
             sub = [grads[i] for i in idx]
             if ps is self.process_set:
                 red = _allreduce_list(sub, self.op, self.compression,
-                                      self._prescale, self._postscale, ps)
+                                      self._prescale, self._postscale, ps,
+                                      counts=self._counts)
             else:
                 # A sharded parameter: the sum over its reduce set, then
                 # the divisor of every reduce axis (JAX's order).
                 red = _allreduce_list(sub, ReduceOp.SUM, self.compression,
-                                      self._prescale, 1.0, ps) \
+                                      self._prescale, 1.0, ps,
+                                      counts=self._counts) \
                     if ps is not None else [g * self._prescale for g in sub]
                 if self.op == ReduceOp.AVERAGE:
                     red = [g / n_all for g in red]
@@ -377,6 +445,8 @@ class PartialDistributedOptimizer(DistributedOptimizer):
                 compression=self.compression,
                 process_set=self.process_set)):
             out[i] = r
+        if self._counts is not None:
+            self._counts["buckets"] += 1
         return out
 
 

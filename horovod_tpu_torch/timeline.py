@@ -1,8 +1,9 @@
 """Horovod-Timeline-compatible Chrome-trace profiler.
 
 Copy of ``horovod_tpu/timeline.py`` (the port keeps its own copy: it
-imports nothing of the JAX package); the writer, its bounded queue with
-counted drops and ``mark_cycle`` are unchanged.
+imports nothing of the JAX package); the bounded queue with counted
+drops and ``mark_cycle`` are unchanged, and the writer thread drains the
+queue in batches.
 
 Reference: horovod/common/timeline.{h,cc} — a Chrome trace JSON
 (``HOROVOD_TIMELINE=/path`` or the ``horovod_start_timeline`` runtime API,
@@ -18,6 +19,22 @@ card, so the span ends when the collective is queued, not when it has
 run, as the JAX package's spans cover an asynchronous dispatch.  The
 device plane is ``torch.profiler``'s.  The file is valid Chrome-trace
 JSON (array form, openable in chrome://tracing / Perfetto).
+
+The port's training step adds step-phase spans: complete (``"X"``)
+events emitted at their end from a ``time.monotonic_ns()`` stamp taken
+where the work began (``span``), and per-step counters (``counter``).
+``DistributedOptimizer.step`` records ``opt.accumulate``, ``opt.reduce``
+(each fusion bucket's ``MEMCPY_IN_FUSION_BUFFER``, negotiation, op state
+and ``MEMCPY_OUT_FUSION_BUFFER`` inside it), ``opt.writeback`` and
+``opt.inner``; the ``Transformer`` its regions (``embed``, ``attn`` and
+``mlp`` per block, ``head``) and ``lm_loss`` its ``loss``, forward and
+backward.  ``ACTIVE`` is the running timeline of this process (None
+when none records), set by ``core``: an instrumented site reads it
+once, so tracing off costs an attribute read.  A timeline the runtime
+starts (``HOROVOD_TIMELINE`` on rank 0, ``start_timeline`` on any rank)
+writes its zero on the host's monotonic clock into the process
+metadata event (``monotonic_zero_ns``): ``ts`` µs after it, so a reader
+puts every event back on ``time.monotonic_ns()``'s axis.
 """
 
 from __future__ import annotations
@@ -29,24 +46,15 @@ import threading
 import time
 from typing import Optional
 
-# Activity names preserved from the reference (common.h:80-114).
-QUEUE = "QUEUE"
-WAIT_FOR_DATA = "WAIT_FOR_DATA"
-WAIT_FOR_OTHER_TENSOR_DATA = "WAIT_FOR_OTHER_TENSOR_DATA"
+# Activity names of the reference (common.h:80-114) that the port emits:
+# the fusion buffer's pack and unpack (``ops._fused_allreduce``).
 MEMCPY_IN_FUSION_BUFFER = "MEMCPY_IN_FUSION_BUFFER"
 MEMCPY_OUT_FUSION_BUFFER = "MEMCPY_OUT_FUSION_BUFFER"
-XLA_EXECUTE = "XLA_EXECUTE"
-TRACE_CACHE_HIT = "TRACE_CACHE_HIT"
-TRACE_COMPILE = "TRACE_COMPILE"
 
 # Ring-collective hop events (no reference analog — the reference has no
-# ring/sequence parallelism).  RING_HOP carries the traced hop schedule
-# (parallel/ring.py set_ring_timeline); RING_KERNEL / RING_TRANSFER carry
-# measured per-hop spans (bench.py ring microbench) so kernel time and ICI
-# transfer time are separable in the trace viewer.
+# ring/sequence parallelism): RING_HOP carries the hop schedule
+# (parallel/ring.py set_ring_timeline).
 RING_HOP = "RING_HOP"
-RING_KERNEL = "RING_KERNEL"
-RING_TRANSFER = "RING_TRANSFER"
 
 # Serving-plane counters (no reference analog — the reference is
 # training-only).  serve/metrics.py publishes engine statistics (tokens,
@@ -126,6 +134,15 @@ HVDTRACE = "hvdtrace"
 HVDTRACE_FLOW = "hvdtrace-flow"
 
 
+# How long the writer thread waits after an event wakes it before it
+# writes every event queued (``Timeline._drain``).
+DRAIN_INTERVAL_S = 0.05
+
+# The timeline this process records to now, or None (module doc);
+# ``core`` sets it wherever it starts, replaces or closes one.
+ACTIVE: Optional["Timeline"] = None
+
+
 def force_put_sentinel(q: "queue.Queue", on_drop) -> None:
     """Deliver a ``None`` shutdown sentinel to a bounded queue WITHOUT
     blocking: the producer side must already be closed (no new puts),
@@ -151,7 +168,8 @@ class Timeline:
     (TimelineWriter, timeline.h:48)."""
 
     def __init__(self, path: str, mark_cycles: bool = False, rank: int = 0,
-                 queue_cap: Optional[int] = None):
+                 queue_cap: Optional[int] = None,
+                 monotonic_zero: bool = False):
         self.path = path
         self.mark_cycles = mark_cycles
         self.rank = rank
@@ -176,7 +194,7 @@ class Timeline:
         self._writer = threading.Thread(target=self._drain, daemon=True,
                                         name="hvd-timeline-writer")
         self._writer.start()
-        self._emit_meta()
+        self._emit_meta(monotonic_zero)
 
     # -- event api ----------------------------------------------------------
 
@@ -207,9 +225,12 @@ class Timeline:
             with self._drop_lock:
                 self._dropped += 1
 
-    def _emit_meta(self):
+    def _emit_meta(self, monotonic_zero: bool = False):
+        args = {"name": f"horovod_tpu rank {self.rank}"}
+        if monotonic_zero:
+            args["monotonic_zero_ns"] = self._start
         self._put({"name": "process_name", "ph": "M", "pid": self.rank,
-                   "args": {"name": f"horovod_tpu rank {self.rank}"}})
+                   "args": args})
 
     def negotiate_start(self, tensor_name: str, op_type: str):
         """NEGOTIATE_<OP> phase begin (timeline.cc NegotiateStart)."""
@@ -222,14 +243,22 @@ class Timeline:
         self._put({"name": str(req_rank), "ph": "i", "s": "t",
                    "ts": self._ts_us(), "pid": self.rank, "tid": tensor_name})
 
-    def negotiate_end(self, tensor_name: str, op_type: str):
-        self._put({"name": f"NEGOTIATE_{op_type}", "ph": "E",
-                   "ts": self._ts_us(), "pid": self.rank, "tid": tensor_name})
+    def negotiate_end(self, tensor_name: str, op_type: str,
+                      args: Optional[dict] = None):
+        ev = {"name": f"NEGOTIATE_{op_type}", "ph": "E",
+              "ts": self._ts_us(), "pid": self.rank, "tid": tensor_name}
+        if args:
+            ev["args"] = args
+        self._put(ev)
 
-    def start(self, tensor_name: str, op_type: str):
+    def start(self, tensor_name: str, op_type: str,
+              args: Optional[dict] = None):
         """Top-level op state begin (timeline.cc Start)."""
-        self._put({"name": op_type, "ph": "B", "ts": self._ts_us(),
-                   "pid": self.rank, "tid": tensor_name})
+        ev = {"name": op_type, "ph": "B", "ts": self._ts_us(),
+              "pid": self.rank, "tid": tensor_name}
+        if args:
+            ev["args"] = args
+        self._put(ev)
 
     def activity_start(self, tensor_name: str, activity: str):
         self._put({"name": activity, "ph": "B", "ts": self._ts_us(),
@@ -252,8 +281,7 @@ class Timeline:
         instead of running a kernel.  Emitted at TRACE time by
         parallel/ring.py when a timeline is registered via
         ``set_ring_timeline`` — the device plane inside jit is invisible to
-        the host (module docstring), so these document the schedule, while
-        ``ring_span`` carries measured spans."""
+        the host (module docstring), so these document the schedule."""
         self._put({"name": f"{RING_HOP}_{hop}", "ph": "X",
                    "ts": self._ts_us(), "dur": dur_us,
                    "pid": self.rank, "tid": tensor_name,
@@ -261,15 +289,23 @@ class Timeline:
                             "mask": mask, "schedule": schedule,
                             "skipped_shards": skipped_shards}})
 
-    def ring_span(self, tensor_name: str, hop: int, kind: str,
-                  start_us: float, dur_us: float, **args):
-        """Measured span for one ring hop: ``kind`` is RING_KERNEL (per-hop
-        attention/fold compute) or RING_TRANSFER (the K/V ppermute).  Used
-        by the bench ring microbench, which times single-hop programs to
-        attribute step time to kernel vs transfer."""
-        self._put({"name": f"{kind}_{hop}", "ph": "X", "ts": start_us,
-                   "dur": dur_us, "pid": self.rank, "tid": tensor_name,
-                   "args": dict(args, hop=hop)})
+    def span(self, name: str, start_mono_ns: int, tid: str = "step",
+             args: Optional[dict] = None,
+             end_mono_ns: Optional[int] = None):
+        """One complete (``"X"``) event from ``start_mono_ns`` to
+        ``end_mono_ns`` (now when None), both ``time.monotonic_ns()``
+        stamps the caller took where the work began and ended: a span
+        is emitted once, at its end (module doc)."""
+        end = time.monotonic_ns() if end_mono_ns is None else end_mono_ns
+        self._put({"name": name, "ph": "X", "ts": self.ts_of(start_mono_ns),
+                   "dur": (end - start_mono_ns) / 1e3, "pid": self.rank,
+                   "tid": tid, "args": args or {}})
+
+    def counter(self, name: str, values: dict):
+        """One counter (``"C"``) event: ``values`` maps series name →
+        number (a step's counts, module doc)."""
+        self._put({"name": name, "ph": "C", "ts": self._ts_us(),
+                   "pid": self.rank, "args": values})
 
     def collective_census(self, step_name: str, census: dict):
         """Per-step collective census from the jaxpr checker
@@ -473,15 +509,26 @@ class Timeline:
     # -- writer thread ------------------------------------------------------
 
     def _drain(self):
+        # Woken by its first event, the writer waits DRAIN_INTERVAL_S
+        # and writes what has queued by then: it takes the GIL from the
+        # step's threads a few times a second, not once an event.
         while True:
-            ev = self._queue.get()
-            if ev is None:
+            batch = [self._queue.get()]
+            time.sleep(DRAIN_INTERVAL_S)
+            while batch[-1] is not None:
+                try:
+                    batch.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            done = batch[-1] is None
+            lines = [json.dumps(ev) for ev in batch if ev is not None]
+            if lines:
+                if not self._first:
+                    self._fh.write(",\n")
+                self._first = False
+                self._fh.write(",\n".join(lines))
+            if done:
                 return
-            line = json.dumps(ev)
-            if not self._first:
-                self._fh.write(",\n")
-            self._first = False
-            self._fh.write(line)
 
     def close(self):
         if self._closed:

@@ -156,7 +156,8 @@ def test_no_port_file_imports_jax(path):
                                   "faultline/runtime.py"])
 def test_copied_modules_match_their_source(name):
     """The pure-Python modules the port copies keep the source's code:
-    only the module docstring (which names the source) differs."""
+    only the module docstring (which names the source) differs, and in a
+    copy ``COPY_EDITS`` lists, the symbols it names there."""
     def body(path):
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -171,6 +172,12 @@ def test_copied_modules_match_their_source(name):
     doc, port = body(os.path.join(PORT, name))
     _, src = body(os.path.join(REPO, "horovod_tpu", name))
     assert f"horovod_tpu/{name}" in doc
+    if name in COPY_EDITS:
+        edited = set().union(*map(set, COPY_EDITS[name].values()))
+        port, src = ({k: v for k, v in _symbols(path).items()
+                      if k not in edited}
+                     for path in (os.path.join(PORT, name),
+                                  os.path.join(REPO, "horovod_tpu", name)))
     assert port == src
 
 
@@ -299,6 +306,20 @@ COPY_EDITS = {
         removed={"wrap_optimizer", "_maybe_analyze_update"},
         changed={"analyze_traceable"},
         added={"analyze_reduction", "next_instance"}),
+    # The step-phase spans: the running timeline as ``ACTIVE``, complete
+    # spans and counters, args on the negotiation's end and the op
+    # state, the monotonic zero in the metadata event of a timeline the
+    # runtime starts, a writer that drains in batches; the activities
+    # and ring spans nothing emits are gone.
+    "timeline.py": dict(
+        removed={"QUEUE", "WAIT_FOR_DATA", "WAIT_FOR_OTHER_TENSOR_DATA",
+                 "XLA_EXECUTE", "TRACE_CACHE_HIT", "TRACE_COMPILE",
+                 "RING_KERNEL", "RING_TRANSFER", "Timeline.ring_span"},
+        changed={"Timeline.__init__", "Timeline._emit_meta",
+                 "Timeline.negotiate_end", "Timeline.start",
+                 "Timeline._drain"},
+        added={"ACTIVE", "DRAIN_INTERVAL_S", "Timeline.span",
+               "Timeline.counter"}),
 }
 
 
